@@ -1,0 +1,246 @@
+"""Algorithm 1 — block coordinate descent over the one-slot problem (P2).
+
+Three blocks, iterated ``n_iters`` times (paper §V-B):
+
+  line 3: video configuration (r, x, m) - exhaustive search over the
+          (model x resolution x policy) grid, per camera;
+  line 4: bandwidth allocation b         - water-filling per server;
+  line 5: computation allocation c       - the same.
+
+``solver_backend`` picks who computes the blocks:
+
+  * ``"cuda"``  - the hand-written kernels of
+    ``repro_torch.kernels.slot_solver`` (``config_argmin`` and one fused
+    ``waterfill_pair`` launch per BCD pass; ``"cuda:nofuse"`` launches
+    ``waterfill`` twice instead). Needs CUDA tensors.
+  * ``"torch"`` - the plain PyTorch versions, on whatever device the
+    tensors are on (the reference the kernels are held against).
+  * ``"auto"``  - ``cuda`` for CUDA tensors, ``torch`` on the CPU.
+
+Not yet ported: the camera-tiled water-fill (``tile=``), the paper's
+interior-point method (``method="interior"``) and the fleet-churn mask
+(``active``); each raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+import numpy as np
+import torch
+
+from . import allocate, aopi
+from ..device import DEFAULT_DEVICE, resolve_device
+from ..kernels.slot_solver import ops, ref
+
+SOLVER_BACKENDS = ("torch", "cuda", "auto")
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverSpec:
+    """Parsed ``solver_backend`` spec: backend plus tiling/fusion knobs."""
+    backend: str              # "torch" | "cuda" | "auto" (pre-resolution)
+    tile_n: int | None = None  # water-fill camera tile (None = untiled)
+    fuse: bool = True          # one fused kernel for both water-fills
+
+
+def parse_backend(solver_backend) -> SolverSpec:
+    """Parse ``<backend>[:<knob>]*`` with knobs ``tile=<int>``, ``fuse``
+    and ``nofuse`` (``repro.core.bcd.parse_backend``'s grammar)."""
+    if isinstance(solver_backend, SolverSpec):
+        return solver_backend
+    parts = str(solver_backend).split(":")
+    if parts[0] not in SOLVER_BACKENDS:
+        raise ValueError(f"unknown solver_backend {parts[0]!r}; "
+                         f"known: {SOLVER_BACKENDS}")
+    tile_n = None
+    fuse = True
+    for tok in parts[1:]:
+        if tok == "fuse":
+            fuse = True
+        elif tok == "nofuse":
+            fuse = False
+        elif tok.startswith("tile="):
+            tile_n = int(tok[len("tile="):])
+        else:
+            raise ValueError(f"unknown solver_backend knob {tok!r} in "
+                             f"{solver_backend!r}; known: tile=<int>, "
+                             "fuse, nofuse")
+    return SolverSpec(parts[0], tile_n, fuse)
+
+
+def resolve_spec(solver_backend, device, method: str = "waterfill"
+                 ) -> SolverSpec:
+    """Resolve a spec for tensors on ``device``: ``auto`` becomes ``cuda``
+    on a CUDA device and ``torch`` elsewhere (there is no fleet-size
+    threshold), ``cuda`` on a non-CUDA device raises ``ValueError``. The
+    resolved spec never carries ``auto`` or a tile. ``auto`` never tiles:
+    the tiled water-fill is not ported, and ``tile=<n>`` (n > 0) raises
+    ``NotImplementedError``, as does ``method="interior"``."""
+    spec = parse_backend(solver_backend)
+    if method != "waterfill":
+        raise NotImplementedError(
+            f"method={method!r} (the paper's interior-point allocator) is "
+            "not yet ported; use method='waterfill'")
+    if spec.tile_n:
+        raise NotImplementedError(
+            "tile= selects the camera-tiled water-fill kernel "
+            "(waterfill_tiled), which is not yet ported")
+    dev = torch.device(device)
+    backend = spec.backend
+    if backend == "auto":
+        backend = "cuda" if dev.type == "cuda" else "torch"
+    if backend == "cuda" and dev.type != "cuda":
+        raise ValueError(f"solver_backend='cuda' needs CUDA tensors; the "
+                         f"inputs are on {dev}")
+    return SolverSpec(backend, None, spec.fuse)
+
+
+@dataclasses.dataclass
+class SlotDecision:
+    """Output of one Algorithm-1 solve (per-camera tensors)."""
+    r_idx: torch.Tensor       # resolution index into tables.size
+    m_idx: torch.Tensor       # model index
+    pol: torch.Tensor         # 0 FCFS / 1 LCFSP
+    b: torch.Tensor           # Hz
+    c: torch.Tensor           # FLOPS
+    lam: torch.Tensor         # frames/s
+    mu: torch.Tensor          # frames/s
+    acc: torch.Tensor         # recognition accuracy p_{n,t}
+    aopi: torch.Tensor        # closed-form per-camera AoPI
+    score: torch.Tensor       # scalar drift-plus-penalty value
+
+    def as_numpy(self) -> "SlotDecision":
+        return SlotDecision(*(v.cpu().numpy()
+                              for v in dataclasses.astuple(self)))
+
+    @staticmethod
+    def stack(decisions) -> "SlotDecision":
+        """Stack per-slot decisions along a new leading axis."""
+        return SlotDecision(*(torch.stack([getattr(d, f.name)
+                                           for d in decisions])
+                              for f in dataclasses.fields(SlotDecision)))
+
+
+def _pair_fns(spec, server_id, budgets_b, budgets_c, n_servers):
+    """``make_pair(iteration budgets) -> pair(k, p, pol, mu, inv_xi)``
+    returning ``(b, c)`` for the resolved backend."""
+    if spec.backend == "torch":
+        def make_pair(kw):
+            def pair(k, p, pol, mu, inv_xi):
+                return allocate.waterfill_pair(
+                    k, p, pol, mu, inv_xi, server_id, budgets_b, budgets_c,
+                    n_servers, **kw)
+            return pair
+        return make_pair
+    layout = ops.server_layout(server_id, n_servers)
+    if spec.fuse:
+        def make_pair(kw):
+            def pair(k, p, pol, mu, inv_xi):
+                return ops.waterfill_pair(
+                    k, p, pol, mu, inv_xi, server_id, budgets_b, budgets_c,
+                    n_servers, layout=layout, **kw)
+            return pair
+        return make_pair
+
+    def make_pair(kw):
+        def pair(k, p, pol, mu, inv_xi):
+            b = ops.waterfill_bandwidth(k, p, pol, mu, server_id, budgets_b,
+                                        n_servers, layout=layout, **kw)
+            c = ops.waterfill_compute(inv_xi, p, pol, b * k, server_id,
+                                      budgets_c, n_servers, layout=layout,
+                                      **kw)
+            return b, c
+        return pair
+    return make_pair
+
+
+def solve_slot(acc, xi, size, eff, server_id, budgets_b, budgets_c, q, V,
+               n_servers: int, n_iters: int = 4,
+               method: Literal["waterfill", "interior"] = "waterfill",
+               solver_effort: Literal["fast", "seed"] = "fast",
+               solver_backend: str = "auto", active=None) -> SlotDecision:
+    """Run Algorithm 1 and return a :class:`SlotDecision`.
+
+    Args:
+      acc:  [N, M, R] profiled accuracy; xi: [M, R] FLOPs per frame;
+      size: [R] bits per frame; eff: [N] link efficiency (bits/s/Hz).
+      server_id: int32 [N] camera -> server (Algorithm 2's output).
+      budgets_b/_c: [n_servers] available Hz / FLOPS.
+      q, V: Lyapunov queue value (number or 0-d tensor) and penalty weight
+        (Python number).
+      solver_effort: "fast" uses cheap water-filling inside the BCD loop
+        plus one full-precision re-allocation; "seed" the flat
+        high-iteration effort.
+      solver_backend: ``"auto" | "cuda" | "torch"`` with ``:nofuse``
+        (see :func:`resolve_spec`).
+      active: fleet-churn mask; not yet ported (must be ``None``).
+    """
+    if active is not None:
+        raise NotImplementedError("the fleet-churn mask (active) is not yet "
+                                  "ported")
+    spec = resolve_spec(solver_backend, acc.device, method=method)
+    n = acc.shape[0]
+    sid = server_id.long()
+    counts = allocate.segment_sum(
+        torch.ones(n, dtype=acc.dtype, device=acc.device), sid, n_servers)
+    share = (1.0 / torch.clamp_min(counts, 1.0))[sid]
+    b = budgets_b[sid] * share
+    c = budgets_c[sid] * share
+    config = (ops.config_argmin if spec.backend == "cuda"
+              else ref.config_argmin_ref)
+    make_pair = _pair_fns(spec, server_id, budgets_b, budgets_c, n_servers)
+
+    polish = solver_effort == "fast"
+    if polish:
+        # Cheap effort inside the BCD loop (it only steers the discrete
+        # config choice); one accurate re-allocation afterwards.
+        pair_loop = make_pair(dict(outer_iters=10, inner_iters=3,
+                                   final_inner_iters=5))
+        pair_full = make_pair({})
+    else:
+        pair_loop = make_pair(dict(outer_iters=54, inner_iters=40,
+                                   final_inner_iters=40))
+
+    rows = torch.arange(n, device=acc.device)
+
+    def blocks(r_idx, m_idx, pol):
+        p = acc[rows, m_idx.long(), r_idx.long()]
+        k = eff / size[r_idx.long()]
+        xi_nm = xi[m_idx.long(), r_idx.long()]
+        return p, k, xi_nm
+
+    r_idx = m_idx = pol = torch.zeros(n, dtype=torch.int32,
+                                      device=acc.device)
+    for _ in range(n_iters):
+        r_idx, m_idx, pol = config(b, c, acc, xi, size, eff, q, V, n)
+        p, k, xi_nm = blocks(r_idx, m_idx, pol)
+        # lines 4-5: bandwidth given (r, x, m, c), then compute given the
+        # fresh arrival rate lam = b * k.
+        b, c = pair_loop(k, p, pol, c / xi_nm, 1.0 / xi_nm)
+
+    p, k, xi_nm = blocks(r_idx, m_idx, pol)
+    if polish:
+        b, c = pair_full(k, p, pol, c / xi_nm, 1.0 / xi_nm)
+    lam = b * eff / size[r_idx.long()]                # Eqs. (1)-(2)
+    mu = c / xi_nm                                    # Eq. (3)
+    a = aopi.aopi(lam, mu, p, pol)
+    score = -q * torch.mean(p) + V * torch.mean(a)
+    return SlotDecision(r_idx, m_idx, pol, b, c, lam, mu, p, a, score)
+
+
+def solve_slot_np(tables, server_id, budgets_b, budgets_c, q, V,
+                  n_servers, device=DEFAULT_DEVICE, **kw) -> SlotDecision:
+    """Solve one slot from a ``profiles.SlotTables``; returns numpy."""
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    dec = solve_slot(f32(tables.acc), f32(tables.xi), f32(tables.size),
+                     f32(tables.eff),
+                     torch.as_tensor(np.asarray(server_id, np.int32),
+                                     device=dev),
+                     f32(budgets_b), f32(budgets_c), float(np.float32(q)),
+                     float(V), n_servers=int(n_servers), **kw)
+    return dec.as_numpy()

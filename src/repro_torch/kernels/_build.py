@@ -1,0 +1,70 @@
+"""Build of the port's CUDA sources at first use.
+
+Each library is compiled by ``nvcc`` straight from the sources in the
+package into a shared library with a plain C interface (loaded with
+``ctypes``; no PyTorch headers, so a build takes seconds). The library is
+named by a hash of its sources and flags and kept under
+``repro_torch/_build/``, so a changed source builds anew and an unchanged
+one is built once per checkout.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+
+# Hopper only (wgmma/setmaxnreg need the "a" target). -fmad=false keeps
+# a*b+c as two rounded operations, as the plain PyTorch versions compute
+# it; no fast math, so division, sqrt and exp stay IEEE / libdevice.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
+              "-fPIC")
+
+
+def nvcc_path() -> str:
+    """The ``nvcc`` to call: ``$CUDA_HOME/bin/nvcc``, then ``PATH``, then
+    ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def build_command(sources, output, nvcc: str = "nvcc") -> list[str]:
+    """The ``nvcc`` command line that builds ``sources`` into ``output``."""
+    return [nvcc, *NVCC_FLAGS, "-o", str(output), *map(str, sources)]
+
+
+def source_hash(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(name: str, sources) -> Path:
+    """Return the path of the built library, compiling it if needed.
+
+    The compiler's report (registers, shared memory, spills) is written
+    beside it as ``<library>.log``. Raises ``RuntimeError`` with the
+    compiler's output when the build fails.
+    """
+    sources = [Path(s) for s in sources]
+    out = BUILD_DIR / f"{name}-{source_hash(sources)}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = build_command(sources, tmp, nvcc_path())
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
+                           f"{name}: {' '.join(cmd)}\n{proc.stdout}"
+                           f"{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)     # atomic: a concurrent build sees all or none
+    return out

@@ -1,0 +1,263 @@
+"""Wrappers of the slot-solver kernels: one entry point per kernel.
+
+Each wrapper takes the plain PyTorch version for tensors on the CPU and
+launches the CUDA kernel for tensors on a CUDA device, after checking
+device, dtype, shape and contiguity; there is no fallback from the kernel
+to the plain version. ``launches`` counts kernel launches per kernel (the
+plain version never counts).
+
+``ServerLayout`` sorts cameras stably by server into contiguous per-server
+segments; the water-fill kernels run one CTA per segment, given the
+sorted camera order and each server's ``start``/``counts``. The layout
+also keeps the JAX package's lane-padded flat view and ``[S, C]`` row view
+(``repro.kernels.slot_solver.ops.ServerLayout``), so the two can be
+compared field by field.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import kernel, ref
+from ...core import allocate
+
+_LANE = 128          # the reference's padding width (its TPU lane width)
+
+# Kernel launches per kernel name since the last ``reset_launches()``.
+launches = {"config_argmin": 0, "waterfill": 0, "waterfill_pair": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; other devices raise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"slot solver: unsupported device {t.device}")
+
+
+def _check(name: str, t, dtype, shape, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+@dataclasses.dataclass
+class ServerLayout:
+    """Cameras stably sorted into per-server segments.
+
+      * ``flat_order[j]`` - original index of the j-th camera in sorted
+        order, padded to a multiple of 128 with the sentinel ``N``;
+        ``flat_sid`` holds each slot's server (``S`` on padding) and
+        ``flat_mask`` 1.0 on real slots;
+      * ``counts[s]`` / ``start[s]`` - the length and offset of server s's
+        segment in that order (the kernels' view);
+      * ``order`` / ``mask`` - the ``[S, C]`` row view (``C`` = capacity),
+        built on demand.
+    """
+    counts: torch.Tensor      # [S]  int32
+    start: torch.Tensor       # [S]  int32
+    flat_order: torch.Tensor  # [Np] int32
+    flat_sid: torch.Tensor    # [Np] int32
+    flat_mask: torch.Tensor   # [Np] float32
+    n_cameras: int
+    capacity: int
+
+    @property
+    def n_servers(self) -> int:
+        return self.counts.shape[0]
+
+    @property
+    def camera_order(self) -> torch.Tensor:
+        """Sorted camera order without padding, ``[N]`` int32."""
+        return self.flat_order[:self.n_cameras]
+
+    @property
+    def order(self) -> torch.Tensor:
+        """``[S, C]``: the j-th camera of server s, or the sentinel ``N``
+        (a server loaded past the capacity drops the overflow)."""
+        n, s, cap = self.n_cameras, self.n_servers, self.capacity
+        sid = self.flat_sid[:n].long()
+        pos = torch.arange(n, device=sid.device) - self.start.long()[sid]
+        dump = s * cap                       # one slot for the overflow
+        idx = torch.where(pos < cap, sid * cap + pos,
+                          torch.full_like(pos, dump))
+        rows = torch.full((dump + 1,), n, dtype=torch.int32,
+                          device=sid.device)
+        rows.scatter_(0, idx, self.camera_order)
+        return rows[:dump].reshape(s, cap)
+
+    @property
+    def mask(self) -> torch.Tensor:
+        return (self.order < self.n_cameras).to(torch.float32)
+
+
+def server_layout(server_id: torch.Tensor, n_servers: int,
+                  capacity: int | None = None) -> ServerLayout:
+    """Build a :class:`ServerLayout` from an assignment ``int[N]`` without
+    synchronising with the device."""
+    n = server_id.shape[0]
+    dev = server_id.device
+    cap = n if capacity is None else int(capacity)
+    cap = max(_LANE, -(-cap // _LANE) * _LANE)
+    n_pad = max(_LANE, -(-n // _LANE) * _LANE)
+    sid = server_id.long()
+    sort_idx = torch.argsort(sid, stable=True)
+    sid_sorted = sid[sort_idx]
+    counts = torch.zeros(n_servers, dtype=torch.int64, device=dev)
+    counts.index_add_(0, sid, torch.ones_like(sid))
+    start = torch.cumsum(counts, 0) - counts
+    flat_order = torch.cat([sort_idx, torch.full((n_pad - n,), n,
+                                                 dtype=torch.int64,
+                                                 device=dev)])
+    flat_sid = torch.cat([sid_sorted, torch.full((n_pad - n,), n_servers,
+                                                 dtype=torch.int64,
+                                                 device=dev)])
+    return ServerLayout(counts=counts.to(torch.int32),
+                        start=start.to(torch.int32),
+                        flat_order=flat_order.to(torch.int32),
+                        flat_sid=flat_sid.to(torch.int32),
+                        flat_mask=(flat_order < n).to(torch.float32),
+                        n_cameras=n, capacity=cap)
+
+
+# ---------------------------------------------------------------------------
+# Config selection (Algorithm 1 line 3)
+# ---------------------------------------------------------------------------
+
+def config_argmin(b, c, acc, xi, size, eff, q, v, n_total: int):
+    """Per-camera ``(r_idx, m_idx, pol)`` minimizing the drift-plus-penalty
+    score over the (model x resolution x policy) grid. ``v`` is a Python
+    number; ``q`` a number or a one-element tensor."""
+    if not _on_cuda(b):
+        return ref.config_argmin_ref(b, c, acc, xi, size, eff, q, v, n_total)
+    n, n_m, n_r = acc.shape
+    dev = b.device
+    f32 = torch.float32
+    for name, t, shape in (("b", b, (n,)), ("c", c, (n,)),
+                           ("eff", eff, (n,)), ("acc", acc, (n, n_m, n_r)),
+                           ("xi", xi, (n_m, n_r)), ("size", size, (n_r,))):
+        _check(f"config_argmin {name}", t, f32, shape, dev)
+    q_t = torch.as_tensor(q, dtype=f32, device=dev).reshape(1)
+    out = torch.empty((3, n), dtype=torch.int32, device=dev)
+    kernel.config_argmin(b, c, eff, acc, xi, size, q_t, float(v), n_total,
+                         out[0], out[1], out[2])
+    launches["config_argmin"] += 1
+    return out[0], out[1], out[2]
+
+
+# ---------------------------------------------------------------------------
+# Water-filling (Algorithm 1 lines 4/5)
+# ---------------------------------------------------------------------------
+
+def _check_fill(name, vectors, pol, budgets, n_servers, layout):
+    n = pol.shape[0]
+    dev = pol.device
+    for vname, t in vectors:
+        _check(f"{name} {vname}", t, torch.float32, (n,), dev)
+    _check(f"{name} pol", pol, torch.int32, (n,), dev)
+    for bname, t in budgets:
+        _check(f"{name} {bname}", t, torch.float32, (n_servers,), dev)
+    if layout.n_servers != n_servers or layout.n_cameras != n:
+        raise ValueError(f"{name}: layout is for {layout.n_cameras} cameras "
+                         f"on {layout.n_servers} servers, expected {n} on "
+                         f"{n_servers}")
+
+
+def waterfill_bandwidth(k, p, pol, mu, server_id, budgets, n_servers: int,
+                        outer_iters: int = 16, inner_iters: int = 6,
+                        final_inner_iters: int = 20, *,
+                        layout: ServerLayout | None = None):
+    """Bandwidth b[n] (Hz) per server budget; the signature of
+    ``allocate.waterfill_bandwidth`` plus an optional prebuilt layout."""
+    if not _on_cuda(k):
+        return allocate.waterfill_bandwidth(
+            k, p, pol, mu, server_id, budgets, n_servers,
+            outer_iters=outer_iters, inner_iters=inner_iters,
+            final_inner_iters=final_inner_iters)
+    if layout is None:
+        layout = server_layout(server_id, n_servers)
+    _check_fill("waterfill_bandwidth", (("k", k), ("p", p), ("mu", mu)),
+                pol, (("budgets", budgets),), n_servers, layout)
+    n = k.shape[0]
+    out = torch.empty_like(k)
+    scratch = torch.empty((5, n), dtype=torch.float32, device=k.device)
+    kernel.waterfill(kernel.MODE_BANDWIDTH, k, p, pol, mu, budgets, 0.0,
+                     layout.camera_order, layout.start, layout.counts,
+                     outer_iters, inner_iters, final_inner_iters, scratch,
+                     out)
+    launches["waterfill"] += 1
+    return out
+
+
+def waterfill_compute(inv_xi, p, pol, lam, server_id, budgets,
+                      n_servers: int, stability_margin: float = 1.05,
+                      outer_iters: int = 16, inner_iters: int = 6,
+                      final_inner_iters: int = 20, *,
+                      layout: ServerLayout | None = None):
+    """Computation c[n] (FLOPS) per server budget; the signature of
+    ``allocate.waterfill_compute`` plus an optional prebuilt layout."""
+    if not _on_cuda(inv_xi):
+        return allocate.waterfill_compute(
+            inv_xi, p, pol, lam, server_id, budgets, n_servers,
+            stability_margin=stability_margin, outer_iters=outer_iters,
+            inner_iters=inner_iters, final_inner_iters=final_inner_iters)
+    if layout is None:
+        layout = server_layout(server_id, n_servers)
+    _check_fill("waterfill_compute",
+                (("inv_xi", inv_xi), ("p", p), ("lam", lam)), pol,
+                (("budgets", budgets),), n_servers, layout)
+    n = inv_xi.shape[0]
+    out = torch.empty_like(inv_xi)
+    scratch = torch.empty((5, n), dtype=torch.float32, device=inv_xi.device)
+    kernel.waterfill(kernel.MODE_COMPUTE, inv_xi, p, pol, lam, budgets,
+                     stability_margin, layout.camera_order, layout.start,
+                     layout.counts, outer_iters, inner_iters,
+                     final_inner_iters, scratch, out)
+    launches["waterfill"] += 1
+    return out
+
+
+def waterfill_pair(k, p, pol, mu, inv_xi, server_id, budgets_b, budgets_c,
+                   n_servers: int, stability_margin: float = 1.05,
+                   outer_iters: int = 16, inner_iters: int = 6,
+                   final_inner_iters: int = 20, *,
+                   layout: ServerLayout | None = None):
+    """Both water-fills of a BCD pass (lines 4 and 5) in one launch:
+    ``waterfill_bandwidth`` then ``waterfill_compute`` at ``lam = b * k``.
+    Returns ``(b, c)`` in Hz / FLOPS."""
+    if not _on_cuda(k):
+        return allocate.waterfill_pair(
+            k, p, pol, mu, inv_xi, server_id, budgets_b, budgets_c,
+            n_servers, stability_margin=stability_margin,
+            outer_iters=outer_iters, inner_iters=inner_iters,
+            final_inner_iters=final_inner_iters)
+    if layout is None:
+        layout = server_layout(server_id, n_servers)
+    _check_fill("waterfill_pair",
+                (("k", k), ("p", p), ("mu", mu), ("inv_xi", inv_xi)), pol,
+                (("budgets_b", budgets_b), ("budgets_c", budgets_c)),
+                n_servers, layout)
+    n = k.shape[0]
+    out = torch.empty((2, n), dtype=torch.float32, device=k.device)
+    scratch = torch.empty((5, n), dtype=torch.float32, device=k.device)
+    kernel.waterfill_pair(k, p, pol, mu, inv_xi, budgets_b, budgets_c,
+                          stability_margin, layout.camera_order, layout.start,
+                          layout.counts, outer_iters, inner_iters,
+                          final_inner_iters, scratch, out[0], out[1])
+    launches["waterfill_pair"] += 1
+    return out[0], out[1]

@@ -1,0 +1,148 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Every test here needs a CUDA device (marker ``gpu``) and skips without
+one. The file imports neither JAX nor the JAX package, so it runs where
+only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import allocate, bcd, lbcd, profiles
+from repro_torch.kernels.slot_solver import ops, ref
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _paper_config_inputs(n, s, seed, dev):
+    """Paper pool (M=9, R=6) at the per-camera budget share of 30 cameras
+    on 3 servers."""
+    tab = profiles.EdgeSystem(n_cameras=n, n_servers=s, n_slots=2,
+                              seed=seed).horizon(1, device=dev)
+    rng = np.random.default_rng(seed)
+    b = torch.as_tensor(rng.uniform(0.3, 3.0, n) * 3e6, dtype=torch.float32)
+    c = torch.as_tensor(rng.uniform(0.3, 3.0, n) * 5e12, dtype=torch.float32)
+    return (b.to(dev), c.to(dev), tab.acc[0].contiguous(), tab.xi, tab.size,
+            tab.eff)
+
+
+def _fill_setup(dev, n, s, seed=0, lcfsp_frac=0.5, budget_lo=2e7,
+                budget_hi=5e7, server_id=None):
+    rng = np.random.default_rng(seed)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    sid = (rng.integers(0, s, n) if server_id is None else server_id)
+    return dict(
+        k=f32(rng.uniform(1e-6, 5e-6, n)), p=f32(rng.uniform(0.3, 0.95, n)),
+        pol=torch.as_tensor((rng.random(n) < lcfsp_frac).astype(np.int32),
+                            device=dev),
+        mu=f32(rng.uniform(5.0, 40.0, n)),
+        inv_xi=f32(rng.uniform(1e-12, 5e-12, n)),
+        sid=torch.as_tensor(np.asarray(sid, np.int32), device=dev),
+        bb=f32(rng.uniform(budget_lo, budget_hi, s)),
+        bc=f32(rng.uniform(3e13, 8e13, s)), s=s)
+
+
+FILL_CASES = {
+    "mixed": dict(n=12, s=3, seed=7),
+    "slack_budget": dict(n=8, s=2, seed=11, lcfsp_frac=0.0, budget_lo=5e9,
+                         budget_hi=9e9),
+    "single_camera_servers": dict(n=6, s=6, seed=3,
+                                  server_id=np.arange(6)),
+    "empty_server": dict(n=9, s=3, seed=4,
+                         server_id=np.array([0, 0, 0, 2, 2, 0, 2, 0, 2])),
+    "ragged": dict(n=1001, s=7, seed=5),
+    "main_path": dict(n=10_000, s=32, seed=6, budget_lo=2e9, budget_hi=5e9),
+}
+
+
+@pytest.mark.parametrize("n", [30, 1001, 10_000])
+def test_gpu_config_argmin_bitwise(cuda, n):
+    args = _paper_config_inputs(n, 3, 0, cuda)
+    q = torch.tensor(1.3, device=cuda)
+    ops.reset_launches()
+    out = ops.config_argmin(*args, q, 10.0, n)
+    plain = ref.config_argmin_ref(*args, q, 10.0, n)
+    torch.cuda.synchronize()
+    assert ops.launches["config_argmin"] == 1
+    for a, b in zip(out, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", sorted(FILL_CASES))
+def test_gpu_waterfills_match_plain(cuda, case):
+    t = _fill_setup(cuda, **FILL_CASES[case])
+    s = t["s"]
+    args_b = (t["k"], t["p"], t["pol"], t["mu"], t["sid"], t["bb"], s)
+    ops.reset_launches()
+    b_k = ops.waterfill_bandwidth(*args_b)
+    b_p = allocate.waterfill_bandwidth(*args_b)
+    args_c = (t["inv_xi"], t["p"], t["pol"], b_p * t["k"], t["sid"],
+              t["bc"], s)
+    c_k = ops.waterfill_compute(*args_c)
+    c_p = allocate.waterfill_compute(*args_c)
+    args_pair = (t["k"], t["p"], t["pol"], t["mu"], t["inv_xi"], t["sid"],
+                 t["bb"], t["bc"], s)
+    pb_k, pc_k = ops.waterfill_pair(*args_pair)
+    pb_p, pc_p = allocate.waterfill_pair(*args_pair)
+    torch.cuda.synchronize()
+    assert ops.launches == {"config_argmin": 0, "waterfill": 2,
+                            "waterfill_pair": 1}
+    # The kernels add their fill sums in the plain version's tree order and
+    # round every operation alike (-fmad=false), so they agree bitwise;
+    # the bar the reference holds Pallas to is rtol=2e-4.
+    for got, want in ((b_k, b_p), (c_k, c_p), (pb_k, pb_p), (pc_k, pc_p)):
+        assert torch.equal(got, want)
+
+
+def test_gpu_wrappers_refuse_bad_inputs(cuda):
+    t = _fill_setup(cuda, n=12, s=3)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.waterfill_bandwidth(t["k"].double(), t["p"], t["pol"], t["mu"],
+                                t["sid"], t["bb"], 3)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.waterfill_bandwidth(t["k"], t["p"].cpu(), t["pol"], t["mu"],
+                                t["sid"], t["bb"], 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2 = torch.stack([t["k"], t["k"]], 1)[:, 0]
+        ops.waterfill_bandwidth(k2, t["p"], t["pol"], t["mu"], t["sid"],
+                                t["bb"], 3)
+
+
+def test_gpu_solve_slot_cuda_matches_torch(cuda):
+    tab = profiles.EdgeSystem(n_cameras=300, n_servers=8, n_slots=2,
+                              seed=1).horizon(1, device=cuda)
+    sid = torch.as_tensor(np.random.default_rng(1).integers(0, 8, 300)
+                          .astype(np.int32), device=cuda)
+    args = (tab.acc[0], tab.xi, tab.size, tab.eff, sid, tab.budgets_b[0],
+            tab.budgets_c[0], torch.tensor(0.5, device=cuda), 10.0)
+    d_p = bcd.solve_slot(*args, n_servers=8, solver_backend="torch")
+    for spec in ("cuda", "cuda:nofuse"):
+        d_k = bcd.solve_slot(*args, n_servers=8, solver_backend=spec)
+        for f in ("r_idx", "m_idx", "pol", "b", "c", "aopi"):
+            assert torch.equal(getattr(d_k, f), getattr(d_p, f)), (spec, f)
+
+
+def test_gpu_rollout_cuda_matches_torch(cuda):
+    tab = profiles.EdgeSystem(n_cameras=300, n_servers=8, n_slots=4,
+                              mean_bandwidth_hz=30e6 * 10,
+                              mean_compute_flops=50e12 * 10).horizon(4)
+    ops.reset_launches()
+    r_k = lbcd.rollout(tab, 10.0, 0.7)
+    assert ops.launches["config_argmin"] > 0
+    assert ops.launches["waterfill_pair"] > 0
+    r_p = lbcd.rollout(tab, 10.0, 0.7, solver_backend="torch")
+    assert torch.equal(r_k.assign, r_p.assign)
+    assert torch.equal(r_k.aopi, r_p.aopi)
+    assert torch.equal(r_k.q, r_p.q)

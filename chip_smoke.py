@@ -8,13 +8,23 @@ Phases, each of which raises on failure (exit code non-zero):
   1. card     - nvidia-smi name/power limit, torch/CUDA versions, nvcc build
                 of the slot-solver kernels from the sources in this checkout;
   2. kernels  - each CUDA kernel against its plain PyTorch version on the
-                card (config_argmin bitwise, water-fills at rtol=2e-4) at the
-                main path's shapes and at edge cases, with CUDA-event times;
-  3. end to end - LBCDController(...).run(8) at N=10,000 cameras on S=32
-                servers with the default backend, held against the plain
-                (solver_backend="torch") run by the rollout contract, and the
-                paper setting (N=30, S=3, T=25) with ":nofuse"; every
-                kernel's launch counter must be > 0.
+                card at the main paths' shapes and at edge cases, with
+                CUDA-event and profiler times: config_argmin and
+                baseline_argmax index-bitwise, waterfill / waterfill_pair at
+                rtol=2e-4, waterfill_tiled bitwise (N=100,000 at S=1 and
+                S=32, edge cases, a tile smaller than every segment);
+  3. end to end - each path driven through its entry point with the launch
+                counters zeroed just before and read just after, against the
+                plain (solver_backend="torch") run on the card:
+                LBCDController at N=10,000 on S=32 (T=4) and with
+                "auto:tile=256" (T=2), the paper setting (N=30, S=3, T=25)
+                with ":nofuse", MIN (T=2) and JCAB (T=4) at N=100,000 on
+                S=32, DOS at N=10,000 (T=2), EnergyAwareLBCD in the paper
+                setting with the energy queue z > 0; MIN, DOS and JCAB must
+                equal the plain run, LBCD and energy meet the rollout
+                contract; every kernel's launch counter must be > 0. One
+                slot each of MIN and JCAB at N=100,000 is profiled (device
+                time by kernel, device busy share).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit``, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -48,6 +58,9 @@ OPS_FCFS_STEP = 41
 OPS_LCFSP_EVAL = 8
 OPS_CAMERA_EVAL = 8
 ARGMIN_LAM_STEPS = 26
+# One (camera, model, resolution) entry of baseline_argmax: two rates, two
+# clamps, two reciprocals and a sum (latency), the score, two folds.
+OPS_BASELINE_ITEM = 11
 
 LOOP_EFFORT = dict(outer_iters=10, inner_iters=3, final_inner_iters=5)
 FULL_EFFORT = dict(outer_iters=16, inner_iters=6, final_inner_iters=20)
@@ -284,6 +297,121 @@ def check_kernels(d, label, timing: bool):
     return out
 
 
+def check_tiled(d, label, group, timing: bool):
+    """Hold waterfill_tiled (``group`` CTAs per server) against the plain
+    water-fills, bitwise, bandwidth and compute, at the full effort; with
+    ``timing``, also time it at the BCD loop's effort, and the pair of
+    tiled launches a tiled BCD pass makes beside one untiled
+    waterfill_pair launch."""
+    import torch
+    from repro_torch.core import allocate
+    from repro_torch.kernels.slot_solver import ops
+    s = d["s"]
+    layout = ops.server_layout(d["sid"], s)
+    bw = (d["k"], d["p"], d["pol"], d["mu"], d["sid"], d["bb"], s)
+    cp = (d["inv_xi"], d["p"], d["pol"], d["b"] * d["k"], d["sid"], d["bc"],
+          s)
+
+    def tiled(effort):
+        return (lambda: ops.waterfill_bandwidth(*bw, layout=layout,
+                                                group=group, **effort),
+                lambda: ops.waterfill_compute(*cp, layout=layout,
+                                              group=group, **effort))
+
+    kb, kc = tiled(FULL_EFFORT)
+    for mode, got, want in (
+            ("bandwidth", kb(), allocate.waterfill_bandwidth(
+                *bw, **FULL_EFFORT)),
+            ("compute", kc(), allocate.waterfill_compute(*cp,
+                                                         **FULL_EFFORT))):
+        if not torch.equal(got, want):
+            diff = int((got != want).sum())
+            raise AssertionError(
+                f"waterfill_tiled({mode}) {label} G={group}: {diff} of "
+                f"{got.numel()} differ from the plain version; max abs err "
+                f"{float((got - want).abs().max()):.3e}")
+    torch.cuda.synchronize()
+    log(f"  {label} G={group}: waterfill_tiled bandwidth and compute "
+        "bitwise equal to the plain versions (full effort)")
+    out = dict(max_abs_err=0.0)
+    if not timing:
+        return out
+    n = d["n"]
+    kb, kc = tiled(LOOP_EFFORT)
+    out.update(
+        ms=cuda_ms(kb), device_ms=device_ms(kb, "waterfill_tiled_kernel"),
+        plain_ms=cuda_ms(lambda: allocate.waterfill_bandwidth(
+            *bw, **LOOP_EFFORT), reps=10, warmup=1),
+        bytes=4 * (5 * n + 2 * s + n) + 4 * n,
+        ops=fill_ops(d["pol"], LOOP_EFFORT, (True,)))
+    out["bound_ms"], out["bound_by"] = bound_ms(out["bytes"], out["ops"])
+    pair = (d["k"], d["p"], d["pol"], d["mu"], d["inv_xi"], d["sid"],
+            d["bb"], d["bc"], s)
+
+    def tiled_pair():
+        b = ops.waterfill_bandwidth(*bw, layout=layout, group=group,
+                                    **LOOP_EFFORT)
+        return ops.waterfill_compute(d["inv_xi"], d["p"], d["pol"],
+                                     b * d["k"], d["sid"], d["bc"], s,
+                                     layout=layout, group=group,
+                                     **LOOP_EFFORT)
+
+    out["pair_ms"] = cuda_ms(tiled_pair)
+    out["untiled_pair_ms"] = cuda_ms(lambda: ops.waterfill_pair(
+        *pair, layout=layout, **LOOP_EFFORT))
+    out["untiled_pair_device_ms"] = device_ms(
+        lambda: ops.waterfill_pair(*pair, layout=layout, **LOOP_EFFORT),
+        "waterfill_pair_kernel")
+    dev = ("not measured" if out["device_ms"] is None
+           else f"{out['device_ms']:.4f} ms")
+    log(f"  {label} G={group} waterfill_tiled(bandwidth): {out['ms']:.4f} ms "
+        f"per wrapper call, {dev} on the device, {out['plain_ms']:.4f} ms "
+        f"plain, bound {out['bound_ms']:.6f} ms ({out['bound_by']}); a "
+        f"tiled pass (bandwidth + compute launches) {out['pair_ms']:.4f} ms "
+        f"vs one untiled waterfill_pair {out['untiled_pair_ms']:.4f} ms "
+        f"({out['untiled_pair_device_ms']} ms on the device)")
+    return out
+
+
+def check_baseline(d, label, mode, threshold, timing: bool):
+    """Hold baseline_argmax against its plain version, index-bitwise, on
+    the provisional per-camera rates d["b"], d["c"]; with ``timing``, time
+    both."""
+    import torch
+    from repro_torch.kernels.slot_solver import ops, ref
+    args = (d["b"], d["c"], d["acc"], d["xi"], d["size"], d["eff"])
+    got = ops.baseline_argmax(*args, mode=mode, threshold=threshold)
+    want = ref.baseline_argmax_ref(*args, mode=mode, threshold=threshold)
+    mismatches = int(sum((a != b).sum().item() for a, b in zip(got, want)))
+    if mismatches:
+        raise AssertionError(f"baseline_argmax {mode} {label}: {mismatches} "
+                             "index mismatches against the plain version")
+    torch.cuda.synchronize()
+    out = dict(max_abs_err=0.0)
+    log(f"  {label}: baseline_argmax {mode} (threshold {threshold:g}) 0 "
+        "mismatches")
+    if not timing:
+        return out
+    n, m_r = d["n"], d["acc"].shape[1] * d["acc"].shape[2]
+
+    def kern():
+        return ops.baseline_argmax(*args, mode=mode, threshold=threshold)
+
+    out.update(
+        ms=cuda_ms(kern), device_ms=device_ms(kern, "baseline_argmax_kernel"),
+        plain_ms=cuda_ms(lambda: ref.baseline_argmax_ref(
+            *args, mode=mode, threshold=threshold)),
+        bytes=4 * (3 * n + n * m_r + m_r + d["acc"].shape[2] + 2 * n),
+        ops=n * m_r * OPS_BASELINE_ITEM)
+    out["bound_ms"], out["bound_by"] = bound_ms(out["bytes"], out["ops"])
+    dev = ("not measured" if out["device_ms"] is None
+           else f"{out['device_ms']:.4f} ms")
+    log(f"  {label} baseline_argmax {mode}: {out['ms']:.4f} ms per wrapper "
+        f"call, {dev} on the device, {out['plain_ms']:.4f} ms plain, bound "
+        f"{out['bound_ms']:.6f} ms ({out['bound_by']})")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: end to end
 # ---------------------------------------------------------------------------
@@ -314,18 +442,6 @@ def contract(name, run_k, run_p):
         if not np.isfinite(rec.aopi).all() or (rec.aopi <= 0).any():
             raise AssertionError(f"{name}: non-finite AoPI at slot {rec.t}")
     return float(np.max(np.abs(run_k.aopi_series / run_p.aopi_series - 1)))
-
-
-def run_controller(system_kw, n_slots, backend, dev):
-    import torch
-    from repro_torch.core import lbcd, profiles
-    ctl = lbcd.LBCDController(profiles.EdgeSystem(**system_kw), v=10.0,
-                              p_min=0.7, solver_backend=backend, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    summary = ctl.run(n_slots)
-    torch.cuda.synchronize()
-    return summary, time.perf_counter() - t0
 
 
 def split_times(system_kw, n_slots, dev):
@@ -359,6 +475,65 @@ def split_times(system_kw, n_slots, dev):
     return split
 
 
+def drive(make_ctl, n_slots):
+    """Run ``make_ctl().run(n_slots)`` between synchronisations; returns
+    the summary and its host seconds."""
+    import torch
+    ctl = make_ctl()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = ctl.run(n_slots)
+    torch.cuda.synchronize()
+    return summary, time.perf_counter() - t0
+
+
+def identical(name, run_k, run_p):
+    """The baselines' bar: the kernel run equals the plain run in every
+    slot (indices, policies, assignment, allocation, AoPI)."""
+    import numpy as np
+    for rk, rp in zip(run_k.records, run_p.records, strict=True):
+        for field, a, b in (("assign", rk.assign, rp.assign),
+                            ("m_idx", rk.decision.m_idx, rp.decision.m_idx),
+                            ("r_idx", rk.decision.r_idx, rp.decision.r_idx),
+                            ("pol", rk.decision.pol, rp.decision.pol),
+                            ("b", rk.decision.b, rp.decision.b),
+                            ("c", rk.decision.c, rp.decision.c),
+                            ("aopi", rk.aopi, rp.aopi)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: {field} differs from the "
+                                     f"plain run at slot {rk.t}")
+    log(f"  {name}: identical to the plain run in all "
+        f"{len(run_k.records)} slots")
+
+
+def profile_slot(fn, label):
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and
+    the device busy share: summed kernel time over the host wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us / 1e3, evt.count, evt.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"  profile {label}: wall {wall * 1e3:.1f} ms (profiled), device "
+        f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%); top "
+        "kernels by device time:")
+    for ms, count, key in rows[:6]:
+        log(f"    {ms:10.3f} ms  {count:6d} launches  {key[:70]}")
+    return wall, busy
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -369,6 +544,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    import numpy as np
+    from repro_torch.core import baselines, bcd, energy, lbcd, profiles
     from repro_torch.kernels import _build
     from repro_torch.kernels.slot_solver import kernel, ops
 
@@ -396,91 +573,225 @@ def main() -> int:
     virt = check_kernels(kernel_inputs(10_000, 1, 3, dev,
                                        server_id=[0] * 10_000),
                          "N=10000 S=1", timing=True)
-    check_kernels(kernel_inputs(9, 3, 4, dev,
-                                server_id=[0, 0, 0, 2, 2, 0, 2, 0, 2]),
-                  "empty server", timing=False)
-    check_kernels(kernel_inputs(6, 6, 5, dev, server_id=list(range(6))),
-                  "single-camera servers", timing=False)
-    check_kernels(kernel_inputs(8, 2, 6, dev, budget_scale=300.0,
-                                lcfsp_frac=0.0),
-                  "slack budget", timing=False)
-    check_kernels(kernel_inputs(1001, 7, 7, dev), "ragged N=1001 S=7",
-                  timing=False)
+    edge_cases = {
+        "empty server": kernel_inputs(
+            9, 3, 4, dev, server_id=[0, 0, 0, 2, 2, 0, 2, 0, 2]),
+        "single-camera servers": kernel_inputs(6, 6, 5, dev,
+                                               server_id=list(range(6))),
+        "slack budget": kernel_inputs(8, 2, 6, dev, budget_scale=300.0,
+                                      lcfsp_frac=0.0),
+        "ragged N=1001 S=7": kernel_inputs(1001, 7, 7, dev),
+    }
+    for label, d in edge_cases.items():
+        check_kernels(d, label, timing=False)
+
+    # waterfill_tiled: MIN's virtual server at auto's tile (G=8), S=32 at
+    # auto's tile (G=1) and at tile=256 (G=8, a tile smaller than every
+    # segment), and the edge cases split over 2 and 8 CTAs.
+    big_n = 100_000
+    auto_tile = bcd.DEFAULT_TILE_N
+    tiled_virt = check_tiled(
+        kernel_inputs(big_n, 1, 8, dev, server_id=[0] * big_n),
+        "N=100000 S=1", ops.tiled_group(big_n, 1, auto_tile), timing=True)
+    d32 = kernel_inputs(big_n, 32, 9, dev)
+    tiled_32 = check_tiled(d32, "N=100000 S=32",
+                           ops.tiled_group(big_n, 32, auto_tile),
+                           timing=True)
+    check_tiled(d32, "N=100000 S=32 tile=256",
+                ops.tiled_group(big_n, 32, 256), timing=False)
+    for label, d in edge_cases.items():
+        for group in (2, kernel.MAX_GROUP):
+            check_tiled(d, label, group, timing=False)
+
+    # baseline_argmax: DOS (w=1) and JCAB (cap 0.5) at N=100,000, JCAB with
+    # every config infeasible (cap 1e-6: the min-latency fallback), ragged.
+    d_bl = kernel_inputs(big_n, 32, 10, dev)
+    dos = check_baseline(d_bl, "N=100000", "dos", 1.0, timing=True)
+    jcab = check_baseline(d_bl, "N=100000", "jcab", 0.5, timing=True)
+    check_baseline(d_bl, "N=100000", "jcab", 1e-6, timing=False)
+    for mode, thr in (("dos", 1.0), ("jcab", 0.5), ("jcab", 1e-6)):
+        check_baseline(edge_cases["ragged N=1001 S=7"], "ragged N=1001",
+                       mode, thr, timing=False)
 
     log("== phase 3: end to end")
-    n, s = 10_000, 32
-    share = n / (10 * s)
-    big_sys = dict(n_cameras=n, n_servers=s, n_slots=8,
-                   mean_bandwidth_hz=30e6 * share,
-                   mean_compute_flops=50e12 * share, seed=0)
-    ops.reset_launches()
-    run_k, sec_k = run_controller(big_sys, 8, "auto", dev)
-    main_launches = dict(ops.launches)
-    log(f"  N=10000 S=32 T=8 default backend: {sec_k:.2f} s, "
-        f"{8 / sec_k:.3f} slots/s, launches {main_launches}")
-    run_p, sec_p = run_controller(big_sys, 8, "torch", dev)
-    log(f"  N=10000 S=32 T=8 plain (torch) backend: {sec_p:.2f} s, "
-        f"{8 / sec_p:.3f} slots/s")
+
+    def system(n, s, n_slots):
+        """The paper's per-camera share of bandwidth and compute."""
+        share = n / (10 * s)
+        return dict(n_cameras=n, n_servers=s, n_slots=n_slots,
+                    mean_bandwidth_hz=30e6 * share,
+                    mean_compute_flops=50e12 * share, seed=0)
+
+    def lbcd_ctl(kw, backend):
+        return lambda: lbcd.LBCDController(
+            profiles.EdgeSystem(**kw), v=10.0, p_min=0.7,
+            solver_backend=backend, device=dev)
+
+    def baseline_ctl(name, kw, backend):
+        return lambda: baselines.make(name, profiles.EdgeSystem(**kw),
+                                      solver_backend=backend, device=dev)
+
+    launches = {}
+
+    def path(label, make_ctl, n_slots, kernels_of_path):
+        """Drive one path with the counters zeroed just before and read
+        just after; every kernel of the path must have launched."""
+        ops.reset_launches()
+        summary, sec = drive(make_ctl, n_slots)
+        counts = dict(ops.launches)
+        launches[label] = counts
+        missing = [k for k in kernels_of_path if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"{label}: {missing} never launched: "
+                                 f"{counts}")
+        log(f"  {label}: {sec:.2f} s, {n_slots / sec:.3f} slots/s, "
+            f"launches {counts}")
+        return summary, sec
+
+    def plain(label, make_ctl, n_slots):
+        summary, sec = drive(make_ctl, n_slots)
+        log(f"  {label} plain (torch): {sec:.2f} s, "
+            f"{n_slots / sec:.3f} slots/s")
+        return summary
+
+    def head(summary, k):
+        return lbcd.RunSummary(summary.records[:k], summary.v, summary.p_min)
+
+    big_sys = system(10_000, 32, 4)
+    run_k, _ = path("LBCD N=10000 S=32 T=4", lbcd_ctl(big_sys, "auto"), 4,
+                    ("config_argmin", "waterfill_pair"))
+    run_p = plain("LBCD N=10000 S=32 T=4", lbcd_ctl(big_sys, "torch"), 4)
     err_big = contract("N=10000 rollout vs plain", run_k, run_p)
     split = split_times(big_sys, 2, dev)
     log("  per-slot split (default backend, s): " +
         ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    run_t, _ = path("LBCD N=10000 S=32 T=2 auto:tile=256",
+                    lbcd_ctl(big_sys, "auto:tile=256"), 2,
+                    ("config_argmin", "waterfill_tiled"))
+    contract("N=10000 tile=256 vs plain", run_t, head(run_p, 2))
 
     paper = dict(n_cameras=30, n_servers=3, n_slots=25, seed=0)
-    ops.reset_launches()
-    run_n, sec_n = run_controller(paper, 25, "auto:nofuse", dev)
-    nofuse_launches = dict(ops.launches)
-    log(f"  N=30 S=3 T=25 auto:nofuse: {sec_n:.2f} s, {25 / sec_n:.2f} "
-        f"slots/s, launches {nofuse_launches}")
-    ops.reset_launches()
-    run_f, sec_f = run_controller(paper, 25, "auto", dev)
-    log(f"  N=30 S=3 T=25 auto (fused): {sec_f:.2f} s, {25 / sec_f:.2f} "
-        f"slots/s, launches {dict(ops.launches)}")
-    run_pp, sec_pp = run_controller(paper, 25, "torch", dev)
-    log(f"  N=30 S=3 T=25 plain (torch): {sec_pp:.2f} s, "
-        f"{25 / sec_pp:.2f} slots/s")
+    run_n, _ = path("N=30 S=3 T=25 auto:nofuse",
+                    lbcd_ctl(paper, "auto:nofuse"), 25,
+                    ("config_argmin", "waterfill"))
+    path("N=30 S=3 T=25 auto (fused)", lbcd_ctl(paper, "auto"), 25,
+         ("config_argmin", "waterfill_pair"))
+    run_pp = plain("N=30 S=3 T=25", lbcd_ctl(paper, "torch"), 25)
     err_paper = contract("N=30 nofuse vs plain", run_n, run_pp)
     log(f"  slot-mean AoPI max rel diff vs plain: N=10000 {err_big:.2e}, "
         f"N=30 {err_paper:.2e}; mean AoPI N=10000 {run_k.mean_aopi:.5f} s, "
         f"N=30 {run_n.mean_aopi:.5f} s; mean accuracy N=10000 "
         f"{run_k.mean_acc:.4f}")
 
-    counts = {"config_argmin": main_launches["config_argmin"],
-              "waterfill_pair": main_launches["waterfill_pair"],
-              "waterfill": nofuse_launches["waterfill"]}
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {counts}")
-    log(f"  launches per slot: config_argmin "
-        f"{counts['config_argmin'] / 8:g}, waterfill_pair "
-        f"{counts['waterfill_pair'] / 8:g} (N=10000 run); waterfill "
-        f"{counts['waterfill'] / 25:g} (N=30 nofuse run)")
+    def energy_ctl(backend):
+        return lambda: energy.EnergyAwareLBCD(
+            profiles.EdgeSystem(**paper), energy=energy.EnergyModel(),
+            v=10.0, p_min=0.7, solver_backend=backend, device=dev)
+
+    run_e, _ = path("energy N=30 S=3 T=25", energy_ctl("auto"), 25,
+                    ("config_argmin", "waterfill_pair"))
+    z = np.array([r.z for r in run_e.records])
+    if not (z > 0).any():
+        raise AssertionError("energy: z never rose above 0")
+    # The plain ladder costs ~26 plain solves per slot: held over 3 slots.
+    run_ep = plain("energy N=30 S=3 T=3", energy_ctl("torch"), 3)
+    contract("energy vs plain (first 3 slots)", head(run_e, 3), run_ep)
+    np.testing.assert_allclose([r.z for r in run_e.records[:3]],
+                               [r.z for r in run_ep.records], rtol=1e-6)
+    log(f"  energy: z > 0 in {int((z > 0).sum())}/25 slots (final z "
+        f"{z[-1]:.4f}), mean power {np.mean([r.power for r in run_e.records]):.4f}"
+        f" W per camera, mean AoPI {run_e.mean_aopi:.5f} s")
+
+    sys100 = system(big_n, 32, 4)
+    run_min, sec_min = path("MIN N=100000 S=32 T=2",
+                            baseline_ctl("MIN", sys100, "auto"), 2,
+                            ("config_argmin", "waterfill_tiled"))
+    pooled = profiles.EdgeSystem(**sys100).horizon_numpy(2)
+    used = [(np.sum(r.decision.b, dtype=np.float64)
+             / np.sum(pooled["budgets_b"][t]),
+             np.sum(r.decision.c, dtype=np.float64)
+             / np.sum(pooled["budgets_c"][t]))
+            for t, r in enumerate(run_min.records)]
+    log(f"  MIN N=100000: {2 / sec_min:.3f} slots/s; share of the pooled "
+        "budgets used per slot (bandwidth, compute): "
+        + ", ".join(f"({b:.6g}, {c:.6g})" for b, c in used)
+        + " -- far from (1, 1), the water-fill's dual search stops short "
+        "at this N, so these times are those of a search that ends early")
+    identical("MIN N=100000", run_min,
+              plain("MIN N=100000 S=32 T=2",
+                    baseline_ctl("MIN", sys100, "torch"), 2))
+    run_jcab, _ = path("JCAB N=100000 S=32 T=4",
+                       baseline_ctl("JCAB", sys100, "auto"), 4,
+                       ("baseline_argmax",))
+    identical("JCAB N=100000", run_jcab,
+              plain("JCAB N=100000 S=32 T=4",
+                    baseline_ctl("JCAB", sys100, "torch"), 4))
+    dos_sys = system(10_000, 32, 2)
+    run_dos, _ = path("DOS N=10000 S=32 T=2",
+                      baseline_ctl("DOS", dos_sys, "auto"), 2,
+                      ("baseline_argmax",))
+    identical("DOS N=10000", run_dos,
+              plain("DOS N=10000 S=32 T=2",
+                    baseline_ctl("DOS", dos_sys, "torch"), 2))
+    log(f"  mean AoPI (s): MIN N=100000 {run_min.mean_aopi:.5f}, JCAB "
+        f"N=100000 {run_jcab.mean_aopi:.5f}, DOS N=10000 "
+        f"{run_dos.mean_aopi:.5f}, LBCD N=10000 {run_k.mean_aopi:.5f}")
+
+    tab100 = profiles.EdgeSystem(**sys100).horizon(1, device=dev)
+    for label, fn in (
+            ("MIN N=100000 one slot",
+             lambda: baselines.rollout_min(tab100, device=dev)),
+            ("JCAB N=100000 one slot",
+             lambda: baselines.rollout_jcab(tab100, device=dev))):
+        fn()                                   # warm-up
+        profile_slot(fn, label)
+
     if "jax" in sys.modules or any(m.split(".")[0] == "repro"
                                    for m in sys.modules):
         raise AssertionError("chip_smoke imported jax or repro")
 
+    main_path = {"config_argmin": "LBCD N=10000 S=32 T=4",
+                 "waterfill_pair": "LBCD N=10000 S=32 T=4",
+                 "waterfill": "N=30 S=3 T=25 auto:nofuse",
+                 "waterfill_tiled": "MIN N=100000 S=32 T=2",
+                 "baseline_argmax": "JCAB N=100000 S=32 T=4"}
+    slots = {"LBCD N=10000 S=32 T=4": 4, "N=30 S=3 T=25 auto:nofuse": 25,
+             "MIN N=100000 S=32 T=2": 2, "JCAB N=100000 S=32 T=4": 4}
+    counts = {k: launches[label][k] for k, label in main_path.items()}
+    log("  launches per slot: " + ", ".join(
+        f"{k} {counts[k] / slots[main_path[k]]:g} ({main_path[k]})"
+        for k in counts))
+
     src = "src/repro_torch/kernels/slot_solver/csrc/slot_solver.cu"
-    replaces = {
-        "config_argmin": "src/repro/kernels/slot_solver/kernel.py:118",
-        "waterfill": "src/repro/kernels/slot_solver/kernel.py:259",
-        "waterfill_pair": "src/repro/kernels/slot_solver/kernel.py:333",
-    }
+    pallas = "src/repro/kernels/slot_solver/kernel.py"
+    replaces = {"config_argmin": f"{pallas}:118", "waterfill": f"{pallas}:259",
+                "waterfill_pair": f"{pallas}:333",
+                "waterfill_tiled": f"{pallas}:527",
+                "baseline_argmax": f"{pallas}:623"}
     timed = {"config_argmin": big["config_argmin"],
              "waterfill_pair": big["waterfill_pair"],
-             "waterfill": small["waterfill"]}
+             "waterfill": small["waterfill"],
+             "waterfill_tiled": tiled_virt, "baseline_argmax": jcab}
+    errs = {name: max(x[name]["max_abs_err"] for x in (small, big, virt))
+            for name in ("config_argmin", "waterfill", "waterfill_pair")}
+    errs.update(waterfill_tiled=max(tiled_virt["max_abs_err"],
+                                    tiled_32["max_abs_err"]),
+                baseline_argmax=max(dos["max_abs_err"], jcab["max_abs_err"]))
     kernels = []
-    for name in ("config_argmin", "waterfill", "waterfill_pair"):
+    for name in main_path:
         r = timed[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces[name],
-            launches=counts[name],
-            max_abs_err=max(x[name]["max_abs_err"] for x in (small, big,
-                                                             virt)),
-            ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+            launches=counts[name], max_abs_err=errs[name], ms=r["ms"],
+            device_ms=r["device_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
     log("  timed shapes: config_argmin and waterfill_pair at N=10000 S=32 "
-        "(loop effort), waterfill at N=30 S=3 (bandwidth, loop effort); "
-        "virtual-server pair at N=10000 S=1: "
-        f"{virt['waterfill_pair']['ms']:.4f} ms")
+        "(loop effort), waterfill at N=30 S=3 (bandwidth, loop effort), "
+        "waterfill_tiled at N=100000 S=1 G=8 (bandwidth, loop effort), "
+        "baseline_argmax at N=100000 (jcab, cap 0.5); virtual-server pair "
+        f"at N=10000 S=1: {virt['waterfill_pair']['ms']:.4f} ms; "
+        f"baseline_argmax dos at N=100000: {dos['ms']:.4f} ms; "
+        f"waterfill_tiled at N=100000 S=32 G=1: {tiled_32['ms']:.4f} ms")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

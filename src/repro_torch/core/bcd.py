@@ -12,14 +12,16 @@ Three blocks, iterated ``n_iters`` times (paper §V-B):
   * ``"cuda"``  - the hand-written kernels of
     ``repro_torch.kernels.slot_solver`` (``config_argmin`` and one fused
     ``waterfill_pair`` launch per BCD pass; ``"cuda:nofuse"`` launches
-    ``waterfill`` twice instead). Needs CUDA tensors.
+    ``waterfill`` twice instead; a tiled spec launches ``waterfill_tiled``
+    twice, bandwidth then compute). Needs CUDA tensors.
   * ``"torch"`` - the plain PyTorch versions, on whatever device the
     tensors are on (the reference the kernels are held against).
   * ``"auto"``  - ``cuda`` for CUDA tensors, ``torch`` on the CPU.
 
-Not yet ported: the camera-tiled water-fill (``tile=``), the paper's
-interior-point method (``method="interior"``) and the fleet-churn mask
-(``active``); each raises ``NotImplementedError``.
+The ``tile=<n>`` knob and the fleet-size policy that sets it are the
+reference's (``resolve_spec``). Not yet ported: the paper's interior-point
+method (``method="interior"``) and the fleet-churn mask (``active``); each
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,6 +36,12 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels.slot_solver import ops, ref
 
 SOLVER_BACKENDS = ("torch", "cuda", "auto")
+
+# Fleet size from which the cuda backend tiles the water-fills by default,
+# and the default tile: the reference's values (repro.core.bcd), kept until
+# a measurement on the card moves them.
+AUTO_TILE_MIN_CAMERAS = 32768
+DEFAULT_TILE_N = 16384
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,23 +77,23 @@ def parse_backend(solver_backend) -> SolverSpec:
     return SolverSpec(parts[0], tile_n, fuse)
 
 
-def resolve_spec(solver_backend, device, method: str = "waterfill"
-                 ) -> SolverSpec:
-    """Resolve a spec for tensors on ``device``: ``auto`` becomes ``cuda``
-    on a CUDA device and ``torch`` elsewhere (there is no fleet-size
-    threshold), ``cuda`` on a non-CUDA device raises ``ValueError``. The
-    resolved spec never carries ``auto`` or a tile. ``auto`` never tiles:
-    the tiled water-fill is not ported, and ``tile=<n>`` (n > 0) raises
-    ``NotImplementedError``, as does ``method="interior"``."""
+def resolve_spec(solver_backend, device, n_cameras: int,
+                 method: str = "waterfill") -> SolverSpec:
+    """Resolve a spec for ``n_cameras`` cameras on ``device``.
+
+    ``auto`` becomes ``cuda`` on a CUDA device and ``torch`` elsewhere;
+    ``cuda`` on a non-CUDA device raises ``ValueError``. On ``cuda`` the
+    water-fills tile with :data:`DEFAULT_TILE_N` from
+    :data:`AUTO_TILE_MIN_CAMERAS` cameras unless the spec pins ``tile=``;
+    ``tile=0`` pins the untiled kernels, and so does any tile the whole
+    fleet fits in (``n_cameras <= tile``). ``torch`` never tiles. The
+    resolved spec never carries ``auto``. ``method="interior"`` raises
+    ``NotImplementedError``."""
     spec = parse_backend(solver_backend)
     if method != "waterfill":
         raise NotImplementedError(
             f"method={method!r} (the paper's interior-point allocator) is "
             "not yet ported; use method='waterfill'")
-    if spec.tile_n:
-        raise NotImplementedError(
-            "tile= selects the camera-tiled water-fill kernel "
-            "(waterfill_tiled), which is not yet ported")
     dev = torch.device(device)
     backend = spec.backend
     if backend == "auto":
@@ -93,7 +101,15 @@ def resolve_spec(solver_backend, device, method: str = "waterfill"
     if backend == "cuda" and dev.type != "cuda":
         raise ValueError(f"solver_backend='cuda' needs CUDA tensors; the "
                          f"inputs are on {dev}")
-    return SolverSpec(backend, None, spec.fuse)
+    tile_n = spec.tile_n
+    if backend == "cuda":
+        if tile_n is None and n_cameras >= AUTO_TILE_MIN_CAMERAS:
+            tile_n = DEFAULT_TILE_N
+        if tile_n == 0 or (tile_n is not None and n_cameras <= tile_n):
+            tile_n = None
+    else:
+        tile_n = None
+    return SolverSpec(backend, tile_n, spec.fuse)
 
 
 @dataclasses.dataclass
@@ -134,7 +150,7 @@ def _pair_fns(spec, server_id, budgets_b, budgets_c, n_servers):
             return pair
         return make_pair
     layout = ops.server_layout(server_id, n_servers)
-    if spec.fuse:
+    if spec.fuse and spec.tile_n is None:
         def make_pair(kw):
             def pair(k, p, pol, mu, inv_xi):
                 return ops.waterfill_pair(
@@ -143,13 +159,15 @@ def _pair_fns(spec, server_id, budgets_b, budgets_c, n_servers):
             return pair
         return make_pair
 
+    # Unfused, or tiled: there is no fused tiled pair (as in the reference).
     def make_pair(kw):
         def pair(k, p, pol, mu, inv_xi):
             b = ops.waterfill_bandwidth(k, p, pol, mu, server_id, budgets_b,
-                                        n_servers, layout=layout, **kw)
+                                        n_servers, layout=layout,
+                                        tile_n=spec.tile_n, **kw)
             c = ops.waterfill_compute(inv_xi, p, pol, b * k, server_id,
                                       budgets_c, n_servers, layout=layout,
-                                      **kw)
+                                      tile_n=spec.tile_n, **kw)
             return b, c
         return pair
     return make_pair
@@ -172,15 +190,15 @@ def solve_slot(acc, xi, size, eff, server_id, budgets_b, budgets_c, q, V,
       solver_effort: "fast" uses cheap water-filling inside the BCD loop
         plus one full-precision re-allocation; "seed" the flat
         high-iteration effort.
-      solver_backend: ``"auto" | "cuda" | "torch"`` with ``:nofuse``
-        (see :func:`resolve_spec`).
+      solver_backend: ``"auto" | "cuda" | "torch"`` with ``:nofuse`` and
+        ``:tile=<n>`` (see :func:`resolve_spec`).
       active: fleet-churn mask; not yet ported (must be ``None``).
     """
     if active is not None:
         raise NotImplementedError("the fleet-churn mask (active) is not yet "
                                   "ported")
-    spec = resolve_spec(solver_backend, acc.device, method=method)
     n = acc.shape[0]
+    spec = resolve_spec(solver_backend, acc.device, n, method=method)
     sid = server_id.long()
     counts = allocate.segment_sum(
         torch.ones(n, dtype=acc.dtype, device=acc.device), sid, n_servers)

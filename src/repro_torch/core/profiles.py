@@ -257,6 +257,16 @@ def horizon_from_numpy(fields: dict[str, np.ndarray], device,
     return HorizonTables(**out)
 
 
+def slot_horizon(tables: SlotTables, budgets_b, budgets_c, device,
+                 dtype=torch.float32) -> HorizonTables:
+    """A one-slot ``HorizonTables`` on ``device`` of one slot's host
+    profiles and its capacities (``budgets_b`` / ``budgets_c``: [S])."""
+    return horizon_from_numpy(
+        dict(acc=tables.acc[None], xi=tables.xi, size=tables.size,
+             eff=tables.eff, budgets_b=np.asarray(budgets_b)[None],
+             budgets_c=np.asarray(budgets_c)[None]), device, dtype=dtype)
+
+
 def horizon_to_numpy(tables: HorizonTables) -> dict[str, np.ndarray]:
     """Inverse of :func:`horizon_from_numpy`: host arrays keyed by field."""
     return {name: getattr(tables, name).cpu().numpy()

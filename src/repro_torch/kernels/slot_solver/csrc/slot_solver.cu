@@ -1,13 +1,16 @@
 // Hand-written Hopper (sm_90a) kernels of the Algorithm-1 slot solver.
 //
-// Three kernels, each replacing one Pallas TPU kernel of
+// Five kernels, each replacing one Pallas TPU kernel of
 // src/repro/kernels/slot_solver/kernel.py:
 //
-//   config_argmin_kernel   <- kernel.py:config_argmin (_config_kernel)
-//   waterfill_kernel       <- kernel.py:waterfill (_waterfill_kernel)
-//   waterfill_pair_kernel  <- kernel.py:waterfill_pair (_pair_kernel)
+//   config_argmin_kernel    <- kernel.py:config_argmin (_config_kernel)
+//   waterfill_kernel        <- kernel.py:waterfill (_waterfill_kernel)
+//   waterfill_pair_kernel   <- kernel.py:waterfill_pair (_pair_kernel)
+//   waterfill_tiled_kernel  <- kernel.py:waterfill_tiled
+//                              (_tiled_waterfill_kernel)
+//   baseline_argmax_kernel  <- kernel.py:baseline_argmax (_baseline_kernel)
 //
-// Both water-fill kernels run one shared device routine,
+// The three water-fill kernels run one shared device routine,
 // illinois_waterfill, the counterpart of kernel.py:_illinois_waterfill.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -21,8 +24,11 @@
 // Each entry point is extern "C", launches on the caller's stream,
 // allocates nothing, and returns the cudaError_t of the launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -34,6 +40,11 @@ constexpr int kModeBandwidth = 0;
 constexpr int kModeCompute = 1;
 constexpr int kConfigThreads = 128;
 constexpr int kFillThreads = 256;
+constexpr int kTiledThreads = 512;
+constexpr int kMaxGroup = 8;          // CTAs per server: a portable cluster
+constexpr int kBaselineThreads = 128;
+constexpr int kModeDos = 0;
+constexpr int kModeJcab = 1;
 
 // --------------------------------------------------------------------------
 // AoPI closed forms and derivatives (repro_torch/core/aopi.py).
@@ -183,8 +194,8 @@ __global__ void config_argmin_kernel(
 // each, plus a log2(segment) reduction per evaluation. Design: the chain
 // runs entirely inside one launch with no trip to the host, and the
 // cameras of a server spread over the CTA's threads. At a few servers
-// only a few SMs work (3 of 132 at S = 3); more CTAs per server are later
-// work.
+// only a few SMs work (3 of 132 at S = 3); kernel 4 spreads a server over
+// a cluster of CTAs.
 // --------------------------------------------------------------------------
 
 struct Cam {
@@ -214,6 +225,75 @@ __device__ float segment_sum(const float* src, int count, float* buf) {
   }
   return buf[0];
 }
+
+// The cameras of one server split over the G CTAs of a thread-block
+// cluster by residue class: CTA g owns segment positions j = g (mod G).
+// class_sum folds class g by the halving tree of width P/G (P = 2^k >=
+// count), the same pairs the full tree of segment_sum adds in its first
+// log2(P/G) levels; folding the G class sums by the halving tree of width
+// G then reproduces segment_sum's result bit for bit. Class g's tree uses
+// buf[g * P/(2G) : (g+1) * P/(2G)), inside the segment's own row.
+__device__ float class_sum(const float* src, int count, int g, int G,
+                           float* buf) {
+  __syncthreads();                 // src complete; buf free from last call
+  if (count <= 1) return (g == 0 && count == 1) ? src[0] : 0.0f;
+  int p = 1;
+  while (p < count) p <<= 1;
+  if (p <= G) return g < count ? src[g] : 0.0f;   // one element at most
+  int h = p / G / 2;               // half the class's width, >= 1
+  const int cnt = (count - g + G - 1) / G;        // elements of class g
+  float* b = buf + g * h;
+  for (int i = threadIdx.x; i < h; i += blockDim.x)
+    b[i] = src[g + G * i] + (i + h < cnt ? src[g + G * (i + h)] : 0.0f);
+  __syncthreads();
+  for (h >>= 1; h >= 1; h >>= 1) {
+    for (int i = threadIdx.x; i < h; i += blockDim.x) b[i] = b[i] + b[i + h];
+    __syncthreads();
+  }
+  return b[0];
+}
+
+// Who works on one server's segment, and how its fill sums are taken.
+// BlockTeam: one CTA (waterfill, waterfill_pair). ClusterTeam: the G CTAs
+// of a cluster (waterfill_tiled); each CTA publishes its class sum in its
+// shared memory, one cluster barrier later every thread of every CTA reads
+// the G partials through distributed shared memory and folds them in the
+// same order, so all hold the same total. The partials alternate between
+// two slots, so the next sum can start before the slowest reader is done
+// with this one, and one barrier per sum suffices.
+struct BlockTeam {
+  __device__ int first() const { return threadIdx.x; }
+  __device__ int stride() const { return blockDim.x; }
+  __device__ float sum(const float* src, int count, float* buf) {
+    return segment_sum(src, count, buf);
+  }
+  __device__ void finish() {}
+};
+
+struct ClusterTeam {
+  int g;          // rank of this CTA in the cluster
+  int G;          // CTAs per server, a power of two <= kMaxGroup
+  float* slots;   // __shared__ float[2]
+  int parity;
+
+  __device__ int first() const { return g + G * threadIdx.x; }
+  __device__ int stride() const { return G * blockDim.x; }
+  __device__ float sum(const float* src, int count, float* buf) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const float part = class_sum(src, count, g, G, buf);
+    if (threadIdx.x == 0) slots[parity] = part;
+    cluster.sync();
+    float v[kMaxGroup];
+    for (int r = 0; r < G; ++r)
+      v[r] = *cluster.map_shared_rank(slots + parity, r);
+    for (int h = G / 2; h >= 1; h >>= 1)
+      for (int j = 0; j < h; ++j) v[j] = v[j] + v[j + h];
+    parity ^= 1;
+    return v[0];
+  }
+  // No CTA may exit while another can still read its partials.
+  __device__ void finish() { cg::this_cluster().sync(); }
+};
 
 template <int MODE>
 __device__ __forceinline__ float h_fn(float x, const Cam& c) {
@@ -279,14 +359,15 @@ __device__ __forceinline__ Rows rows_of(float* scratch, int n, int start) {
 // allocate._waterfill): the same iteration budgets, inner_iters + 4 for the
 // two endpoint fills, inner_iters per Illinois step, final_inner_iters for
 // the final allocation, which is left in w.xt[0:count]. `load(j)` returns
-// the parameters of the j-th camera of the segment.
-template <int MODE, class Load>
-__device__ void illinois_waterfill(const Load& load, int count, Rows w,
-                                   int outer_iters, int inner_iters,
+// the parameters of the j-th camera of the segment; `team` says which
+// positions this thread owns and takes the fill sums.
+template <int MODE, class Team, class Load>
+__device__ void illinois_waterfill(Team& team, const Load& load, int count,
+                                   Rows w, int outer_iters, int inner_iters,
                                    int final_inner_iters) {
   const float nu_lo = expf(kLogNuLo);
   const float nu_hi = expf(kLogNuHi);
-  for (int j = threadIdx.x; j < count; j += blockDim.x) {
+  for (int j = team.first(); j < count; j += team.stride()) {
     const Cam c = load(j);
     float blo, bhi;
     bracket(c.hi, c.lo, c, &blo, &bhi);
@@ -294,23 +375,23 @@ __device__ void illinois_waterfill(const Load& load, int count, Rows w,
     w.xb[j] = alloc_at<MODE>(nu_hi, blo, bhi, inner_iters + 4, c);
   }
   float a = kLogNuLo, b = kLogNuHi;
-  float fa = segment_sum(w.xa, count, w.buf) - 1.0f;
-  float fb = segment_sum(w.xb, count, w.buf) - 1.0f;
+  float fa = team.sum(w.xa, count, w.buf) - 1.0f;
+  float fb = team.sum(w.xb, count, w.buf) - 1.0f;
   for (int it = 0; it < outer_iters; ++it) {
     const float denom = fa - fb;
     float t = fabsf(denom) > 1e-12f ? fa / denom : 0.5f;
     t = fminf(fmaxf(t, 0.05f), 0.95f);
     const float mid = a + t * (b - a);
     const float nu = expf(mid);
-    for (int j = threadIdx.x; j < count; j += blockDim.x) {
+    for (int j = team.first(); j < count; j += team.stride()) {
       const Cam c = load(j);
       float blo, bhi;
       bracket(w.xa[j], w.xb[j], c, &blo, &bhi);
       w.xt[j] = alloc_at<MODE>(nu, blo, bhi, inner_iters, c);
     }
-    const float f = segment_sum(w.xt, count, w.buf) - 1.0f;
+    const float f = team.sum(w.xt, count, w.buf) - 1.0f;
     const bool over = f > 0.0f;        // over budget -> raise the price
-    for (int j = threadIdx.x; j < count; j += blockDim.x) {
+    for (int j = team.first(); j < count; j += team.stride()) {
       if (over) w.xa[j] = w.xt[j];
       else w.xb[j] = w.xt[j];
     }
@@ -322,7 +403,7 @@ __device__ void illinois_waterfill(const Load& load, int count, Rows w,
     fb = fb_next;
   }
   const float nu = expf(0.5f * (a + b));
-  for (int j = threadIdx.x; j < count; j += blockDim.x) {
+  for (int j = team.first(); j < count; j += team.stride()) {
     const Cam c = load(j);
     float blo, bhi;
     bracket(w.xa[j], w.xb[j], c, &blo, &bhi);
@@ -331,12 +412,13 @@ __device__ void illinois_waterfill(const Load& load, int count, Rows w,
 }
 
 // Line 4: normalized bandwidth of one server, written as Hz to out[cam].
-__device__ void bandwidth_segment(const float* k, const float* p,
+template <class Team>
+__device__ void bandwidth_segment(Team& team, const float* k, const float* p,
                                   const int* pol, const float* mu, float B,
                                   const int* seg, int count, Rows w,
                                   int outer, int inner, int final_inner,
                                   float* out) {
-  for (int j = threadIdx.x; j < count; j += blockDim.x) {
+  for (int j = team.first(); j < count; j += team.stride()) {
     const int i = seg[j];
     w.bound[j] = pol[i] == kLCFSP
                      ? 1.0f
@@ -348,47 +430,71 @@ __device__ void bandwidth_segment(const float* k, const float* p,
     const int i = seg[j];
     return Cam{k[i] * B, p[i], mu[i], 1e-9f, w.bound[j], pol[i] == kLCFSP};
   };
-  illinois_waterfill<kModeBandwidth>(load, count, w, outer, inner,
+  illinois_waterfill<kModeBandwidth>(team, load, count, w, outer, inner,
                                      final_inner);
-  for (int j = threadIdx.x; j < count; j += blockDim.x)
+  for (int j = team.first(); j < count; j += team.stride())
     out[seg[j]] = w.xt[j] * B;
 }
 
 // Line 5: normalized compute of one server with the FCFS stability floors
 // (mu >= margin * lam, scaled down where they alone exceed the budget),
 // written as FLOPS to out[cam]. `lam_of(j)` gives the camera's arrival rate.
-template <class Lam>
-__device__ void compute_segment(const float* inv_xi, const float* p,
-                                const int* pol, const Lam& lam_of, float C,
-                                float margin, const int* seg, int count,
-                                Rows w, int outer, int inner, int final_inner,
-                                float* out) {
-  for (int j = threadIdx.x; j < count; j += blockDim.x) {
+template <class Team, class Lam>
+__device__ void compute_segment(Team& team, const float* inv_xi,
+                                const float* p, const int* pol,
+                                const Lam& lam_of, float C, float margin,
+                                const int* seg, int count, Rows w, int outer,
+                                int inner, int final_inner, float* out) {
+  for (int j = team.first(); j < count; j += team.stride()) {
     const int i = seg[j];
     w.bound[j] = pol[i] == kLCFSP
                      ? 1e-9f
                      : margin * lam_of(j) / fmaxf(inv_xi[i] * C, kEps);
   }
-  const float floor_tot = segment_sum(w.bound, count, w.buf);
+  const float floor_tot = team.sum(w.bound, count, w.buf);
   const float fac = fminf(1.0f / fmaxf(floor_tot, kEps), 1.0f);
-  for (int j = threadIdx.x; j < count; j += blockDim.x)
+  for (int j = team.first(); j < count; j += team.stride())
     w.bound[j] = fminf(fmaxf(w.bound[j] * fac, 1e-9f), 1.0f);
   auto load = [&](int j) {
     const int i = seg[j];
     return Cam{inv_xi[i] * C, p[i], lam_of(j), w.bound[j], 1.0f,
                pol[i] == kLCFSP};
   };
-  illinois_waterfill<kModeCompute>(load, count, w, outer, inner,
+  illinois_waterfill<kModeCompute>(team, load, count, w, outer, inner,
                                    final_inner);
-  for (int j = threadIdx.x; j < count; j += blockDim.x)
+  for (int j = team.first(); j < count; j += team.stride())
     out[seg[j]] = w.xt[j] * C;
+}
+
+// One water-fill of server s in `mode` by `team` (waterfill and
+// waterfill_tiled). coef is k = eff/size (bandwidth) or 1/xi (compute);
+// other is mu (bandwidth) or lam (compute).
+template <class Team>
+__device__ void fill_server(Team& team, int s, int mode, const float* coef,
+                            const float* p, const int* pol,
+                            const float* other, const float* budgets,
+                            float margin, const int* order,
+                            const int* starts, const int* counts, int n,
+                            int outer, int inner, int final_inner,
+                            float* scratch, float* out) {
+  const int start = starts[s];
+  const int count = counts[s];
+  const Rows w = rows_of(scratch, n, start);
+  const int* seg = order + start;
+  if (mode == kModeBandwidth) {
+    bandwidth_segment(team, coef, p, pol, other, budgets[s], seg, count, w,
+                      outer, inner, final_inner, out);
+  } else {
+    auto lam_of = [&](int j) { return other[seg[j]]; };
+    compute_segment(team, coef, p, pol, lam_of, budgets[s], margin, seg,
+                    count, w, outer, inner, final_inner, out);
+  }
 }
 
 // --------------------------------------------------------------------------
 // 2. waterfill: one water-fill, bandwidth (mode 0) or compute (mode 1).
 //
-// Replaces kernel.py:waterfill. coef is k = eff/size (bandwidth) or 1/xi
-// (compute); other is mu (bandwidth) or lam (compute). One CTA per server.
+// Replaces kernel.py:waterfill. One CTA per server.
 // --------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kFillThreads) waterfill_kernel(
@@ -398,19 +504,10 @@ __global__ void __launch_bounds__(kFillThreads) waterfill_kernel(
     const int* __restrict__ order, const int* __restrict__ starts,
     const int* __restrict__ counts, int n, int outer, int inner,
     int final_inner, float* __restrict__ scratch, float* __restrict__ out) {
-  const int s = blockIdx.x;
-  const int start = starts[s];
-  const int count = counts[s];
-  const Rows w = rows_of(scratch, n, start);
-  const int* seg = order + start;
-  if (mode == kModeBandwidth) {
-    bandwidth_segment(coef, p, pol, other, budgets[s], seg, count, w, outer,
-                      inner, final_inner, out);
-  } else {
-    auto lam_of = [&](int j) { return other[seg[j]]; };
-    compute_segment(coef, p, pol, lam_of, budgets[s], margin, seg, count, w,
-                    outer, inner, final_inner, out);
-  }
+  BlockTeam team;
+  fill_server(team, blockIdx.x, mode, coef, p, pol, other, budgets, margin,
+              order, starts, counts, n, outer, inner, final_inner, scratch,
+              out);
 }
 
 // --------------------------------------------------------------------------
@@ -437,15 +534,116 @@ __global__ void __launch_bounds__(kFillThreads) waterfill_pair_kernel(
   const int count = counts[s];
   const Rows w = rows_of(scratch, n, start);
   const int* seg = order + start;
-  bandwidth_segment(k, p, pol, mu, budgets_b[s], seg, count, w, outer, inner,
-                    final_inner, out_b);
+  BlockTeam team;
+  bandwidth_segment(team, k, p, pol, mu, budgets_b[s], seg, count, w, outer,
+                    inner, final_inner, out_b);
   __syncthreads();
   auto lam_of = [&](int j) {
     const int i = seg[j];
     return out_b[i] * k[i];
   };
-  compute_segment(inv_xi, p, pol, lam_of, budgets_c[s], margin, seg, count, w,
-                  outer, inner, final_inner, out_c);
+  compute_segment(team, inv_xi, p, pol, lam_of, budgets_c[s], margin, seg,
+                  count, w, outer, inner, final_inner, out_c);
+}
+
+// --------------------------------------------------------------------------
+// 4. waterfill_tiled: one water-fill with each server's segment split over
+//    a cluster of G CTAs.
+//
+// Replaces kernel.py:waterfill_tiled. On the TPU the tiled kernel streams
+// a fleet too large for VMEM through one core tile by tile, with the
+// per-camera brackets in HBM between sweeps. On this card nothing has to
+// be streamed (the brackets already live in the [5, N] global scratch);
+// what a large segment lacks is parallelism: one CTA per server puts the
+// whole virtual server (S = 1) on one SM of 132. So here a server's
+// segment is split over the G CTAs of a thread-block cluster, G a power
+// of two <= 8 chosen on the host from N, S and the tile (about `tile`
+// cameras per CTA), never from the per-server counts on the device. CTA g
+// owns positions j = g (mod G) (ClusterTeam); each dual evaluation's fill
+// sum is one class sum per CTA plus one cluster barrier, and the residue
+// split keeps the sum bitwise equal to segment_sum and to the plain
+// version. Bound as kernel 2: the serial chain of dual evaluations; G CTAs
+// shorten each evaluation's per-camera work G-fold and add a cluster
+// barrier to it.
+// --------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kTiledThreads) waterfill_tiled_kernel(
+    int mode, const float* __restrict__ coef, const float* __restrict__ p,
+    const int* __restrict__ pol, const float* __restrict__ other,
+    const float* __restrict__ budgets, float margin,
+    const int* __restrict__ order, const int* __restrict__ starts,
+    const int* __restrict__ counts, int n, int group, int outer, int inner,
+    int final_inner, float* __restrict__ scratch, float* __restrict__ out) {
+  __shared__ float slots[2];
+  ClusterTeam team{static_cast<int>(cg::this_cluster().block_rank()), group,
+                   slots, 0};
+  fill_server(team, blockIdx.x / group, mode, coef, p, pol, other, budgets,
+              margin, order, starts, counts, n, outer, inner, final_inner,
+              scratch, out);
+  team.finish();
+}
+
+// --------------------------------------------------------------------------
+// 5. baseline_argmax: the DOS and JCAB configuration scans.
+//
+// Replaces kernel.py:baseline_argmax. Per camera, over the M x R grid,
+// latency = 1/max(lam, 1e-9) + 1/max(mu, 1e-9) with lam = b*eff/size[r],
+// mu = c/xi[m, r]; DOS (mode 0) takes the argmax of acc - w * latency,
+// JCAB (mode 1) the argmax of acc among configs with latency <= cap, or,
+// where none qualifies, the argmin of latency. Bound on this card: bytes
+// (the [N, M, R] accuracy table is read once; about 10 operations per
+// entry). Design: one thread per camera, as config_argmin; the scores are
+// folded in registers into (best value, best flat index), first r within
+// a model and strict > across models, the order of a flat m-major argmax,
+// and JCAB's fallback in a second fold with strict <.
+// --------------------------------------------------------------------------
+
+__global__ void baseline_argmax_kernel(
+    const float* __restrict__ b, const float* __restrict__ c,
+    const float* __restrict__ eff, const float* __restrict__ acc,
+    const float* __restrict__ xi, const float* __restrict__ size,
+    float thresh, int mode, int n, int n_m, int n_r, int* __restrict__ m_out,
+    int* __restrict__ r_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float be = b[i] * eff[i];
+  const float ci = c[i];
+  const float* acc_i = acc + static_cast<long long>(i) * n_m * n_r;
+  float best_val = -INFINITY;
+  int best_flat = 0;
+  float lat_best = INFINITY;
+  int lat_flat = 0;
+  for (int m = 0; m < n_m; ++m) {
+    float row_val = 0.0f, row_lat = 0.0f;
+    int row_r = 0, lat_r = 0;
+    for (int r = 0; r < n_r; ++r) {
+      const float lam = be / size[r];
+      const float mu = ci / xi[m * n_r + r];
+      const float lat = 1.0f / fmaxf(lam, 1e-9f) + 1.0f / fmaxf(mu, 1e-9f);
+      const float a = acc_i[m * n_r + r];
+      const float val = mode == kModeDos ? a - thresh * lat
+                                         : (lat <= thresh ? a : -INFINITY);
+      if (r == 0 || val > row_val) {
+        row_val = val;
+        row_r = r;
+      }
+      if (r == 0 || lat < row_lat) {
+        row_lat = lat;
+        lat_r = r;
+      }
+    }
+    if (row_val > best_val) {
+      best_val = row_val;
+      best_flat = m * n_r + row_r;
+    }
+    if (row_lat < lat_best) {
+      lat_best = row_lat;
+      lat_flat = m * n_r + lat_r;
+    }
+  }
+  if (mode == kModeJcab && best_val == -INFINITY) best_flat = lat_flat;
+  m_out[i] = best_flat / n_r;
+  r_out[i] = best_flat % n_r;
 }
 
 }  // namespace
@@ -493,6 +691,46 @@ int slot_waterfill_pair(const float* k, const float* p, const int* pol,
   waterfill_pair_kernel<<<n_servers, kFillThreads, 0, stream>>>(
       k, p, pol, mu, inv_xi, budgets_b, budgets_c, margin, order, starts,
       counts, n, outer, inner, final_inner, scratch, out_b, out_c);
+  return cudaGetLastError();
+}
+
+int slot_waterfill_tiled(int mode, const float* coef, const float* p,
+                         const int* pol, const float* other,
+                         const float* budgets, float margin, const int* order,
+                         const int* starts, const int* counts, int n,
+                         int n_servers, int group, int outer, int inner,
+                         int final_inner, float* scratch, float* out,
+                         cudaStream_t stream) {
+  if (n == 0 || n_servers == 0) return cudaSuccess;
+  if (group < 1 || group > kMaxGroup || (group & (group - 1)) != 0)
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_servers * group);
+  cfg.blockDim = dim3(kTiledThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = group;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, waterfill_tiled_kernel, mode, coef, p, pol, other, budgets,
+      margin, order, starts, counts, n, group, outer, inner, final_inner,
+      scratch, out);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+int slot_baseline_argmax(const float* b, const float* c, const float* eff,
+                         const float* acc, const float* xi, const float* size,
+                         float thresh, int mode, int n, int n_m, int n_r,
+                         int* m_out, int* r_out, cudaStream_t stream) {
+  if (n == 0) return cudaSuccess;
+  const int blocks = (n + kBaselineThreads - 1) / kBaselineThreads;
+  baseline_argmax_kernel<<<blocks, kBaselineThreads, 0, stream>>>(
+      b, c, eff, acc, xi, size, thresh, mode, n, n_m, n_r, m_out, r_out);
   return cudaGetLastError();
 }
 

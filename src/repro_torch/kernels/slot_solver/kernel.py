@@ -17,6 +17,8 @@ from .. import _build
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "slot_solver.cu",)
 MODE_BANDWIDTH = 0
 MODE_COMPUTE = 1
+BASELINE_MODES = {"dos": 0, "jcab": 1}
+MAX_GROUP = 8        # CTAs per server of waterfill_tiled (a portable cluster)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
@@ -31,6 +33,12 @@ _ARGTYPES = {
     # stream
     "slot_waterfill_pair": [_P] * 7 + [_F] + [_P] * 3 + [_I] * 5 +
                            [_P] * 4,
+    # mode, coef, p, pol, other, budgets, margin, order, starts, counts,
+    # n, n_servers, group, outer, inner, final, scratch, out, stream
+    "slot_waterfill_tiled": [_I] + [_P] * 5 + [_F] + [_P] * 3 + [_I] * 6 +
+                            [_P] * 3,
+    # b, c, eff, acc, xi, size, thresh, mode, n, n_m, n_r, m, r, stream
+    "slot_baseline_argmax": [_P] * 6 + [_F] + [_I] * 4 + [_P] * 3,
 }
 
 
@@ -97,3 +105,21 @@ def waterfill_pair(k, p, pol, mu, inv_xi, budgets_b, budgets_c,
             _ptr(order), _ptr(starts), _ptr(counts), _I(k.shape[0]),
             _I(counts.shape[0]), _I(outer), _I(inner), _I(final),
             _ptr(scratch), _ptr(out_b), _ptr(out_c))
+
+
+def waterfill_tiled(mode: int, coef, p, pol, other, budgets, margin: float,
+                    order, starts, counts, group: int, outer: int,
+                    inner: int, final: int, scratch, out) -> None:
+    _launch("slot_waterfill_tiled", _I(mode), _ptr(coef), _ptr(p),
+            _ptr(pol), _ptr(other), _ptr(budgets), _F(margin), _ptr(order),
+            _ptr(starts), _ptr(counts), _I(coef.shape[0]),
+            _I(counts.shape[0]), _I(group), _I(outer), _I(inner), _I(final),
+            _ptr(scratch), _ptr(out))
+
+
+def baseline_argmax(b, c, eff, acc, xi, size, threshold: float, mode: str,
+                    m_out, r_out) -> None:
+    n, n_m, n_r = acc.shape
+    _launch("slot_baseline_argmax", _ptr(b), _ptr(c), _ptr(eff), _ptr(acc),
+            _ptr(xi), _ptr(size), _F(threshold), _I(BASELINE_MODES[mode]),
+            _I(n), _I(n_m), _I(n_r), _ptr(m_out), _ptr(r_out))

@@ -7,8 +7,9 @@ to the plain version. ``launches`` counts kernel launches per kernel (the
 plain version never counts).
 
 ``ServerLayout`` sorts cameras stably by server into contiguous per-server
-segments; the water-fill kernels run one CTA per segment, given the
-sorted camera order and each server's ``start``/``counts``. The layout
+segments; the water-fill kernels run one CTA per segment (the tiled one a
+cluster of CTAs per segment), given the sorted camera order and each
+server's ``start``/``counts``. The layout
 also keeps the JAX package's lane-padded flat view and ``[S, C]`` row view
 (``repro.kernels.slot_solver.ops.ServerLayout``), so the two can be
 compared field by field.
@@ -25,7 +26,8 @@ from ...core import allocate
 _LANE = 128          # the reference's padding width (its TPU lane width)
 
 # Kernel launches per kernel name since the last ``reset_launches()``.
-launches = {"config_argmin": 0, "waterfill": 0, "waterfill_pair": 0}
+launches = {"config_argmin": 0, "waterfill": 0, "waterfill_pair": 0,
+            "waterfill_tiled": 0, "baseline_argmax": 0}
 
 
 def reset_launches() -> None:
@@ -160,6 +162,29 @@ def config_argmin(b, c, acc, xi, size, eff, q, v, n_total: int):
     return out[0], out[1], out[2]
 
 
+def baseline_argmax(b, c, acc, xi, size, eff, *, mode: str, threshold):
+    """DOS/JCAB configuration scan; per camera ``(m_idx, r_idx)``
+    (``ref.baseline_argmax_ref``). ``threshold`` is DOS's latency weight or
+    JCAB's latency cap, a Python number."""
+    if mode not in kernel.BASELINE_MODES:
+        raise ValueError(f"unknown baseline scan mode {mode!r}")
+    if not _on_cuda(b):
+        return ref.baseline_argmax_ref(b, c, acc, xi, size, eff, mode=mode,
+                                       threshold=threshold)
+    n, n_m, n_r = acc.shape
+    dev = b.device
+    f32 = torch.float32
+    for name, t, shape in (("b", b, (n,)), ("c", c, (n,)),
+                           ("eff", eff, (n,)), ("acc", acc, (n, n_m, n_r)),
+                           ("xi", xi, (n_m, n_r)), ("size", size, (n_r,))):
+        _check(f"baseline_argmax {name}", t, f32, shape, dev)
+    out = torch.empty((2, n), dtype=torch.int32, device=dev)
+    kernel.baseline_argmax(b, c, eff, acc, xi, size, float(threshold), mode,
+                           out[0], out[1])
+    launches["baseline_argmax"] += 1
+    return out[0], out[1]
+
+
 # ---------------------------------------------------------------------------
 # Water-filling (Algorithm 1 lines 4/5)
 # ---------------------------------------------------------------------------
@@ -178,58 +203,99 @@ def _check_fill(name, vectors, pol, budgets, n_servers, layout):
                          f"{n_servers}")
 
 
+def tiled_group(n_cameras: int, n_servers: int, tile_n: int | None
+                ) -> int | None:
+    """CTAs per server of the tiled water-fill, or None for the untiled
+    kernel. As in the reference, ``tile_n`` is rounded up to the 128-wide
+    padding and the fleet is tiled when its padded width exceeds one tile;
+    then each server gets the power of two G <= ``kernel.MAX_GROUP`` that
+    puts about one tile of a mean-sized segment on each CTA. G depends on
+    the sizes alone, never on the per-server counts on the device."""
+    if tile_n is None:
+        return None
+    tile = max(_LANE, -(-int(tile_n) // _LANE) * _LANE)
+    if max(_LANE, -(-n_cameras // _LANE) * _LANE) <= tile:
+        return None
+    want = -(-n_cameras // (max(n_servers, 1) * tile))
+    group = 1
+    while group < min(want, kernel.MAX_GROUP):
+        group *= 2
+    return group
+
+
+_FILL_MODES = {"bandwidth": kernel.MODE_BANDWIDTH,
+               "compute": kernel.MODE_COMPUTE}
+
+
+def _fill(mode, coef, p, pol, other, budgets, margin, server_id, n_servers,
+          effort, layout, group):
+    """Check and launch one water-fill on CUDA tensors: the ``waterfill``
+    kernel, or ``waterfill_tiled`` with ``group`` CTAs per server."""
+    name = "waterfill" if group is None else "waterfill_tiled"
+    if group is not None and (group < 1 or group > kernel.MAX_GROUP
+                              or group & (group - 1)):
+        raise ValueError(f"waterfill_tiled: group={group} is not a power "
+                         f"of two in [1, {kernel.MAX_GROUP}]")
+    if layout is None:
+        layout = server_layout(server_id, n_servers)
+    vecs = (("k", "mu") if mode == "bandwidth" else ("inv_xi", "lam"))
+    _check_fill(f"{name}({mode})",
+                ((vecs[0], coef), ("p", p), (vecs[1], other)), pol,
+                (("budgets", budgets),), n_servers, layout)
+    n = coef.shape[0]
+    out = torch.empty_like(coef)
+    scratch = torch.empty((5, n), dtype=torch.float32, device=coef.device)
+    args = (_FILL_MODES[mode], coef, p, pol, other, budgets, float(margin),
+            layout.camera_order, layout.start, layout.counts)
+    if group is None:
+        kernel.waterfill(*args, *effort, scratch, out)
+    else:
+        kernel.waterfill_tiled(*args, group, *effort, scratch, out)
+    launches[name] += 1
+    return out
+
+
 def waterfill_bandwidth(k, p, pol, mu, server_id, budgets, n_servers: int,
                         outer_iters: int = 16, inner_iters: int = 6,
                         final_inner_iters: int = 20, *,
-                        layout: ServerLayout | None = None):
+                        layout: ServerLayout | None = None,
+                        tile_n: int | None = None, group: int | None = None):
     """Bandwidth b[n] (Hz) per server budget; the signature of
-    ``allocate.waterfill_bandwidth`` plus an optional prebuilt layout."""
+    ``allocate.waterfill_bandwidth`` plus an optional prebuilt layout and
+    ``tile_n``, which launches the ``waterfill_tiled`` kernel where
+    :func:`tiled_group` says so. ``group`` pins the tiled kernel's CTAs per
+    server (a power of two <= ``kernel.MAX_GROUP``) instead. On the CPU
+    both only name a launch: the plain version is the same function."""
     if not _on_cuda(k):
         return allocate.waterfill_bandwidth(
             k, p, pol, mu, server_id, budgets, n_servers,
             outer_iters=outer_iters, inner_iters=inner_iters,
             final_inner_iters=final_inner_iters)
-    if layout is None:
-        layout = server_layout(server_id, n_servers)
-    _check_fill("waterfill_bandwidth", (("k", k), ("p", p), ("mu", mu)),
-                pol, (("budgets", budgets),), n_servers, layout)
-    n = k.shape[0]
-    out = torch.empty_like(k)
-    scratch = torch.empty((5, n), dtype=torch.float32, device=k.device)
-    kernel.waterfill(kernel.MODE_BANDWIDTH, k, p, pol, mu, budgets, 0.0,
-                     layout.camera_order, layout.start, layout.counts,
-                     outer_iters, inner_iters, final_inner_iters, scratch,
-                     out)
-    launches["waterfill"] += 1
-    return out
+    return _fill("bandwidth", k, p, pol, mu, budgets, 0.0, server_id,
+                 n_servers, (outer_iters, inner_iters, final_inner_iters),
+                 layout, group if group is not None
+                 else tiled_group(k.shape[0], n_servers, tile_n))
 
 
 def waterfill_compute(inv_xi, p, pol, lam, server_id, budgets,
                       n_servers: int, stability_margin: float = 1.05,
                       outer_iters: int = 16, inner_iters: int = 6,
                       final_inner_iters: int = 20, *,
-                      layout: ServerLayout | None = None):
+                      layout: ServerLayout | None = None,
+                      tile_n: int | None = None, group: int | None = None):
     """Computation c[n] (FLOPS) per server budget; the signature of
-    ``allocate.waterfill_compute`` plus an optional prebuilt layout."""
+    ``allocate.waterfill_compute`` plus an optional prebuilt layout,
+    ``tile_n`` and ``group`` (as in :func:`waterfill_bandwidth`)."""
     if not _on_cuda(inv_xi):
         return allocate.waterfill_compute(
             inv_xi, p, pol, lam, server_id, budgets, n_servers,
             stability_margin=stability_margin, outer_iters=outer_iters,
             inner_iters=inner_iters, final_inner_iters=final_inner_iters)
-    if layout is None:
-        layout = server_layout(server_id, n_servers)
-    _check_fill("waterfill_compute",
-                (("inv_xi", inv_xi), ("p", p), ("lam", lam)), pol,
-                (("budgets", budgets),), n_servers, layout)
-    n = inv_xi.shape[0]
-    out = torch.empty_like(inv_xi)
-    scratch = torch.empty((5, n), dtype=torch.float32, device=inv_xi.device)
-    kernel.waterfill(kernel.MODE_COMPUTE, inv_xi, p, pol, lam, budgets,
-                     stability_margin, layout.camera_order, layout.start,
-                     layout.counts, outer_iters, inner_iters,
-                     final_inner_iters, scratch, out)
-    launches["waterfill"] += 1
-    return out
+    return _fill("compute", inv_xi, p, pol, lam, budgets, stability_margin,
+                 server_id, n_servers,
+                 (outer_iters, inner_iters, final_inner_iters), layout,
+                 group if group is not None
+                 else tiled_group(inv_xi.shape[0], n_servers, tile_n))
 
 
 def waterfill_pair(k, p, pol, mu, inv_xi, server_id, budgets_b, budgets_c,

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import allocate, bcd, lbcd, profiles
+from repro_torch.core import allocate, baselines, bcd, energy, lbcd, profiles
 from repro_torch.kernels.slot_solver import ops, ref
 
 pytestmark = pytest.mark.gpu
@@ -98,7 +98,8 @@ def test_gpu_waterfills_match_plain(cuda, case):
     pb_p, pc_p = allocate.waterfill_pair(*args_pair)
     torch.cuda.synchronize()
     assert ops.launches == {"config_argmin": 0, "waterfill": 2,
-                            "waterfill_pair": 1}
+                            "waterfill_pair": 1, "waterfill_tiled": 0,
+                            "baseline_argmax": 0}
     # The kernels add their fill sums in the plain version's tree order and
     # round every operation alike (-fmad=false), so they agree bitwise;
     # the bar the reference holds Pallas to is rtol=2e-4.
@@ -146,3 +147,129 @@ def test_gpu_rollout_cuda_matches_torch(cuda):
     assert torch.equal(r_k.assign, r_p.assign)
     assert torch.equal(r_k.aopi, r_p.aopi)
     assert torch.equal(r_k.q, r_p.q)
+
+
+BASELINE_SCANS = [("dos", 1.0), ("dos", 0.3), ("jcab", 0.5), ("jcab", 1e-6)]
+
+
+@pytest.mark.parametrize("mode,threshold", BASELINE_SCANS)
+@pytest.mark.parametrize("n", [29, 1001, 100_000])
+def test_gpu_baseline_argmax_bitwise(cuda, n, mode, threshold):
+    """Index-bitwise against the plain version, including JCAB's
+    all-infeasible fallback (cap 1e-6)."""
+    args = _paper_config_inputs(n, 3, 1, cuda)
+    ops.reset_launches()
+    out = ops.baseline_argmax(*args, mode=mode, threshold=threshold)
+    plain = ref.baseline_argmax_ref(*args, mode=mode, threshold=threshold)
+    torch.cuda.synchronize()
+    assert ops.launches["baseline_argmax"] == 1
+    for a, b in zip(out, plain):
+        assert a.dtype == torch.int32
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("group", [2, 8])
+@pytest.mark.parametrize("case", sorted(FILL_CASES))
+def test_gpu_waterfill_tiled_matches_plain(cuda, case, group):
+    """The tiled kernel adds its fill sums by residue class in the plain
+    version's tree order, so it agrees bitwise, whatever the group."""
+    t = _fill_setup(cuda, **FILL_CASES[case])
+    s = t["s"]
+    args_b = (t["k"], t["p"], t["pol"], t["mu"], t["sid"], t["bb"], s)
+    ops.reset_launches()
+    b_k = ops.waterfill_bandwidth(*args_b, group=group)
+    b_p = allocate.waterfill_bandwidth(*args_b)
+    args_c = (t["inv_xi"], t["p"], t["pol"], b_p * t["k"], t["sid"],
+              t["bc"], s)
+    c_k = ops.waterfill_compute(*args_c, group=group)
+    c_p = allocate.waterfill_compute(*args_c)
+    torch.cuda.synchronize()
+    assert ops.launches["waterfill_tiled"] == 2
+    assert torch.equal(b_k, b_p)
+    assert torch.equal(c_k, c_p)
+
+
+def test_gpu_tile_n_selects_the_tiled_kernel(cuda):
+    t = _fill_setup(cuda, **FILL_CASES["ragged"])
+    args_b = (t["k"], t["p"], t["pol"], t["mu"], t["sid"], t["bb"], 7)
+    ops.reset_launches()
+    tiled = ops.waterfill_bandwidth(*args_b, tile_n=128)
+    assert ops.launches["waterfill_tiled"] == 1
+    untiled = ops.waterfill_bandwidth(*args_b, tile_n=4096)
+    assert ops.launches["waterfill"] == 1
+    assert torch.equal(tiled, untiled)
+
+
+def test_gpu_new_wrappers_refuse_bad_inputs(cuda):
+    args = list(_paper_config_inputs(29, 3, 0, cuda))
+    with pytest.raises(TypeError, match="dtype"):
+        ops.baseline_argmax(*args[:2], args[2].double(), *args[3:],
+                            mode="dos", threshold=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.baseline_argmax(*args[:2], args[2].transpose(1, 2).contiguous()
+                            .transpose(1, 2), *args[3:], mode="dos",
+                            threshold=1.0)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.baseline_argmax(args[0], args[1].cpu(), *args[2:], mode="jcab",
+                            threshold=0.5)
+    t = _fill_setup(cuda, n=12, s=3)
+    args_b = (t["k"], t["p"], t["pol"], t["mu"], t["sid"], t["bb"], 3)
+    for group in (0, 3, 16):
+        with pytest.raises(ValueError, match="power of two"):
+            ops.waterfill_bandwidth(*args_b, group=group)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.waterfill_bandwidth(t["k"], t["p"], t["pol"].float(),
+                                *args_b[3:], group=2)
+
+
+def test_gpu_baseline_rollouts_cuda_match_torch(cuda):
+    """DOS and JCAB through baseline_argmax, MIN through the tiled
+    water-fill (tile=128 on the 300-camera virtual server): identical to
+    the plain rollouts on the card."""
+    tab = profiles.EdgeSystem(n_cameras=300, n_servers=8, n_slots=3,
+                              mean_bandwidth_hz=30e6 * 10,
+                              mean_compute_flops=50e12 * 10).horizon(3)
+    runs = {"dos": (baselines.rollout_dos, {}),
+            "jcab": (baselines.rollout_jcab, {}),
+            "min": (baselines.rollout_min, {"v": 10.0})}
+    for name, (fn, kw) in runs.items():
+        ops.reset_launches()
+        spec = "auto:tile=128" if name == "min" else "auto"
+        r_k = fn(tab, solver_backend=spec, **kw)
+        kernel = "waterfill_tiled" if name == "min" else "baseline_argmax"
+        assert ops.launches[kernel] > 0, name
+        r_p = fn(tab, solver_backend="torch", **kw)
+        for f in ("m_idx", "r_idx", "pol", "b", "c"):
+            assert torch.equal(getattr(r_k.decision, f),
+                               getattr(r_p.decision, f)), (name, f)
+        assert torch.equal(r_k.assign, r_p.assign), name
+        assert torch.equal(r_k.aopi, r_p.aopi), name
+
+
+def test_gpu_controller_step_runs_on_the_card(cuda):
+    """A controller's ``step`` rolls a one-slot horizon on its device:
+    DOS and JCAB launch baseline_argmax there, and equal the plain step."""
+    kw = dict(n_cameras=300, n_servers=8, n_slots=3,
+              mean_bandwidth_hz=30e6 * 10, mean_compute_flops=50e12 * 10)
+    for name in ("DOS", "JCAB"):
+        ops.reset_launches()
+        rec_k = baselines.make(name, profiles.EdgeSystem(**kw)).step(1)
+        assert ops.launches["baseline_argmax"] > 0, name
+        rec_p = baselines.make(name, profiles.EdgeSystem(**kw),
+                               solver_backend="torch").step(1)
+        assert rec_k.t == 1
+        np.testing.assert_array_equal(rec_k.assign, rec_p.assign)
+        np.testing.assert_array_equal(rec_k.aopi, rec_p.aopi)
+
+
+def test_gpu_energy_rollout_cuda_matches_torch(cuda):
+    tab = profiles.EdgeSystem(n_cameras=30, n_servers=3, n_slots=3,
+                              seed=0).horizon(3)
+    args = (10.0, 0.7, 2e-8, 2e-12, 0.1)
+    res_k, pw_k, z_k = energy.rollout_energy(tab, *args)
+    res_p, pw_p, z_p = energy.rollout_energy(tab, *args,
+                                             solver_backend="torch")
+    assert (z_k[:-1] > 0).all()
+    assert torch.equal(res_k.assign, res_p.assign)
+    assert torch.equal(res_k.aopi, res_p.aopi)
+    assert torch.equal(pw_k, pw_p) and torch.equal(z_k, z_p)

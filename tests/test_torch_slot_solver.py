@@ -275,6 +275,142 @@ def test_tree_segment_sum_follows_the_kernel_order(n, s):
                                rtol=1e-5)
 
 
+# ---------------------------------------------------------------------------
+# The tiled water-fill: its sum order, its CTA count, and its plain version
+# ---------------------------------------------------------------------------
+
+def _residue_class_sum(x, group):
+    """The tiled kernel's fill sum, step by step (csrc class_sum and
+    ClusterTeam::sum): class g holds positions j = g (mod G) and is folded
+    by the halving tree of width P/G (P = 2^k >= count); the G class sums
+    are then folded by the halving tree of width G."""
+    x = [np.float32(v) for v in x]
+    count, zero = len(x), np.float32(0.0)
+    p = 1
+    while p < count:
+        p *= 2
+    parts = []
+    for g in range(group):
+        if count <= 1:
+            parts.append(x[0] if g == 0 and count == 1 else zero)
+        elif p <= group:
+            parts.append(x[g] if g < count else zero)
+        else:
+            h = p // group // 2
+            cnt = (count - g + group - 1) // group
+            buf = [x[g + group * i] +
+                   (x[g + group * (i + h)] if i + h < cnt else zero)
+                   for i in range(h)]
+            h //= 2
+            while h >= 1:
+                buf = [buf[i] + buf[i + h] for i in range(h)]
+                h //= 2
+            parts.append(buf[0])
+    h = group // 2
+    while h >= 1:
+        parts = [parts[j] + parts[j + h] for j in range(h)]
+        h //= 2
+    return parts[0]
+
+
+def _assert_residue_split_bitwise(count, group, seed):
+    rng = np.random.default_rng(seed)
+    # Values spanning six decades, so that any change of order shows.
+    x = (rng.random(count) * 10.0 ** rng.integers(-3, 3, count)).astype(
+        np.float32)
+    want = t_alloc.tree_segment_sum(
+        _t(x), t_alloc.segment_tree(_t(np.zeros(count, np.int32)), 1))[0]
+    got = _residue_class_sum(x, group)
+    assert np.float32(want.item()) == got, (count, group, seed)
+    assert got == _kernel_segment_sum(x)
+
+
+@pytest.mark.parametrize("group", [1, 2, 8, 64])
+@pytest.mark.parametrize("count", [0, 1, 2, 3, 7, 8, 9, 63, 64, 65, 130,
+                                   1001, 4097])
+def test_residue_class_split_equals_tree_sum(count, group):
+    """Splitting a segment over G CTAs by residue class and folding the G
+    class sums by a width-G tree is bitwise the plain version's sum."""
+    _assert_residue_split_bitwise(count, group, seed=count * 7 + group)
+
+
+def test_residue_class_split_equals_tree_sum_hypothesis():
+    pytest.importorskip("hypothesis")
+    from hypothesis import given, settings, strategies as st
+
+    @settings(max_examples=60, deadline=None, database=None)
+    @given(st.integers(0, 5000), st.sampled_from([1, 2, 8, 64]),
+           st.integers(0, 2**31 - 1))
+    def inner(count, group, seed):
+        _assert_residue_split_bitwise(count, group, seed)
+    inner()
+
+
+@pytest.mark.parametrize("n,s,tile,group", [
+    (100_000, 1, 16384, 8),      # MIN's virtual server at auto's tile
+    (10_000, 32, 256, 2),        # LBCD with tile=256: ~312 per server
+    (100_000, 32, 128, 8),       # capped at one portable cluster
+    (300, 5, 128, 1),            # tiled, but a mean segment fits one CTA
+    (1001, 7, 128, 2),
+    (128, 1, 128, None),         # the fleet fits in one tile: untiled
+    (300, 5, None, None),
+])
+def test_tiled_group_follows_the_reference_switch(n, s, tile, group):
+    """CTAs per server from the sizes alone; tiled exactly where the
+    reference's ops switch to its tiled kernel (padded width > tile)."""
+    assert t_ops.tiled_group(n, s, tile) == group
+    if tile is not None:
+        cap = j_ss.server_layout(jnp.zeros(n, jnp.int32), s).flat_order.shape[0]
+        rounded = max(128, -(-tile // 128) * 128)
+        assert (group is not None) == (cap > rounded)
+
+
+@pytest.mark.parametrize("n,s,tile", [(37, 3, 128), (130, 2, 128),
+                                      (300, 5, 256)])
+def test_waterfills_match_reference_tiled(n, s, tile):
+    """The tiled kernel's plain version (the port's water-fills) against
+    repro's tiled Pallas kernel in interpret mode, at the bar the reference
+    holds that kernel to against its jnp path (rtol=2e-4)."""
+    for seed in (0, 1):
+        d = _fill_setup(n, s, seed=seed)
+        t, j = _fill_args(d, True), _fill_args(d, False)
+        b_t = t_ops.waterfill_bandwidth(t["k"], t["p"], t["pol"], t["mu"],
+                                        t["sid"], t["bb"], s,
+                                        tile_n=tile).numpy()
+        b_j = np.asarray(j_ss.waterfill_bandwidth(
+            j["k"], j["p"], j["pol"], j["mu"], j["sid"], j["bb"],
+            n_servers=s, tile_n=tile))
+        np.testing.assert_allclose(b_t, b_j, rtol=2e-4, atol=1e-2)
+        lam = (b_j * d["k"]).astype(np.float32)
+        c_t = t_ops.waterfill_compute(t["inv_xi"], t["p"], t["pol"],
+                                      _t(lam), t["sid"], t["bc"], s,
+                                      tile_n=tile).numpy()
+        c_j = np.asarray(j_ss.waterfill_compute(
+            j["inv_xi"], j["p"], j["pol"], jnp.asarray(lam), j["sid"],
+            j["bc"], n_servers=s, tile_n=tile))
+        np.testing.assert_allclose(c_t, c_j, rtol=2e-4, atol=1e4)
+
+
+def test_solve_slot_tiled_spec_matches_reference():
+    """A tiled spec against repro's pallas:tile=128 solve end to end (as
+    the reference's test_solve_slot_tiled_spec_matches_jnp): indices
+    bitwise, allocations at rtol=5e-4."""
+    arrays, q, v = _slot_instance(1, n=40)
+    d_t = t_bcd.solve_slot(*map(_t, arrays), _t(q), v, n_servers=3,
+                           solver_backend="torch:tile=128")
+    j_args = tuple(map(jnp.asarray, arrays)) + (jnp.float32(q),
+                                                jnp.float32(v))
+    d_j = j_bcd.solve_slot(*j_args, n_servers=3,
+                           solver_backend="pallas:tile=128")
+    for f in ("r_idx", "m_idx", "pol"):
+        np.testing.assert_array_equal(getattr(d_t, f).numpy(),
+                                      np.asarray(getattr(d_j, f)), err_msg=f)
+    for f in ("b", "c", "acc", "aopi"):
+        np.testing.assert_allclose(getattr(d_t, f).numpy(),
+                                   np.asarray(getattr(d_j, f)), rtol=5e-4,
+                                   err_msg=f)
+
+
 def test_wrapper_checks_reject_bad_inputs():
     x = torch.zeros(4)
     t_ops._check("x", x, torch.float32, (4,), x.device)
@@ -364,14 +500,48 @@ def test_parse_and_resolve_backend():
         t_bcd.parse_backend("pallas")
     cpu, gpu = torch.device("cpu"), torch.device("cuda")
     # auto follows the tensors' device, with no fleet-size threshold.
-    assert t_bcd.resolve_spec("auto", cpu).backend == "torch"
-    assert t_bcd.resolve_spec("auto", gpu).backend == "cuda"
-    assert t_bcd.resolve_spec("auto:nofuse", gpu) == t_bcd.SolverSpec(
+    assert t_bcd.resolve_spec("auto", cpu, 30).backend == "torch"
+    assert t_bcd.resolve_spec("auto", gpu, 30).backend == "cuda"
+    assert t_bcd.resolve_spec("auto:nofuse", gpu, 30) == t_bcd.SolverSpec(
         "cuda", None, False)
-    assert t_bcd.resolve_spec("torch", gpu).backend == "torch"
-    assert t_bcd.resolve_spec("cuda:tile=0", gpu).tile_n is None
+    assert t_bcd.resolve_spec("torch", gpu, 30).backend == "torch"
+    assert t_bcd.resolve_spec("cuda:tile=0", gpu, 30).tile_n is None
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        t_bcd.resolve_spec("cuda", cpu)
+        t_bcd.resolve_spec("cuda", cpu, 30)
+
+
+def test_resolve_spec_tile_policy():
+    """The reference's tile policy (tests/test_slot_solver.py's
+    test_resolve_spec_tile_policy), with cuda in the place of pallas and
+    torch in the place of jnp."""
+    gpu = torch.device("cuda")
+    thr = t_bcd.AUTO_TILE_MIN_CAMERAS
+    assert (thr, t_bcd.DEFAULT_TILE_N) == (j_bcd.AUTO_TILE_MIN_CAMERAS,
+                                           j_bcd.DEFAULT_TILE_N)
+    # Auto-tiling engages from the threshold, on auto and on explicit cuda.
+    assert t_bcd.resolve_spec("auto", gpu, thr).tile_n == t_bcd.DEFAULT_TILE_N
+    assert t_bcd.resolve_spec("cuda", gpu, thr).tile_n == t_bcd.DEFAULT_TILE_N
+    assert t_bcd.resolve_spec("cuda", gpu, thr - 1).tile_n is None
+    # tile=0 pins the untiled kernels even at scale.
+    assert t_bcd.resolve_spec("cuda:tile=0", gpu, 10 * thr).tile_n is None
+    # A tile the whole fleet fits inside resolves to untiled.
+    assert t_bcd.resolve_spec(f"cuda:tile={t_bcd.DEFAULT_TILE_N}", gpu,
+                              3000).tile_n is None
+    assert t_bcd.resolve_spec("cuda:tile=128", gpu, 300).tile_n == 128
+    assert t_bcd.resolve_spec("auto:tile=128:nofuse", gpu, 300) == \
+        t_bcd.SolverSpec("cuda", 128, False)
+    # torch never tiles; a resolved spec never carries "auto".
+    assert t_bcd.resolve_spec("torch:tile=4096", gpu,
+                              10 * thr).tile_n is None
+    assert t_bcd.resolve_spec("auto", torch.device("cpu"), 10 * thr) == \
+        t_bcd.SolverSpec("torch", None, True)
+    assert t_bcd.resolve_spec("auto", gpu, 10 * thr).backend == "cuda"
+    # The reference resolves the same tiles for its own backends.
+    for spec, n in (("auto", thr), ("auto", thr - 1), ("auto:tile=0", 10 *
+                                                        thr),
+                    ("auto:tile=128", 300), ("auto:tile=16384", 3000)):
+        assert (t_bcd.resolve_spec(spec, gpu, n).tile_n ==
+                j_bcd.resolve_spec(spec, n).tile_n), (spec, n)
 
 
 def test_unported_options_raise():
@@ -379,8 +549,11 @@ def test_unported_options_raise():
     args = tuple(map(_t, arrays)) + (float(q), v)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         t_bcd.solve_slot(*args, n_servers=3, solver_backend="cuda")
-    with pytest.raises(NotImplementedError, match="waterfill_tiled"):
-        t_bcd.solve_slot(*args, n_servers=3, solver_backend="auto:tile=128")
+    # tile= is ported: on the CPU a tiled spec resolves to the plain path.
+    d_tiled = t_bcd.solve_slot(*args, n_servers=3,
+                               solver_backend="auto:tile=128")
+    d_plain = t_bcd.solve_slot(*args, n_servers=3)
+    assert torch.equal(d_tiled.b, d_plain.b)
     with pytest.raises(NotImplementedError, match="interior"):
         t_bcd.solve_slot(*args, n_servers=3, method="interior")
     with pytest.raises(NotImplementedError, match="active"):
@@ -410,11 +583,19 @@ def test_build_command_targets_hopper_without_fma(tmp_path):
 
 
 def test_cuda_source_has_the_three_kernels():
-    src = t_kernel.SOURCES[0].read_text()
+    """The five kernels (three from the first slice, waterfill_tiled and
+    baseline_argmax since) and their C entry points, each bound in
+    kernel.py, and no fast-math intrinsics."""
+    src = "".join(p.read_text() for p in t_kernel.SOURCES)
     for name in ("config_argmin_kernel", "waterfill_kernel",
-                 "waterfill_pair_kernel", "illinois_waterfill"):
+                 "waterfill_pair_kernel", "waterfill_tiled_kernel",
+                 "baseline_argmax_kernel", "illinois_waterfill",
+                 "class_sum"):
         assert f"{name}" in src
     for name in ("slot_config_argmin", "slot_waterfill",
-                 "slot_waterfill_pair"):
+                 "slot_waterfill_pair", "slot_waterfill_tiled",
+                 "slot_baseline_argmax"):
         assert f"int {name}(" in src
+        assert name in t_kernel._ARGTYPES
     assert "__expf" not in src and "__fdividef" not in src
+    assert f"kMaxGroup = {t_kernel.MAX_GROUP};" in src

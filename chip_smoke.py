@@ -5,14 +5,22 @@
 
 Phases, each of which raises on failure (exit code non-zero):
 
-  1. card     - nvidia-smi name/power limit, torch/CUDA versions, nvcc build
-                of the slot-solver kernels from the sources in this checkout;
+  1. card     - nvidia-smi name/power limit, torch/CUDA versions, nvcc builds
+                of the three kernel libraries (slot solver, flash attention,
+                flash decode) from the sources in this checkout, in parallel;
   2. kernels  - each CUDA kernel against its plain PyTorch version on the
                 card at the main paths' shapes and at edge cases, with
                 CUDA-event and profiler times: config_argmin and
                 baseline_argmax index-bitwise, waterfill / waterfill_pair at
                 rtol=2e-4, waterfill_tiled bitwise (N=100,000 at S=1 and
                 S=32, edge cases, a tile smaller than every segment);
+                flash_attention and flash_decode at tests/test_kernels.py's
+                sweep shapes and at qwen2.5-3b's widths in f32 and bf16
+                (2e-5 / 5e-2; bf16 at qwen2.5-3b's widths also against the
+                f32 plain version at 1e-5 + 1e-2 * |want|), ragged kv_len
+                including 1, t and 0 (zeros),
+                each timed beside its plain version and one
+                scaled_dot_product_attention call (library_ms);
   3. end to end - each path driven through its entry point with the launch
                 counters zeroed just before and read just after, against the
                 plain (solver_backend="torch") run on the card:
@@ -24,7 +32,20 @@ Phases, each of which raises on failure (exit code non-zero):
                 equal the plain run, LBCD and energy meet the rollout
                 contract; every kernel's launch counter must be > 0. One
                 slot each of MIN and JCAB at N=100,000 is profiled (device
-                time by kernel, device busy share).
+                time by kernel, device busy share);
+  4. LM serving - qwen2.5-3b at full width and depth (36 layers, f32
+                parameters from a seeded torch.Generator, 13.6 GB) served by
+                repro_torch.serving.Engine (8 lanes, 4096-row caches):
+                (a) measure_engine_epoch over 8 streams, half FCFS and half
+                LCFSP (the service's engine rung), a liveness and
+                plane-parity check: its statistics come from the host draws
+                and event loop, so they must equal the same epoch on the
+                replay engine, but they do not see the tokens; (b) 8 admits of
+                512-3,072-token prompts and 64 decode ticks, timed, then
+                held teacher-forced against the same engine built with
+                impl="torch": logits within atol 2e-3 at every step and the
+                share of identical argmax tokens >= 0.99. Both attention
+                kernels must launch in (a) and in (b).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit``, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -33,6 +54,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -412,6 +434,220 @@ def check_baseline(d, label, mode, threshold, timing: bool):
     return out
 
 
+# Attention kernels. Shapes: tests/test_kernels.py's sweeps, then
+# qwen2.5-3b's widths (h=16, kvh=2, d=128): a 6-token frame, a
+# non-multiple of the tile and a long prompt; decode over 8 lanes of a
+# 4096-row cache.
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+# At qwen2.5-3b's widths the bf16 outputs are small (|out| ~ 0.04 at
+# s = t = 2048), so the bf16 runs there are also held against the plain
+# version on the same inputs in f32: the kernel accumulates in f32 and
+# rounds once to bf16 (at most 2^-8 relative), so atol 1e-5 plus rtol
+# 1e-2 leaves room for that rounding and the f32 summation order, and a
+# dropped KV tile (a shift of ~10% at s = 2048) fails it.
+BF16_TIGHT = (1e-5, 1e-2)
+PREFILL_SWEEP = [(2, 256, 256, 4, 2, 64), (1, 128, 384, 8, 8, 128),
+                 (2, 256, 256, 4, 1, 128), (1, 192, 192, 6, 2, 64)]
+PREFILL_FULL = [(1, s, s, 16, 2, 128) for s in (6, 192, 2048)]
+DECODE_SWEEP = [(2, 512, 8, 2, 64), (4, 1024, 4, 4, 128),
+                (1, 384, 8, 1, 128), (3, 640, 16, 8, 64)]
+DECODE_FULL = (8, 4096, 16, 2, 128)
+# Phase 4's prompt lengths (ragged, 512-3,072 tokens): the cache fill the
+# decode timing reads.
+PROMPT_LENS = (512, 896, 1280, 1664, 2048, 2432, 2816, 3072)
+
+
+def normal(shape, dtype, dev, seed):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                           device=dev).to(getattr(torch, dtype))
+
+
+def sdpa(q, k, v, mask=None, causal=False):
+    """One scaled_dot_product_attention call on the port's [b, s, h, d]
+    layout, the KV heads shared by enable_gqa: the library yardstick,
+    never used by the port."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, is_causal=causal, enable_gqa=True)
+
+
+def check_attention(dev):
+    """Hold flash_attention and flash_decode against their plain versions
+    on the card and time both at the main path's shapes. Returns
+    {kernel: results}."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    def held(name, got, want, dtype=None, atol=None, rtol=None):
+        """Max abs err of got against want; fails outside atol + rtol *
+        |want| (ATTN_TOL[dtype] for both unless given)."""
+        atol = ATTN_TOL[dtype] if atol is None else atol
+        rtol = atol if rtol is None else rtol
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        bad = ((got.float() - want.float()).abs()
+               > atol + rtol * want.float().abs())
+        if bad.any() or not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: {int(bad.sum())} of "
+                                 f"{got.numel()} outside {atol} + {rtol} "
+                                 f"* |want|; max abs err {err:.3e}")
+        return err
+
+    def tight(name, got, want_f32):
+        """bf16 kernel output against the f32 plain version on the same
+        (bf16-valued) inputs; returns the worst err / |want| share of
+        the bar."""
+        err = held(name + " vs f32 plain", got, want_f32,
+                   atol=BF16_TIGHT[0], rtol=BF16_TIGHT[1])
+        d = (got.float() - want_f32).abs()
+        return err, float((d / (BF16_TIGHT[0] + BF16_TIGHT[1]
+                                * want_f32.abs())).max())
+
+    errs = {}                  # max abs err per (kernel, dtype)
+    tight_worst = {"flash_attention": (0.0, 0.0), "flash_decode": (0.0, 0.0)}
+    for dtype in ("float32", "bfloat16"):
+        worst = {"flash_attention": 0.0, "flash_decode": 0.0}
+        for i, (b, s, t, h, kvh, d) in enumerate(PREFILL_SWEEP +
+                                                  PREFILL_FULL):
+            q = normal((b, s, h, d), dtype, dev, 3 * i)
+            k = normal((b, t, kvh, d), dtype, dev, 3 * i + 1)
+            v = normal((b, t, kvh, d), dtype, dev, 3 * i + 2)
+            name = f"flash_attention {(b, s, t, h, kvh, d)} {dtype}"
+            got = fa_ops.attention(q, k, v, causal=True)
+            e = held(name, got, fa_ref.mha_ref(q, k, v, causal=True),
+                     dtype)
+            worst["flash_attention"] = max(worst["flash_attention"], e)
+            if dtype == "bfloat16" and (b, s, t, h, kvh, d) in PREFILL_FULL:
+                tight_worst["flash_attention"] = max(
+                    tight_worst["flash_attention"],
+                    tight(name, got, fa_ref.mha_ref(
+                        q.float(), k.float(), v.float(), causal=True)),
+                    key=lambda r: r[1])
+        for i, (b, t, h, kvh, d) in enumerate(DECODE_SWEEP):
+            q = normal((b, h, d), dtype, dev, 50 + 3 * i)
+            kc = normal((b, t, kvh, d), dtype, dev, 51 + 3 * i)
+            vc = normal((b, t, kvh, d), dtype, dev, 52 + 3 * i)
+            lens = torch.tensor([t // 2 + 37 * j for j in range(b)],
+                                dtype=torch.int32, device=dev)
+            e = held(f"flash_decode {(b, t, h, kvh, d)} {dtype}",
+                     dec_ops.decode_attention(q, kc, vc, lens),
+                     dec_ref.decode_ref(q, kc, vc, lens), dtype)
+            worst["flash_decode"] = max(worst["flash_decode"], e)
+        b, t, h, kvh, d = DECODE_FULL
+        q = normal((b, h, d), dtype, dev, 70)
+        kc = normal((b, t, kvh, d), dtype, dev, 71)
+        vc = normal((b, t, kvh, d), dtype, dev, 72)
+        for lens in ([1, t, 37, 511, 512, 513, 2048, t - 1],
+                     [0, 5, 0, t, 0, 1, 0, 0]):
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+            got = dec_ops.decode_attention(q, kc, vc, kv_len)
+            name = f"flash_decode {DECODE_FULL} kv_len={lens} {dtype}"
+            e = held(name, got, dec_ref.decode_ref(q, kc, vc, kv_len),
+                     dtype)
+            if dtype == "bfloat16":
+                tight_worst["flash_decode"] = max(
+                    tight_worst["flash_decode"],
+                    tight(name, got, dec_ref.decode_ref(
+                        q.float(), kc.float(), vc.float(), kv_len)),
+                    key=lambda r: r[1])
+            empty = kv_len == 0
+            if empty.any() and torch.count_nonzero(got[empty]) != 0:
+                raise AssertionError("flash_decode: kv_len = 0 must give "
+                                     "zeros")
+            worst["flash_decode"] = max(worst["flash_decode"], e)
+        for name, e in worst.items():
+            errs[name, dtype] = e
+        log(f"  attention kernels {dtype}: flash_attention max abs err "
+            f"{worst['flash_attention']:.3e} over "
+            f"{len(PREFILL_SWEEP + PREFILL_FULL)} shapes, flash_decode "
+            f"{worst['flash_decode']:.3e} over {len(DECODE_SWEEP) + 2} "
+            "shapes; kv_len = 0 gives zeros")
+    for name, (e, share) in tight_worst.items():
+        log(f"  {name} bf16 at qwen2.5-3b widths vs the f32 plain version: "
+            f"max abs err {e:.3e}, worst element at {share:.3f} of the "
+            f"bar {BF16_TIGHT[0]} + {BF16_TIGHT[1]} * |want|")
+
+    out = {}
+    # flash_attention at qwen2.5-3b's prefill widths, f32 (the engine's
+    # parameter dtype): FLOPs 2*b*h*s*t*d*2, halved when causal.
+    for s in (6, 192, 2048):
+        q = normal((1, s, 16, 128), "float32", dev, 80)
+        k = normal((1, s, 2, 128), "float32", dev, 81)
+        v = normal((1, s, 2, 128), "float32", dev, 82)
+        r = dict(
+            ms=cuda_ms(lambda: fa_ops.attention(q, k, v)),
+            device_ms=device_ms(lambda: fa_ops.attention(q, k, v),
+                                "flash_attention_kernel"),
+            plain_ms=cuda_ms(lambda: fa_ref.mha_ref(q, k, v)),
+            library_ms=cuda_ms(lambda: sdpa(q, k, v, causal=True)),
+            bytes=4 * (2 * q.numel() + 2 * k.numel()),
+            ops=2 * 16 * s * s * 128 * 2 / 2)
+        r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
+        held(f"sdpa yardstick s={s}", sdpa(q, k, v, causal=True)
+             .transpose(1, 2), fa_ref.mha_ref(q, k, v), "bfloat16")
+        log(f"  flash_attention b=1 s=t={s} h=16 kvh=2 d=128 f32: "
+            f"{r['ms']:.4f} ms per wrapper call, {r['device_ms']} ms on the "
+            f"device, {r['plain_ms']:.4f} ms plain, {r['library_ms']:.4f} ms "
+            f"SDPA, bound {r['bound_ms']:.6f} ms ({r['bound_by']}); "
+            f"{r['ops'] / r['ms'] / 1e9:.2f} TFLOP/s")
+        out[f"flash_attention s={s}"] = r
+    out["flash_attention"] = dict(
+        out["flash_attention s=2048"],
+        max_abs_err=errs["flash_attention", "float32"])
+
+    # flash_decode over 8 lanes filled to phase 4's prompt lengths, f32:
+    # bytes = the cache rows read (K and V) plus q, out and kv_len. Each
+    # layer of the served model reads its own cache, so every timed call
+    # here reads one of four caches (4 x 67 MB, beyond the 50 MB L2) in
+    # turn and finds it cold.
+    b, t, h, kvh, d = DECODE_FULL
+    gen = torch.Generator(device=dev).manual_seed(93)
+    q = normal((b, h, d), "float32", dev, 90)
+    caches = [tuple(torch.randn((b, t, kvh, d), generator=gen, device=dev)
+                    for _ in "kv") for _ in range(4)]
+    turn = itertools.cycle(caches)
+    kv_len = torch.tensor(PROMPT_LENS, dtype=torch.int32, device=dev)
+    mask = (torch.arange(t, device=dev)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    rows = sum(PROMPT_LENS)
+
+    def cold(fn):
+        def call():
+            kc, vc = next(turn)
+            return fn(kc, vc)
+        return call
+
+    kern = cold(lambda kc, vc: dec_ops.decode_attention(q, kc, vc, kv_len))
+    r = dict(
+        ms=cuda_ms(kern), device_ms=device_ms(kern, "flash_decode_kernel"),
+        plain_ms=cuda_ms(cold(lambda kc, vc: dec_ref.decode_ref(
+            q, kc, vc, kv_len))),
+        library_ms=cuda_ms(cold(lambda kc, vc: sdpa(q[:, None], kc, vc,
+                                                     mask=mask))),
+        bytes=4 * (rows * kvh * d * 2 + 2 * b * h * d + b),
+        ops=4 * h * rows * d,
+        max_abs_err=errs["flash_decode", "float32"])
+    r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
+    kc, vc = caches[0]
+    held("sdpa yardstick decode", sdpa(q[:, None], kc, vc, mask=mask)[:, :, 0],
+         dec_ref.decode_ref(q, kc, vc, kv_len), "bfloat16")
+    log(f"  flash_decode b={b} t={t} h={h} kvh={kvh} d={d} f32, kv_len "
+        f"{list(PROMPT_LENS)}: {r['ms']:.4f} ms per wrapper call, "
+        f"{r['device_ms']} ms on the device, {r['plain_ms']:.4f} ms plain, "
+        f"{r['library_ms']:.4f} ms SDPA, bound {r['bound_ms']:.6f} ms "
+        f"({r['bound_by']}); {r['bytes'] / r['ms'] / 1e6:.1f} GB/s; "
+        f"{b * kvh} CTAs on 132 SMs; caches cold (four in turn)")
+    out["flash_decode"] = r
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: end to end
 # ---------------------------------------------------------------------------
@@ -534,6 +770,174 @@ def profile_slot(fn, label):
     return wall, busy
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: LM serving (qwen2.5-3b at full width and depth)
+# ---------------------------------------------------------------------------
+
+LOGIT_ATOL = 2e-3      # kernel vs plain logits, f32 through 36 layers
+ARGMAX_SHARE = 0.99    # identical greedy tokens, teacher-forced
+N_TICKS = 64
+
+
+def serve_lm(dev):
+    """Serve qwen2.5-3b through the port's Engine: (a) the engine rung of
+    the service (measure_engine_epoch, 8 streams, FCFS and LCFSP), (b)
+    long ragged prompts and 64 decode ticks, timed, then held
+    teacher-forced against the impl="torch" engine. Returns the launch
+    counts of (a) and (b) and the measured numbers."""
+    import numpy as np
+    import torch
+    from repro_torch import configs, models
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.serving import (Engine, Frame, engine_plane,
+                                     make_replay_engine)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the reference's products "
+                             "are full f32")
+
+    def reset():
+        fa_ops.reset_launches()
+        dec_ops.reset_launches()
+
+    def counts():
+        return {**fa_ops.launches, **dec_ops.launches}
+
+    def need_both(label, c):
+        if min(c.values()) <= 0:
+            raise AssertionError(f"{label}: a kernel never launched: {c}")
+
+    cfg = configs.get("qwen2.5-3b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = models.build(cfg)
+    params = models.common.init_params(
+        model.template(), torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    log(f"  qwen2.5-3b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} q / {cfg.n_kv_heads} KV heads of {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.padded_vocab}); "
+        f"{n_params / 1e9:.4f} B parameters in f32 "
+        f"({4 * n_params / 1e9:.2f} GB), initialised on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # (a) The service's engine rung: frames of 6 tokens, 8 decode tokens.
+    n = 8
+    lam, mu, p = np.full(n, 0.6), np.full(n, 2.0), np.full(n, 0.8)
+    pol = np.arange(n) % 2
+    kw = dict(epoch_duration=60.0, seed=0, t=0, frames_cap=16,
+              delay_model="mm1", collect_trace=True)
+    eng = Engine(model, params, n_lanes=8, max_len=4096, decode_tokens=8,
+                 device=dev)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = engine_plane.measure_engine_epoch(eng, lam, mu, p, pol, **kw)
+    torch.cuda.synchronize()
+    sec_a = time.perf_counter() - t0
+    counts_a = counts()
+    need_both("LM (a) measure_engine_epoch", counts_a)
+    replay = engine_plane.measure_engine_epoch(
+        make_replay_engine(8, decode_tokens=8, device=dev), lam, mu, p, pol,
+        **kw)
+    for key in stats:
+        if (stats[key] != replay[key] if key == "trace" else
+                not np.array_equal(stats[key], replay[key])):
+            raise AssertionError(f"LM (a): {key} differs from the replay "
+                                 "engine's epoch")
+    log(f"  (a) measure_engine_epoch, 8 streams (4 FCFS, 4 LCFSP), "
+        f"frames_cap 16: {sec_a:.2f} s, {int(stats['n_frames'].sum())} "
+        f"frames, {int(stats['n_completed'].sum())} completed, "
+        f"{int(stats['preempts'].sum())} preemptions, "
+        f"{int(stats['engine_steps'])} decode ticks; mean AoPI "
+        f"{stats['aopi'].mean():.5f} s, equal to the replay engine's epoch "
+        f"in every statistic; launches {counts_a}")
+    del eng
+
+    # (b) Long ragged prompts, then N_TICKS decode ticks, timed.
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n_tok).astype(np.int32)
+               for n_tok in PROMPT_LENS]
+    eng_b = Engine(model, params, n_lanes=8, max_len=4096,
+                   decode_tokens=N_TICKS + 2, device=dev)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, prompt in enumerate(prompts):
+        if not eng_b.admit(Frame(i, 0.0, 0.0), prompt):
+            raise AssertionError(f"LM (b): admit {i} refused")
+    torch.cuda.synchronize()
+    sec_prefill = time.perf_counter() - t0
+    tick_s = []
+    for _ in range(N_TICKS):
+        t0 = time.perf_counter()
+        if eng_b.decode_tick():
+            raise AssertionError("LM (b): a lane finished early")
+        tick_s.append(time.perf_counter() - t0)
+    counts_b = counts()
+    need_both("LM (b) admits and ticks", counts_b)
+    served = np.array([lane.out for lane in eng_b.lanes])
+    wall, busy = profile_slot(eng_b.decode_tick, "one decode tick (b)")
+    ms_tick = 1e3 * float(np.mean(tick_s))
+    out = dict(
+        counts_a=counts_a, counts_b=counts_b, sec_a=sec_a,
+        prefill_tok_s=sum(PROMPT_LENS) / sec_prefill,
+        ms_tick=ms_tick, decode_tok_s=8 / (ms_tick / 1e3),
+        busy_share=busy / (wall * 1e3))
+    log(f"  (b) 8 admits of {list(PROMPT_LENS)} tokens: {sec_prefill:.3f} s,"
+        f" {out['prefill_tok_s']:.1f} prefill tokens/s; {N_TICKS} ticks: "
+        f"{ms_tick:.2f} ms per tick (median {1e3 * np.median(tick_s):.2f}), "
+        f"{out['decode_tok_s']:.1f} decode tokens/s; device busy "
+        f"{100 * out['busy_share']:.1f}% of one profiled tick; padded "
+        f"vocabulary ids among {served.size} served tokens: "
+        f"{int((served >= cfg.vocab).sum())}; launches {counts_b}")
+    del eng_b
+
+    # Teacher-forced: the kernel engine's tokens feed both engines.
+    eng_k = Engine(model, params, n_lanes=8, max_len=4096, device=dev)
+    eng_p = Engine(models.build(cfg, impl="torch"), params, n_lanes=8,
+                   max_len=4096, device=dev)
+    errs, same, total = [], 0, 0
+    last = np.zeros(8, np.int32)
+    for lane, prompt in enumerate(prompts):
+        lk = eng_k.prefill_lane(prompt, lane)
+        lp = eng_p.prefill_lane(prompt, lane)
+        errs.append(float((lk - lp).abs().max()))
+        last[lane] = int(torch.argmax(lk))
+        same += int(last[lane] == int(torch.argmax(lp)))
+        total += 1
+    forced = [last.copy()]
+    for _ in range(N_TICKS):
+        lk = eng_k.decode_logits(last)
+        lp = eng_p.decode_logits(last)
+        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+            raise AssertionError("LM teacher-forced: non-finite logits")
+        errs.append(float((lk - lp).abs().max()))
+        nk, npl = torch.argmax(lk, -1), torch.argmax(lp, -1)
+        same += int((nk == npl).sum())
+        total += nk.numel()
+        last = nk.cpu().numpy().astype(np.int32)
+        forced.append(last.copy())
+    share = same / total
+    replayed = int((np.stack(forced, 1) == served[:, :N_TICKS + 1]).sum())
+    log(f"  teacher-forced kernel vs impl='torch' engine: max abs logit err "
+        f"{max(errs):.3e} (prefill {max(errs[:8]):.3e}, decode "
+        f"{max(errs[8:]):.3e}; bar {LOGIT_ATOL}); identical argmax on "
+        f"{same}/{total} = {share:.4f} (bar {ARGMAX_SHARE}); the kernel "
+        f"engine's greedy tokens repeat run (b)'s on {replayed}/"
+        f"{8 * (N_TICKS + 1)}")
+    if max(errs) > LOGIT_ATOL or share < ARGMAX_SHARE:
+        raise AssertionError("LM teacher-forced: kernel run outside the "
+                             "bar against the plain run")
+    out.update(max_logit_err=max(errs), argmax_share=share,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  peak device memory {out['peak_gb']:.2f} GB")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -545,8 +949,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.core import baselines, bcd, energy, lbcd, profiles
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as dec_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.slot_solver import kernel, ops
 
     dev = torch.device("cuda")
@@ -556,11 +964,21 @@ def main() -> int:
     log(f"== phase 1: card: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    lib_path = _build.build("slot_solver", kernel.SOURCES)
-    kernel.load()
-    log(f"  build: {time.perf_counter() - t0:.2f} s -> {lib_path.name}")
-    log_path = lib_path.with_suffix(".log")
-    if log_path.exists():
+    libraries = {"slot_solver": (kernel.SOURCES, _build.NVCC_FLAGS),
+                 "flash_attention": (fa_kernel.SOURCES,
+                                     _build.ATTENTION_FLAGS),
+                 "flash_decode": (dec_kernel.SOURCES,
+                                  _build.ATTENTION_FLAGS)}
+    with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each
+        futures = {name: pool.submit(_build.build, name, *args)
+                   for name, args in libraries.items()}
+        lib_paths = {name: f.result() for name, f in futures.items()}
+    for lib in (kernel, fa_kernel, dec_kernel):
+        lib.load()
+    log(f"  build: {time.perf_counter() - t0:.2f} s -> "
+        + ", ".join(p.name for p in lib_paths.values()))
+    for lib_path in lib_paths.values():
+        log_path = lib_path.with_suffix(".log")
         for line in log_path.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas: {line.strip()}")
@@ -612,6 +1030,7 @@ def main() -> int:
     for mode, thr in (("dos", 1.0), ("jcab", 0.5), ("jcab", 1e-6)):
         check_baseline(edge_cases["ragged N=1001 S=7"], "ragged N=1001",
                        mode, thr, timing=False)
+    attn = check_attention(dev)
 
     log("== phase 3: end to end")
 
@@ -746,6 +1165,9 @@ def main() -> int:
         fn()                                   # warm-up
         profile_slot(fn, label)
 
+    log("== phase 4: LM serving (qwen2.5-3b, full width and depth)")
+    lm = serve_lm(dev)
+
     if "jax" in sys.modules or any(m.split(".")[0] == "repro"
                                    for m in sys.modules):
         raise AssertionError("chip_smoke imported jax or repro")
@@ -785,13 +1207,34 @@ def main() -> int:
             launches=counts[name], max_abs_err=errs[name], ms=r["ms"],
             device_ms=r["device_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
+    # The LM kernels: launches from phase 4 (a), the service's engine rung.
+    lm_kernels = {
+        "flash_attention": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:83"),
+        "flash_decode": (
+            "src/repro_torch/kernels/decode_attention/csrc/flash_decode.cu",
+            "src/repro/kernels/decode_attention/kernel.py:65")}
+    for name, (source, replaced) in lm_kernels.items():
+        r = attn[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaced,
+            launches=lm["counts_a"][name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"]))
     log("  timed shapes: config_argmin and waterfill_pair at N=10000 S=32 "
         "(loop effort), waterfill at N=30 S=3 (bandwidth, loop effort), "
         "waterfill_tiled at N=100000 S=1 G=8 (bandwidth, loop effort), "
         "baseline_argmax at N=100000 (jcab, cap 0.5); virtual-server pair "
         f"at N=10000 S=1: {virt['waterfill_pair']['ms']:.4f} ms; "
         f"baseline_argmax dos at N=100000: {dos['ms']:.4f} ms; "
-        f"waterfill_tiled at N=100000 S=32 G=1: {tiled_32['ms']:.4f} ms")
+        f"waterfill_tiled at N=100000 S=32 G=1: {tiled_32['ms']:.4f} ms; "
+        "flash_attention at b=1 s=t=2048 h=16 kvh=2 d=128 f32 (s=6: "
+        f"{attn['flash_attention s=6']['ms']:.4f} ms, s=192: "
+        f"{attn['flash_attention s=192']['ms']:.4f} ms); flash_decode at "
+        f"b=8 t=4096 h=16 kvh=2 d=128 f32, kv_len {list(PROMPT_LENS)}; LM "
+        f"launches (b): {lm['counts_b']}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
               "-fPIC")
+# The attention kernels are held to a tolerance, not bitwise: they keep
+# nvcc's fused multiply-adds.
+ATTENTION_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
 
 
 def nvcc_path() -> str:
@@ -34,32 +37,34 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def build_command(sources, output, nvcc: str = "nvcc") -> list[str]:
+def build_command(sources, output, nvcc: str = "nvcc",
+                  flags=NVCC_FLAGS) -> list[str]:
     """The ``nvcc`` command line that builds ``sources`` into ``output``."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(output), *map(str, sources)]
+    return [nvcc, *flags, "-o", str(output), *map(str, sources)]
 
 
-def source_hash(sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def source_hash(sources, flags=NVCC_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         h.update(Path(src).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(name: str, sources) -> Path:
-    """Return the path of the built library, compiling it if needed.
+def build(name: str, sources, flags=NVCC_FLAGS) -> Path:
+    """Return the path of the built library, compiling it if needed with
+    ``flags`` (``NVCC_FLAGS`` unless a library asks for its own).
 
     The compiler's report (registers, shared memory, spills) is written
     beside it as ``<library>.log``. Raises ``RuntimeError`` with the
     compiler's output when the build fails.
     """
     sources = [Path(s) for s in sources]
-    out = BUILD_DIR / f"{name}-{source_hash(sources)}.so"
+    out = BUILD_DIR / f"{name}-{source_hash(sources, flags)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = build_command(sources, tmp, nvcc_path())
+    cmd = build_command(sources, tmp, nvcc_path(), flags)
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "

@@ -1,0 +1,127 @@
+"""Parameter templates shared by the port's models.
+
+A model is described by a *template*: a nested dict whose leaves are
+:class:`P` (shape, logical axes, initializer). ``init_params`` turns a
+template into a tree of tensors on a device. The templates, their key
+names and their einsum layouts (``[d, h, hd]``, ``[h, hd, d]``, stacked
+``[L, ...]``) are those of the JAX package's ``models/common.py``, so a
+parameter tree made there carries over leaf by leaf
+(``models.convert.params_from_numpy``).
+
+``init_params`` draws from a ``torch.Generator`` with the same
+initializer kinds and scales as the JAX package; the values differ from
+threefry's, so parity between the two packages comes from converting one
+tree, never from initialising twice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from ..device import DEFAULT_DEVICE, resolve_device
+
+# Logical axis vocabulary (the JAX package's names; the port shards
+# nothing yet, the names only document the layouts).
+EMBED = "embed"
+HEADS = "heads"
+KV_HEADS = "kv_heads"
+HEAD_DIM = "head_dim"
+MLP = "mlp"
+VOCAB = "vocab"
+LAYERS = "layers"          # stacked layer dimension
+CACHE_SEQ = "cache_seq"
+
+
+@dataclasses.dataclass(frozen=True)
+class P:
+    """A parameter leaf template."""
+    shape: tuple
+    axes: tuple                 # logical axis name (or None) per dim
+    init: str = "fan_in"        # fan_in | normal | zeros | ones | embed
+    scale: Optional[float] = None
+    dtype: Optional[Any] = None
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             "differ in rank")
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape))
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Map ``fn`` over the leaves of nested dicts (``P`` templates or
+    tensors) in sorted-key order (``jax.tree.map``'s), keeping the
+    structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in sorted-key order (``jax.tree.leaves``'s order for
+    dicts)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def _fan_in(p: P) -> int:
+    fan_in = p.shape[0] if len(p.shape) == 1 else int(np.prod(p.shape[:-1]))
+    # A stacked leaf's leading LAYERS dim is not a contraction dim.
+    if p.axes and p.axes[0] == LAYERS and len(p.shape) > 2:
+        fan_in = int(np.prod(p.shape[1:-1]))
+    return fan_in
+
+
+def _initializer(p: P, generator: torch.Generator, dtype, device):
+    dtype = p.dtype or dtype
+
+    def normal(std):
+        return (torch.randn(p.shape, generator=generator,
+                            dtype=torch.float32, device=device) * std
+                ).to(dtype)
+
+    if p.init == "zeros":
+        return torch.zeros(p.shape, dtype=dtype, device=device)
+    if p.init == "ones":
+        return torch.ones(p.shape, dtype=dtype, device=device)
+    if p.init == "embed":
+        return normal(p.scale if p.scale is not None else 1.0)
+    if p.init == "normal":
+        return normal(p.scale if p.scale is not None else 0.02)
+    if p.init == "fan_in":
+        scale = p.scale if p.scale is not None else 1.0
+        return normal(scale / math.sqrt(max(_fan_in(p), 1)))
+    # The JAX package's s4d / s4d_dt (Mamba) come with its layers
+    # (ROADMAP queue 1 item 10c).
+    raise ValueError(f"unknown init {p.init!r}")
+
+
+def init_params(template, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32, device=DEFAULT_DEVICE):
+    """Materialise a template on ``device`` (CUDA unless the CPU is asked
+    for by name), drawing the random leaves from ``generator`` in
+    sorted-key order (the generator must live on ``device``)."""
+    device = resolve_device(device)
+    return tree_map(lambda p: _initializer(p, generator, dtype, device),
+                    template)
+
+
+def count_params(template) -> int:
+    return sum(p.size for p in tree_leaves(template))
+
+
+def stack_template(template, n: int):
+    """Add a leading LAYERS dim of extent n to every leaf."""
+    return tree_map(
+        lambda p: P((n,) + tuple(p.shape), (LAYERS,) + tuple(p.axes),
+                    p.init, p.scale, p.dtype), template)
+

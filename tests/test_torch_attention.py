@@ -1,0 +1,217 @@
+"""The port's attention wrappers on the CPU (their plain versions) held
+against the JAX package's references and its Pallas kernels in interpret
+mode, on the same numpy-seeded inputs. The CUDA kernels themselves are
+held against these plain versions on the card (tests/test_torch_gpu.py,
+chip_smoke.py)."""
+import jax
+import jax.experimental
+
+if not hasattr(jax.experimental, "enable_x64"):
+    # Removed from newer jax; repro.core.queues still imports it.
+    jax.experimental.enable_x64 = jax.enable_x64
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro.kernels.decode_attention import decode_ref as j_decode_ref  # noqa: E402,E501
+from repro.kernels.decode_attention import flash_decode as j_flash_decode  # noqa: E402,E501
+from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E402,E501
+from repro.kernels.flash_attention import mha_ref as j_mha_ref  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as dec_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def tol(dtype: str) -> float:
+    """tests/test_kernels.py's bars."""
+    return 5e-2 if dtype == "bfloat16" else 2e-5
+
+
+def _inputs(shapes, dtype: str, seed: int = 0):
+    """The same normal draws as a JAX array and a CPU tensor of ``dtype``
+    (both round f32 to bf16 to nearest even)."""
+    rng = np.random.default_rng(seed)
+    jd, td = DTYPES[dtype]
+    out = []
+    for shape in shapes:
+        x = rng.standard_normal(shape).astype(np.float32)
+        out.append((jnp.asarray(x, jd), torch.from_numpy(x).to(td)))
+    return out
+
+
+def _np(x):
+    return (x.float().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x, np.float32))
+
+
+def _assert_close(got, want, t):
+    np.testing.assert_allclose(_np(got), _np(want), atol=t, rtol=t)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (prefill)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,t,h,kvh,d", [
+    (2, 256, 256, 4, 2, 64),
+    (1, 128, 384, 8, 8, 128),
+    (2, 256, 256, 4, 1, 128),
+    (1, 192, 192, 6, 2, 64),      # t not a multiple of the 128 block
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_plain_matches_reference_and_pallas(b, s, t, h, kvh, d,
+                                                      dtype):
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(
+        [(b, s, h, d), (b, t, kvh, d), (b, t, kvh, d)], dtype)
+    fa_ops.reset_launches()
+    out = fa_ops.attention(qt, kt, vt, causal=True)
+    assert fa_ops.launches["flash_attention"] == 0       # CPU: plain
+    assert out.dtype == DTYPES[dtype][1] and out.shape == (b, s, h, d)
+    _assert_close(out, j_mha_ref(qj, kj, vj, causal=True), tol(dtype))
+    _assert_close(out, j_flash(qj, kj, vj, causal=True, interpret=True,
+                               block_q=128, block_k=128), tol(dtype))
+
+
+@pytest.mark.parametrize("b,s,t,h,kvh,d,causal,q_offset", [
+    (1, 128, 256, 4, 4, 64, False, None),    # test_kernels' non-causal
+    (1, 6, 6, 16, 2, 128, True, None),       # a frame: s < block, g = 8
+    (1, 200, 200, 4, 2, 16, True, None),     # s not a block multiple, g=2
+    (2, 70, 90, 4, 4, 32, True, 5),          # explicit q_offset, g = 1
+])
+def test_attention_plain_edge_shapes(b, s, t, h, kvh, d, causal, q_offset):
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(
+        [(b, s, h, d), (b, t, kvh, d), (b, t, kvh, d)], "float32", seed=1)
+    kw = dict(causal=causal, q_offset=q_offset)
+    out = fa_ops.attention(qt, kt, vt, **kw)
+    _assert_close(out, j_mha_ref(qj, kj, vj, **kw), 2e-5)
+    _assert_close(out, j_flash(qj, kj, vj, interpret=True, **kw), 2e-5)
+
+
+def test_attention_ragged_kv_len_takes_the_plain_path():
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(
+        [(3, 1, 4, 32), (3, 40, 2, 32), (3, 40, 2, 32)], "float32", seed=2)
+    lens = np.array([40, 7, 1], np.int32)
+    out = fa_ops.attention(qt, kt, vt, kv_len=torch.from_numpy(lens))
+    _assert_close(out, j_mha_ref(qj, kj, vj, kv_len=jnp.asarray(lens)), 2e-5)
+
+
+def test_gqa_head_mapping_is_repeat_not_tile():
+    """q head i reads KV head i // g (jnp.repeat), not i % kvh."""
+    b, t, kvh, g, d = 1, 5, 2, 4, 16
+    v = torch.stack([torch.full((b, t, d), float(j)) for j in range(kvh)], 2)
+    q = torch.randn(b, 3, kvh * g, d)
+    out = fa_ref.mha_ref(q, torch.zeros_like(v), v, causal=False)
+    heads = out[0, 0, :, 0]
+    assert heads.tolist() == [float(i // g) for i in range(kvh * g)]
+    expanded = fa_ref.expand_kv(v, kvh * g)
+    assert torch.equal(expanded[..., 1, :], v[..., 0, :])
+    assert torch.equal(expanded[..., g, :], v[..., 1, :])
+
+
+def test_attention_impl_dispatch_on_cpu():
+    q, k = torch.randn(1, 4, 2, 16), torch.randn(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="impl"):
+        fa_ops.attention(q, k, k, impl="pallas")
+    with pytest.raises(ValueError, match="impl"):
+        fa_ops.attention(q, k, k, impl="cuda")
+    torch.testing.assert_close(fa_ops.attention(q, k, k, impl="torch"),
+                               fa_ops.attention(q, k, k))
+    with pytest.raises(ValueError, match="impl"):
+        dec_ops.decode_attention(q[:, 0], k, k,
+                                 torch.tensor([2], dtype=torch.int32),
+                                 impl="cuda")
+
+
+# ---------------------------------------------------------------------------
+# flash decode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,t,h,kvh,d,blk", [
+    (2, 512, 8, 2, 64, 128),
+    (4, 1024, 4, 4, 128, 512),
+    (1, 384, 8, 1, 128, 128),
+    (3, 640, 16, 8, 64, 256),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_reference_and_pallas(b, t, h, kvh, d, blk,
+                                                   dtype):
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(
+        [(b, h, d), (b, t, kvh, d), (b, t, kvh, d)], dtype, seed=3)
+    lens = np.array([t // 2 + 37 * i for i in range(b)], np.int32)
+    dec_ops.reset_launches()
+    out = dec_ops.decode_attention(qt, kt, vt, torch.from_numpy(lens))
+    assert dec_ops.launches["flash_decode"] == 0
+    assert out.dtype == DTYPES[dtype][1]
+    _assert_close(out, j_decode_ref(qj, kj, vj, jnp.asarray(lens)),
+                  tol(dtype))
+    _assert_close(out, j_flash_decode(qj, kj, vj, jnp.asarray(lens),
+                                      block_k=blk, interpret=True),
+                  tol(dtype))
+
+
+@pytest.mark.parametrize("h,kvh", [(4, 4), (8, 4), (16, 2)])
+def test_decode_ragged_lengths_and_group_sizes(h, kvh):
+    """g in {1, 2, 8}; lengths 1, a block edge, the whole cache."""
+    b, t, d = 4, 256, 32
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(
+        [(b, h, d), (b, t, kvh, d), (b, t, kvh, d)], "float32", seed=4)
+    lens = np.array([1, 128, 129, t], np.int32)
+    out = dec_ops.decode_attention(qt, kt, vt, torch.from_numpy(lens))
+    _assert_close(out, j_decode_ref(qj, kj, vj, jnp.asarray(lens)), 2e-5)
+    _assert_close(out, j_flash_decode(qj, kj, vj, jnp.asarray(lens),
+                                      block_k=128, interpret=True), 2e-5)
+
+
+def test_decode_empty_cache_follows_the_kernel():
+    """kv_len = 0: the TPU kernel runs no block and returns zeros; the
+    port's plain version does the same. The JAX package's decode_ref
+    takes a softmax over an all-masked row there and returns the mean of
+    V (a reference fault, ROADMAP queue 3)."""
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(
+        [(3, 8, 64), (3, 256, 2, 64), (3, 256, 2, 64)], "float32", seed=5)
+    lens = np.array([0, 17, 0], np.int32)
+    out = dec_ops.decode_attention(qt, kt, vt, torch.from_numpy(lens))
+    pallas = j_flash_decode(qj, kj, vj, jnp.asarray(lens), block_k=128,
+                            interpret=True)
+    _assert_close(out, pallas, 2e-5)
+    assert not out[0].any() and not out[2].any()
+    ref = np.asarray(j_decode_ref(qj, kj, vj, jnp.asarray(lens)))
+    np.testing.assert_allclose(
+        ref[0], np.repeat(np.asarray(vj)[0].mean(0), 4, axis=0), atol=1e-5)
+    _assert_close(out[1], ref[1], 2e-5)
+    torch.testing.assert_close(
+        dec_ref.decode_ref(qt, kt, vt, torch.from_numpy(lens)), out)
+
+
+def test_attention_sources_and_build_flags(tmp_path):
+    """Each attention library builds for sm_90a without -fmad=false (its
+    bar is a tolerance); the slot solver keeps its flags and hash. The
+    sources define the entry points kernel.py binds, and no fast math."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as dec_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.slot_solver import kernel as ss_kernel
+    assert set(_build.NVCC_FLAGS) - set(_build.ATTENTION_FLAGS) == {
+        "-fmad=false"}
+    assert (_build.source_hash(ss_kernel.SOURCES)
+            == _build.source_hash(ss_kernel.SOURCES, _build.NVCC_FLAGS))
+    assert (_build.source_hash(fa_kernel.SOURCES, _build.ATTENTION_FLAGS)
+            != _build.source_hash(fa_kernel.SOURCES))
+    cmd = _build.build_command(fa_kernel.SOURCES, tmp_path / "a.so",
+                               flags=_build.ATTENTION_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-fmad=false" not in cmd
+    for mod, entry, kern in ((fa_kernel, "flash_attention_fwd",
+                              "flash_attention_kernel"),
+                             (dec_kernel, "flash_decode_fwd",
+                              "flash_decode_kernel")):
+        src = "".join(p.read_text() for p in mod.SOURCES)
+        assert f"int {entry}(" in src and f"{kern}(" in src
+        assert "-1e30f" in src
+        assert not any(w in src for w in ("__expf", "use_fast_math",
+                                          "scaled_dot_product"))

@@ -10,8 +10,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs, models
 from repro_torch.core import allocate, baselines, bcd, energy, lbcd, profiles
+from repro_torch.kernels.decode_attention import kernel as dec_kernel
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.decode_attention import ref as dec_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.slot_solver import ops, ref
+from repro_torch.serving import Engine, Frame
 
 pytestmark = pytest.mark.gpu
 
@@ -273,3 +281,177 @@ def test_gpu_energy_rollout_cuda_matches_torch(cuda):
     assert torch.equal(res_k.assign, res_p.assign)
     assert torch.equal(res_k.aopi, res_p.aopi)
     assert torch.equal(pw_k, pw_p) and torch.equal(z_k, z_p)
+
+
+# ---------------------------------------------------------------------------
+# Attention kernels (flash_attention, flash_decode)
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py's bars: 2e-5 in f32, 5e-2 in bf16 (a bf16 output
+# rounds at 2^-8 relative; both sides accumulate in f32).
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+
+# (b, s, t, h, kvh, d): tests/test_kernels.py's sweep, then qwen2.5-3b's
+# prefill widths (h=16, kvh=2, d=128) at a frame (s=6), a non-multiple of
+# the tile, and a long prompt.
+PREFILL_SHAPES = [(2, 256, 256, 4, 2, 64), (1, 128, 384, 8, 8, 128),
+                  (2, 256, 256, 4, 1, 128), (1, 192, 192, 6, 2, 64),
+                  (1, 6, 6, 16, 2, 128), (1, 192, 192, 16, 2, 128),
+                  (1, 2048, 2048, 16, 2, 128)]
+# (b, t, h, kvh, d): tests/test_kernels.py's sweep, then qwen2.5-3b's
+# decode widths over 8 lanes of a 4096-row cache.
+DECODE_SHAPES = [(2, 512, 8, 2, 64), (4, 1024, 4, 4, 128),
+                 (1, 384, 8, 1, 128), (3, 640, 16, 8, 64),
+                 (8, 4096, 16, 2, 128)]
+
+
+def _normal(shape, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                           device=dev).to(dtype)
+
+
+def _close(got, want, dtype):
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PREFILL_SHAPES)
+def test_gpu_flash_attention_matches_plain(cuda, shape, dtype):
+    b, s, t, h, kvh, d = shape
+    q = _normal((b, s, h, d), dtype, cuda, 0)
+    k = _normal((b, t, kvh, d), dtype, cuda, 1)
+    v = _normal((b, t, kvh, d), dtype, cuda, 2)
+    fa_ops.reset_launches()
+    out = fa_ops.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa_ops.launches["flash_attention"] == 1
+    assert out.dtype == dtype and out.shape == q.shape
+    _close(out, fa_ref.mha_ref(q, k, v, causal=True), dtype)
+
+
+@pytest.mark.parametrize("d", [16, 64, 128, 144, 256])
+@pytest.mark.parametrize("causal,q_offset", [(False, None), (True, 5),
+                                             (True, -3)])
+def test_gpu_flash_attention_options(cuda, d, causal, q_offset):
+    """Head dims of both tilings, full attention, an explicit scale and
+    q_offset (rows above the diagonal see no key: both sides then average
+    the tile's V as the TPU kernel does), s and t off the tile."""
+    q = _normal((2, 70, 4, d), torch.float32, cuda, 3)
+    k = _normal((2, 90, 2, d), torch.float32, cuda, 4)
+    v = _normal((2, 90, 2, d), torch.float32, cuda, 5)
+    kw = dict(causal=causal, scale=0.3, q_offset=q_offset)
+    out = fa_ops.attention(q, k, v, **kw)
+    want = fa_ref.mha_ref(q, k, v, **kw)
+    if q_offset is not None and q_offset < 0:
+        # Rows with no visible key: kernel and plain version both average
+        # over masked keys but over different key sets; compare the rest.
+        rows = torch.arange(70, device=cuda) + q_offset >= 0
+        out, want = out[:, rows], want[:, rows]
+    _close(out, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_gpu_flash_decode_matches_plain(cuda, shape, dtype):
+    b, t, h, kvh, d = shape
+    q = _normal((b, h, d), dtype, cuda, 6)
+    kc = _normal((b, t, kvh, d), dtype, cuda, 7)
+    vc = _normal((b, t, kvh, d), dtype, cuda, 8)
+    lens = [t // 2 + 37 * i for i in range(b)]
+    if b == 8:                      # ragged lanes, a fresh and a full one
+        lens = [1, t, 37, 511, 512, 513, 2048, t - 1]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    dec_ops.reset_launches()
+    out = dec_ops.decode_attention(q, kc, vc, kv_len)
+    torch.cuda.synchronize()
+    assert dec_ops.launches["flash_decode"] == 1
+    _close(out, dec_ref.decode_ref(q, kc, vc, kv_len), dtype)
+
+
+def test_gpu_flash_decode_empty_cache_gives_zeros(cuda):
+    q = _normal((3, 16, 128), torch.float32, cuda, 9)
+    kc = _normal((3, 64, 2, 128), torch.float32, cuda, 10)
+    kv_len = torch.tensor([0, 5, 0], dtype=torch.int32, device=cuda)
+    out = dec_ops.decode_attention(q, kc, kc.clone(), kv_len)
+    assert torch.count_nonzero(out[0]) == 0
+    assert torch.count_nonzero(out[2]) == 0
+    _close(out, dec_ref.decode_ref(q, kc, kc.clone(), kv_len),
+           torch.float32)
+
+
+def test_gpu_attention_wrappers_refuse_bad_inputs(cuda, monkeypatch):
+    q = _normal((1, 8, 4, 64), torch.float32, cuda, 11)
+    k = _normal((1, 8, 2, 64), torch.float32, cuda, 12)
+    with pytest.raises(TypeError, match="dtype"):
+        fa_ops.attention(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError, match="dtype"):
+        fa_ops.attention(q, k.bfloat16(), k)
+    with pytest.raises(ValueError, match="several devices"):
+        fa_ops.attention(q, k.cpu(), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.attention(q.transpose(1, 2).contiguous().transpose(1, 2), k,
+                         k)
+    for d in (8, 24, 272):
+        qd = _normal((1, 8, 4, d), torch.float32, cuda, 13)
+        kd = _normal((1, 8, 2, d), torch.float32, cuda, 14)
+        with pytest.raises(ValueError, match="head dim"):
+            fa_ops.attention(qd, kd, kd)
+    with pytest.raises(ValueError, match="impl"):
+        fa_ops.attention(q, k, k, impl="cuda")
+    qd = _normal((2, 4, 64), torch.float32, cuda, 15)
+    kc = _normal((2, 16, 2, 64), torch.float32, cuda, 16)
+    with pytest.raises(TypeError, match="int32"):
+        dec_ops.decode_attention(qd, kc, kc, torch.tensor([3, 4],
+                                                          device=cuda))
+    with pytest.raises(TypeError, match="dtype"):
+        dec_ops.decode_attention(qd.bfloat16(), kc, kc, torch.tensor(
+            [3, 4], dtype=torch.int32, device=cuda))
+    # No fallback: a kernel that cannot be built or launched raises.
+    def broken():
+        raise RuntimeError("nvcc failed")
+    monkeypatch.setattr(fa_kernel._Library, "get", broken)
+    monkeypatch.setattr(dec_kernel._Library, "get", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fa_ops.attention(q, k, k)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        dec_ops.decode_attention(qd, kc, kc, torch.tensor(
+            [3, 4], dtype=torch.int32, device=cuda))
+
+
+def _reduced_engine(impl, dev, params=None):
+    cfg = configs.get("qwen2.5-3b").reduced()
+    model = models.build(cfg, impl=impl)
+    if params is None:
+        params = models.common.init_params(
+            model.template(), torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+    return Engine(model, params, n_lanes=3, max_len=64, decode_tokens=8,
+                  device=dev), params
+
+
+def test_gpu_reduced_model_kernels_match_torch(cuda):
+    """A two-layer reduced qwen2.5-3b on the card: the kernel run (prefill
+    through flash_attention, decode through flash_decode) against the
+    impl="torch" run of the same engine, teacher-forced on the kernel
+    run's tokens."""
+    eng_k, params = _reduced_engine("auto", cuda)
+    eng_p, _ = _reduced_engine("torch", cuda, params)
+    fa_ops.reset_launches()
+    dec_ops.reset_launches()
+    prompts = [np.arange(2, 9), np.arange(40, 61), np.arange(100, 106)]
+    for lane, toks in enumerate(prompts):
+        lk = eng_k.prefill_lane(toks, lane)
+        lp = eng_p.prefill_lane(toks, lane)
+        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    last = np.array([int(torch.argmax(eng_k.prefill_lane(t, i)))
+                     for i, t in enumerate(prompts)], np.int32)
+    for _ in range(8):
+        lk = eng_k.decode_logits(last)
+        lp = eng_p.decode_logits(last)
+        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+        last = torch.argmax(lk, -1).cpu().numpy().astype(np.int32)
+    assert fa_ops.launches["flash_attention"] == 2 * 2 * len(prompts)
+    assert dec_ops.launches["flash_decode"] == 8 * 2
+    assert eng_k.admit(Frame(0, 0.0, 0.0), np.arange(5, dtype=np.int32))

@@ -6,8 +6,9 @@
 Phases, each of which raises on failure (exit code non-zero):
 
   1. card     - nvidia-smi name/power limit, torch/CUDA versions, nvcc builds
-                of the three kernel libraries (slot solver, flash attention,
-                flash decode) from the sources in this checkout, in parallel;
+                of the four kernel libraries (slot solver, flash attention,
+                flash decode, mlstm_chunkwise) from the sources in this
+                checkout, in parallel;
   2. kernels  - each CUDA kernel against its plain PyTorch version on the
                 card at the main paths' shapes and at edge cases, with
                 CUDA-event and profiler times: config_argmin and
@@ -21,6 +22,11 @@ Phases, each of which raises on failure (exit code non-zero):
                 including 1, t and 0 (zeros),
                 each timed beside its plain version and one
                 scaled_dot_product_attention call (library_ms);
+                mlstm_chunkwise at tests/test_kernels.py's sweep shapes in
+                f32 and bf16 (2e-3 + 1e-3 * |want| / 5e-2) and at
+                xlstm-1.3b's widths (h=4, d=1024, s = 6, 2048, 3072) in
+                f32, timed beside its plain version (no single PyTorch
+                call computes it: library_ms is null);
   3. end to end - each path driven through its entry point with the launch
                 counters zeroed just before and read just after, against the
                 plain (solver_backend="torch") run on the card:
@@ -36,8 +42,8 @@ Phases, each of which raises on failure (exit code non-zero):
   4. LM serving - qwen2.5-3b at full width and depth (36 layers, f32
                 parameters from a seeded torch.Generator, 13.6 GB) served by
                 repro_torch.serving.Engine (8 lanes, 4096-row caches):
-                (a) measure_engine_epoch over 8 streams, half FCFS and half
-                LCFSP (the service's engine rung), a liveness and
+                (a) measure_engine_epoch over 8 streams of 8 frames, half
+                FCFS and half LCFSP (the service's engine rung), a liveness and
                 plane-parity check: its statistics come from the host draws
                 and event loop, so they must equal the same epoch on the
                 replay engine, but they do not see the tokens; (b) 8 admits of
@@ -45,7 +51,19 @@ Phases, each of which raises on failure (exit code non-zero):
                 held teacher-forced against the same engine built with
                 impl="torch": logits within atol 2e-3 at every step and the
                 share of identical argmax tokens >= 0.99. Both attention
-                kernels must launch in (a) and in (b).
+                kernels must launch in (a) and in (b), 36 times per admit
+                (flash_attention) and per tick (flash_decode);
+  5. xLSTM serving - xlstm-1.3b at full width and depth (48 layers: 6
+                periods of 7 mLSTM and 1 sLSTM, f32 parameters from a
+                seeded torch.Generator, 7.94 GB; qwen2.5-3b's freed first),
+                the same (a) and (b) as phase 4 with logits within 0.1
+                (see LOGIT_ATOL), then one period (8 layers) of the same
+                weights teacher-forced within 1e-3 and the plain run's
+                response to a one-ulp change of its input embedding;
+                mlstm_chunkwise must launch in (a) and in (b), 42 times per
+                admit and never in a tick. Also measured: the share of an
+                admit spent in the sLSTM's per-token loop and in the mLSTM
+                kernel, and of a tick in the mLSTM state step.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit``, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -648,6 +666,82 @@ def check_attention(dev):
     return out
 
 
+# mlstm_chunkwise. Shapes (b, s, h, d): tests/test_kernels.py's sweep, then
+# xlstm-1.3b's widths (h=4, d = inner / h = 1024): a 6-token frame and
+# phase 5's longest prompts. The reference's bar, 2e-3 + 1e-3 * |want|, in
+# f32; 5e-2 in bf16 (one rounding to bf16 of an O(1) output).
+MLSTM_TOL = {"float32": (2e-3, 1e-3), "bfloat16": (5e-2, 5e-2)}
+MLSTM_SWEEP = [(2, 128, 2, 64), (1, 256, 4, 128), (2, 192, 2, 64)]
+MLSTM_FULL = [(1, s, 4, 1024) for s in (6, 2048, 3072)]
+
+
+def mlstm_inputs(b, s, h, d, dtype, dev, seed):
+    """The reference tests' distributions: q, k, v ~ N(0, 1), i ~ N(0,
+    0.25), f ~ N(2, 1)."""
+    q, k, v = (normal((b, s, h, d), dtype, dev, seed + i) for i in range(3))
+    ig = normal((b, s, h), "float32", dev, seed + 3) * 0.5
+    fg = normal((b, s, h), "float32", dev, seed + 4) + 2.0
+    return q, k, v, ig.to(q.dtype), fg.to(q.dtype)
+
+
+def check_mlstm(dev):
+    """Hold mlstm_chunkwise against its plain version on the card and time
+    both at xlstm-1.3b's prefill widths. Returns {label: results}."""
+    import torch
+    from repro_torch.kernels.mlstm import ops as ml_ops
+    from repro_torch.kernels.mlstm import ref as ml_ref
+
+    worst = {}
+    for dtype, shapes in (("float32", MLSTM_SWEEP + MLSTM_FULL),
+                          ("bfloat16", MLSTM_SWEEP)):
+        atol, rtol = MLSTM_TOL[dtype]
+        for i, shape in enumerate(shapes):
+            args = mlstm_inputs(*shape, dtype, dev, 10 * i)
+            got = ml_ops.mlstm(*args).float()
+            want = ml_ref.mlstm_parallel_ref(*args).float()
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            bad = err > atol + rtol * want.abs()
+            if bad.any() or not torch.isfinite(got).all():
+                raise AssertionError(
+                    f"mlstm_chunkwise {shape} {dtype}: {int(bad.sum())} of "
+                    f"{got.numel()} outside {atol} + {rtol} * |want|; max "
+                    f"abs err {float(err.max()):.3e}")
+            worst[dtype] = max(worst.get(dtype, 0.0), float(err.max()))
+            if shape in MLSTM_FULL:
+                log(f"  mlstm_chunkwise {shape} f32: max abs err "
+                    f"{float(err.max()):.3e} (|want| <= "
+                    f"{float(want.abs().max()):.3f})")
+    log(f"  mlstm_chunkwise: max abs err {worst['float32']:.3e} (f32, "
+        f"{len(MLSTM_SWEEP + MLSTM_FULL)} shapes), {worst['bfloat16']:.3e} "
+        f"(bf16, {len(MLSTM_SWEEP)} shapes)")
+
+    # Timed at xlstm-1.3b's widths, f32 (the served model's q/k/v): FLOPs
+    # 4*b*h*d*s(s+1)/2 (q.k and S.v over the causal triangle); bytes q, k,
+    # v and the output, and the two f32 gate rows the kernel reads.
+    out = {}
+    for b, s, h, d in MLSTM_FULL:
+        args = mlstm_inputs(b, s, h, d, "float32", dev, 90)
+        r = dict(
+            ms=cuda_ms(lambda: ml_ops.mlstm(*args), reps=10),
+            device_ms=device_ms(lambda: ml_ops.mlstm(*args),
+                                "mlstm_chunkwise_kernel", reps=5),
+            plain_ms=cuda_ms(lambda: ml_ref.mlstm_parallel_ref(*args),
+                             reps=5, warmup=1),
+            library_ms=None,
+            bytes=4 * (4 * b * s * h * d + 2 * b * s * h),
+            ops=4 * b * h * d * s * (s + 1) / 2)
+        r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
+        log(f"  mlstm_chunkwise b={b} s={s} h={h} d={d} f32: {r['ms']:.4f} "
+            f"ms per wrapper call, {r['device_ms']} ms on the device, "
+            f"{r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}); {r['ops'] / r['ms'] / 1e9:.2f} TFLOP/s")
+        out[f"s={s}"] = r
+    out["mlstm_chunkwise"] = dict(out["s=2048"],
+                                  max_abs_err=worst["float32"])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: end to end
 # ---------------------------------------------------------------------------
@@ -771,44 +865,168 @@ def profile_slot(fn, label):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: LM serving (qwen2.5-3b at full width and depth)
+# Phases 4-5: LM serving at full width and depth (qwen2.5-3b, xlstm-1.3b)
 # ---------------------------------------------------------------------------
 
-LOGIT_ATOL = 2e-3      # kernel vs plain logits, f32 through 36 layers
+# Kernel run against plain run, teacher-forced, on f32 logits (|logit| <=
+# ~5). qwen2.5-3b: f32 through 36 layers (1e-4 holds at 2 layers on the
+# CPU; 2.9e-5 measured). xlstm-1.3b: f32 through its 48 layers of random
+# weights is chaotic: a one-ulp change of the input embedding moves the
+# plain run's own logits by O(1) (xlstm_rounding measures it), and the
+# kernel's rounding differences, ~1e-4 after one period, reach 5.8e-2
+# after six (the first full run). So the bar is 0.1 at full depth, and one
+# period of the same weights is held to 1e-3.
+LOGIT_ATOL = {"qwen2.5-3b": 2e-3, "xlstm-1.3b": 0.1}
+ONE_PERIOD_ATOL = 1e-3
 ARGMAX_SHARE = 0.99    # identical greedy tokens, teacher-forced
 N_TICKS = 64
+# Frames per stream of the engine-rung epochs (a): the service's cap is
+# 192; 8 still admits, preempts and completes frames on every stream, and
+# keeps phases 4-5 inside the script's time.
+ENGINE_FRAMES = 8
 
 
-def serve_lm(dev):
-    """Serve qwen2.5-3b through the port's Engine: (a) the engine rung of
-    the service (measure_engine_epoch, 8 streams, FCFS and LCFSP), (b)
-    long ragged prompts and 64 decode ticks, timed, then held
-    teacher-forced against the impl="torch" engine. Returns the launch
-    counts of (a) and (b) and the measured numbers."""
+def kernel_counts(model):
+    """Launches per admit and per tick of each LM kernel: flash_attention
+    once per attention layer in a prefill, flash_decode once per attention
+    layer in a tick, mlstm_chunkwise once per mLSTM layer in a prefill.
+    Returns (per_admit, per_tick) over the kernels the model runs."""
+    layers = {kind: model.n_periods * sum(spec.mixer == kind
+                                          for spec in model.period)
+              for kind in ("attn", "mlstm")}
+    per_admit = {"flash_attention": layers["attn"], "flash_decode": 0,
+                 "mlstm_chunkwise": layers["mlstm"]}
+    per_tick = {"flash_attention": 0, "flash_decode": layers["attn"],
+                "mlstm_chunkwise": 0}
+    path = [k for k in per_admit if per_admit[k] + per_tick[k] > 0]
+    return ({k: per_admit[k] for k in path}, {k: per_tick[k] for k in path})
+
+
+def xlstm_shares(eng, prompt):
+    """Host time, synchronised around each call, of one admit's sLSTM loops
+    (slstm_apply) and mLSTM kernel calls, and of one tick's mLSTM state
+    steps (mlstm_step: the in-place update of C and n and the read-out),
+    as shares of that admit and that tick."""
+    import torch
+    from repro_torch.models import xlstm as xm
+    spent = {}
+
+    def timed(name):
+        fn = getattr(xm, name)
+
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return res
+        return fn, call
+
+    patched = {name: timed(name)
+               for name in ("slstm_apply", "mlstm", "mlstm_step")}
+    for name, (_, call) in patched.items():
+        setattr(xm, name, call)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.prefill_lane(prompt, 0)
+        torch.cuda.synchronize()
+        admit_s = time.perf_counter() - t0
+        in_admit = dict(spent)
+        spent.clear()
+        t0 = time.perf_counter()
+        eng.decode_tick()
+        tick_s = time.perf_counter() - t0
+    finally:
+        for name, (fn, _) in patched.items():
+            setattr(xm, name, fn)
+    out = dict(slstm_share=in_admit["slstm_apply"] / admit_s,
+               mlstm_kernel_share=in_admit["mlstm"] / admit_s,
+               state_step_share=spent["mlstm_step"] / tick_s)
+    log(f"  shares (host clock, synchronised around each call): one admit "
+        f"of {len(prompt)} tokens {admit_s:.3f} s, sLSTM loops "
+        f"{in_admit['slstm_apply']:.3f} s ({100 * out['slstm_share']:.1f}%),"
+        f" mlstm_chunkwise calls {in_admit['mlstm']:.3f} s "
+        f"({100 * out['mlstm_kernel_share']:.1f}%); one tick "
+        f"{1e3 * tick_s:.2f} ms, mLSTM state steps "
+        f"{1e3 * spent['mlstm_step']:.2f} ms "
+        f"({100 * out['state_step_share']:.1f}%)")
+    return out
+
+
+def xlstm_rounding(cfg, params, prompt, dev):
+    """The xLSTM's sensitivity to rounding, on one lane: the prefill of
+    ``prompt`` and 8 decode steps fed the prompt's first 8 tokens. (1) The
+    kernel against the plain version over one period (8 layers) of the
+    same weights, held to ONE_PERIOD_ATOL. (2) The plain run at full depth
+    against itself with its embedding table times (1 + 2^-23 u), u = +-1
+    (a one-ulp change of the input)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import models
+    from repro_torch.serving import Engine
+
+    def run(model, prm):
+        eng = Engine(model, prm, n_lanes=1, max_len=4096, device=dev)
+        logits = [eng.prefill_lane(prompt, 0)]
+        for tok in prompt[:8]:
+            logits.append(eng.decode_logits(np.array([tok], np.int32))[0])
+        return torch.stack(logits)
+
+    def first_period(tree):
+        if isinstance(tree, dict):
+            return {k: first_period(v) for k, v in tree.items()}
+        return tree[:1]
+
+    one = dataclasses.replace(cfg, n_layers=cfg.slstm_period)
+    one_params = dict(params, blocks=first_period(params["blocks"]))
+    err_one = float((run(models.build(one), one_params)
+                     - run(models.build(one, impl="torch"), one_params))
+                    .abs().max())
+    table = params["embed"]["table"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sign = torch.randint(0, 2, table.shape, generator=gen, device=dev) * 2 - 1
+    nudged = dict(params, embed={"table": table * (1 + sign * 2.0 ** -23)})
+    plain = models.build(cfg, impl="torch")
+    sens = float((run(plain, nudged) - run(plain, params)).abs().max())
+    log(f"  rounding: kernel vs plain over one period ({one.n_layers} "
+        f"layers), prefill of {len(prompt)} tokens and 8 decode steps: max "
+        f"abs logit err {err_one:.3e} (bar {ONE_PERIOD_ATOL}); the plain "
+        f"run at {cfg.n_layers} layers against itself with a one-ulp "
+        f"change of its input embedding: {sens:.3e}")
+    if err_one > ONE_PERIOD_ATOL:
+        raise AssertionError("xLSTM one period: kernel run outside the bar "
+                             "against the plain run")
+    return dict(one_period_err=err_one, one_ulp_sensitivity=sens)
+
+
+def serve_lm(dev, name):
+    """Serve ``name`` at full width and depth through the port's Engine:
+    (a) the engine rung of the service (measure_engine_epoch, 8 streams,
+    FCFS and LCFSP), (b) long ragged prompts and 64 decode ticks, timed,
+    then held teacher-forced against the impl="torch" engine. Every kernel
+    of the model must launch in (a) and (b), in (b) exactly as often as
+    its layers ask. Returns the launch counts of (a) and (b) and the
+    measured numbers."""
+    import collections
+
     import numpy as np
     import torch
     from repro_torch import configs, models
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mlstm import ops as ml_ops
     from repro_torch.serving import (Engine, Frame, engine_plane,
                                      make_replay_engine)
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on: the reference's products "
                              "are full f32")
-
-    def reset():
-        fa_ops.reset_launches()
-        dec_ops.reset_launches()
-
-    def counts():
-        return {**fa_ops.launches, **dec_ops.launches}
-
-    def need_both(label, c):
-        if min(c.values()) <= 0:
-            raise AssertionError(f"{label}: a kernel never launched: {c}")
-
-    cfg = configs.get("qwen2.5-3b")
+    all_ops = (fa_ops, dec_ops, ml_ops)
+    cfg = configs.get(name)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = models.build(cfg)
@@ -816,19 +1034,43 @@ def serve_lm(dev):
         model.template(), torch.Generator(device=dev).manual_seed(0),
         device=dev)
     torch.cuda.synchronize()
+    per_admit, per_tick = kernel_counts(model)
+
+    def reset():
+        for mod in all_ops:
+            mod.reset_launches()
+
+    def counts():
+        merged = {}
+        for mod in all_ops:
+            merged.update(mod.launches)
+        return {k: merged[k] for k in per_admit}
+
+    def need_all(label, c):
+        if min(c.values()) <= 0:
+            raise AssertionError(f"{label}: a kernel never launched: {c}")
+
+    def need_exact(label, c, admits, ticks):
+        want = {k: admits * per_admit[k] + ticks * per_tick[k] for k in c}
+        if c != want:
+            raise AssertionError(f"{label}: launches {c}, expected {want}")
+
     n_params = model.param_count()
-    log(f"  qwen2.5-3b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} q / {cfg.n_kv_heads} KV heads of {cfg.head_dim}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.padded_vocab}); "
-        f"{n_params / 1e9:.4f} B parameters in f32 "
-        f"({4 * n_params / 1e9:.2f} GB), initialised on the card in "
-        f"{time.perf_counter() - t0:.2f} s")
+    mixers = collections.Counter(spec.mixer for spec in model.period)
+    log(f"  {name}: {cfg.n_layers} layers ("
+        + ", ".join(f"{model.n_periods * n} {kind}"
+                    for kind, n in mixers.items())
+        + f"), d_model {cfg.d_model}, {cfg.n_heads} heads, vocab "
+        f"{cfg.vocab} (padded {cfg.padded_vocab}); {n_params / 1e9:.4f} B "
+        f"parameters in f32 ({4 * n_params / 1e9:.2f} GB), initialised on "
+        f"the card in {time.perf_counter() - t0:.2f} s; kernel launches "
+        f"per admit {per_admit}, per tick {per_tick}")
 
     # (a) The service's engine rung: frames of 6 tokens, 8 decode tokens.
     n = 8
     lam, mu, p = np.full(n, 0.6), np.full(n, 2.0), np.full(n, 0.8)
     pol = np.arange(n) % 2
-    kw = dict(epoch_duration=60.0, seed=0, t=0, frames_cap=16,
+    kw = dict(epoch_duration=60.0, seed=0, t=0, frames_cap=ENGINE_FRAMES,
               delay_model="mm1", collect_trace=True)
     eng = Engine(model, params, n_lanes=8, max_len=4096, decode_tokens=8,
                  device=dev)
@@ -839,18 +1081,19 @@ def serve_lm(dev):
     torch.cuda.synchronize()
     sec_a = time.perf_counter() - t0
     counts_a = counts()
-    need_both("LM (a) measure_engine_epoch", counts_a)
+    need_all(f"{name} (a) measure_engine_epoch", counts_a)
     replay = engine_plane.measure_engine_epoch(
         make_replay_engine(8, decode_tokens=8, device=dev), lam, mu, p, pol,
         **kw)
     for key in stats:
         if (stats[key] != replay[key] if key == "trace" else
                 not np.array_equal(stats[key], replay[key])):
-            raise AssertionError(f"LM (a): {key} differs from the replay "
-                                 "engine's epoch")
+            raise AssertionError(f"{name} (a): {key} differs from the "
+                                 "replay engine's epoch")
     log(f"  (a) measure_engine_epoch, 8 streams (4 FCFS, 4 LCFSP), "
-        f"frames_cap 16: {sec_a:.2f} s, {int(stats['n_frames'].sum())} "
-        f"frames, {int(stats['n_completed'].sum())} completed, "
+        f"frames_cap {ENGINE_FRAMES}: {sec_a:.2f} s, "
+        f"{int(stats['n_frames'].sum())} frames, "
+        f"{int(stats['n_completed'].sum())} completed, "
         f"{int(stats['preempts'].sum())} preemptions, "
         f"{int(stats['engine_steps'])} decode ticks; mean AoPI "
         f"{stats['aopi'].mean():.5f} s, equal to the replay engine's epoch "
@@ -868,17 +1111,20 @@ def serve_lm(dev):
     t0 = time.perf_counter()
     for i, prompt in enumerate(prompts):
         if not eng_b.admit(Frame(i, 0.0, 0.0), prompt):
-            raise AssertionError(f"LM (b): admit {i} refused")
+            raise AssertionError(f"{name} (b): admit {i} refused")
     torch.cuda.synchronize()
     sec_prefill = time.perf_counter() - t0
+    need_exact(f"{name} (b) admits", counts(), len(prompts), 0)
     tick_s = []
     for _ in range(N_TICKS):
         t0 = time.perf_counter()
         if eng_b.decode_tick():
-            raise AssertionError("LM (b): a lane finished early")
+            raise AssertionError(f"{name} (b): a lane finished early")
         tick_s.append(time.perf_counter() - t0)
     counts_b = counts()
-    need_both("LM (b) admits and ticks", counts_b)
+    need_all(f"{name} (b) admits and ticks", counts_b)
+    need_exact(f"{name} (b) admits and ticks", counts_b, len(prompts),
+               N_TICKS)
     served = np.array([lane.out for lane in eng_b.lanes])
     wall, busy = profile_slot(eng_b.decode_tick, "one decode tick (b)")
     ms_tick = 1e3 * float(np.mean(tick_s))
@@ -893,7 +1139,10 @@ def serve_lm(dev):
         f"{out['decode_tok_s']:.1f} decode tokens/s; device busy "
         f"{100 * out['busy_share']:.1f}% of one profiled tick; padded "
         f"vocabulary ids among {served.size} served tokens: "
-        f"{int((served >= cfg.vocab).sum())}; launches {counts_b}")
+        f"{int((served >= cfg.vocab).sum())}; launches {counts_b}, as the "
+        "layers ask")
+    if "slstm" in mixers:
+        out.update(xlstm_shares(eng_b, prompts[-1]))
     del eng_b
 
     # Teacher-forced: the kernel engine's tokens feed both engines.
@@ -914,7 +1163,7 @@ def serve_lm(dev):
         lk = eng_k.decode_logits(last)
         lp = eng_p.decode_logits(last)
         if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
-            raise AssertionError("LM teacher-forced: non-finite logits")
+            raise AssertionError(f"{name} teacher-forced: non-finite logits")
         errs.append(float((lk - lp).abs().max()))
         nk, npl = torch.argmax(lk, -1), torch.argmax(lp, -1)
         same += int((nk == npl).sum())
@@ -923,17 +1172,21 @@ def serve_lm(dev):
         forced.append(last.copy())
     share = same / total
     replayed = int((np.stack(forced, 1) == served[:, :N_TICKS + 1]).sum())
+    atol = LOGIT_ATOL[name]
     log(f"  teacher-forced kernel vs impl='torch' engine: max abs logit err "
         f"{max(errs):.3e} (prefill {max(errs[:8]):.3e}, decode "
-        f"{max(errs[8:]):.3e}; bar {LOGIT_ATOL}); identical argmax on "
+        f"{max(errs[8:]):.3e}; bar {atol}); identical argmax on "
         f"{same}/{total} = {share:.4f} (bar {ARGMAX_SHARE}); the kernel "
         f"engine's greedy tokens repeat run (b)'s on {replayed}/"
         f"{8 * (N_TICKS + 1)}")
-    if max(errs) > LOGIT_ATOL or share < ARGMAX_SHARE:
-        raise AssertionError("LM teacher-forced: kernel run outside the "
-                             "bar against the plain run")
-    out.update(max_logit_err=max(errs), argmax_share=share,
-               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if max(errs) > atol or share < ARGMAX_SHARE:
+        raise AssertionError(f"{name} teacher-forced: kernel run outside "
+                             "the bar against the plain run")
+    out.update(max_logit_err=max(errs), argmax_share=share)
+    if "slstm" in mixers:
+        del eng_k, eng_p
+        out.update(xlstm_rounding(cfg, params, prompts[0], dev))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"  peak device memory {out['peak_gb']:.2f} GB")
     return out
 
@@ -955,6 +1208,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mlstm import kernel as ml_kernel
     from repro_torch.kernels.slot_solver import kernel, ops
 
     dev = torch.device("cuda")
@@ -968,12 +1222,14 @@ def main() -> int:
                  "flash_attention": (fa_kernel.SOURCES,
                                      _build.ATTENTION_FLAGS),
                  "flash_decode": (dec_kernel.SOURCES,
-                                  _build.ATTENTION_FLAGS)}
+                                  _build.ATTENTION_FLAGS),
+                 "mlstm_chunkwise": (ml_kernel.SOURCES,
+                                     _build.ATTENTION_FLAGS)}
     with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each
         futures = {name: pool.submit(_build.build, name, *args)
                    for name, args in libraries.items()}
         lib_paths = {name: f.result() for name, f in futures.items()}
-    for lib in (kernel, fa_kernel, dec_kernel):
+    for lib in (kernel, fa_kernel, dec_kernel, ml_kernel):
         lib.load()
     log(f"  build: {time.perf_counter() - t0:.2f} s -> "
         + ", ".join(p.name for p in lib_paths.values()))
@@ -1031,6 +1287,7 @@ def main() -> int:
         check_baseline(edge_cases["ragged N=1001 S=7"], "ragged N=1001",
                        mode, thr, timing=False)
     attn = check_attention(dev)
+    mlstm = check_mlstm(dev)
 
     log("== phase 3: end to end")
 
@@ -1166,7 +1423,11 @@ def main() -> int:
         profile_slot(fn, label)
 
     log("== phase 4: LM serving (qwen2.5-3b, full width and depth)")
-    lm = serve_lm(dev)
+    lm = serve_lm(dev, "qwen2.5-3b")
+    torch.cuda.empty_cache()
+
+    log("== phase 5: xLSTM serving (xlstm-1.3b, full width and depth)")
+    xl = serve_lm(dev, "xlstm-1.3b")
 
     if "jax" in sys.modules or any(m.split(".")[0] == "repro"
                                    for m in sys.modules):
@@ -1207,19 +1468,23 @@ def main() -> int:
             launches=counts[name], max_abs_err=errs[name], ms=r["ms"],
             device_ms=r["device_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
-    # The LM kernels: launches from phase 4 (a), the service's engine rung.
+    # The LM kernels: launches from the engine rung of the model that runs
+    # them, phase 4 (a) or 5 (a).
     lm_kernels = {
         "flash_attention": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:83"),
+            "src/repro/kernels/flash_attention/kernel.py:83", attn, lm),
         "flash_decode": (
             "src/repro_torch/kernels/decode_attention/csrc/flash_decode.cu",
-            "src/repro/kernels/decode_attention/kernel.py:65")}
-    for name, (source, replaced) in lm_kernels.items():
-        r = attn[name]
+            "src/repro/kernels/decode_attention/kernel.py:65", attn, lm),
+        "mlstm_chunkwise": (
+            "src/repro_torch/kernels/mlstm/csrc/mlstm_chunkwise.cu",
+            "src/repro/kernels/mlstm/kernel.py:80", mlstm, xl)}
+    for name, (source, replaced, timed_lm, served) in lm_kernels.items():
+        r = timed_lm[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaced,
-            launches=lm["counts_a"][name], max_abs_err=r["max_abs_err"],
+            launches=served["counts_a"][name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
@@ -1233,8 +1498,10 @@ def main() -> int:
         "flash_attention at b=1 s=t=2048 h=16 kvh=2 d=128 f32 (s=6: "
         f"{attn['flash_attention s=6']['ms']:.4f} ms, s=192: "
         f"{attn['flash_attention s=192']['ms']:.4f} ms); flash_decode at "
-        f"b=8 t=4096 h=16 kvh=2 d=128 f32, kv_len {list(PROMPT_LENS)}; LM "
-        f"launches (b): {lm['counts_b']}")
+        f"b=8 t=4096 h=16 kvh=2 d=128 f32, kv_len {list(PROMPT_LENS)}; "
+        "mlstm_chunkwise at b=1 s=2048 h=4 d=1024 f32 (s=6: "
+        f"{mlstm['s=6']['ms']:.4f} ms, s=3072: {mlstm['s=3072']['ms']:.4f} "
+        f"ms); LM launches (b): {lm['counts_b']}, {xl['counts_b']}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,9 @@ Mirrors the layout of the JAX package ``repro``: ``core`` holds the AoPI
 closed forms, profiles, allocators and Algorithms 1-3; ``configs``,
 ``models`` and ``serving`` hold the LM serving path (the continuous-
 batching ``serving.Engine`` over ``models.build(cfg)``); ``kernels`` holds
-the hand-written CUDA kernels (slot solver, flash attention, flash decode)
-beside their plain PyTorch versions. Importing this package imports
-neither JAX nor ``repro``.
+the hand-written CUDA kernels (slot solver, flash attention, flash decode,
+the chunkwise mLSTM) beside their plain PyTorch versions. Importing this
+package imports neither JAX nor ``repro``.
 """
 from .device import DEFAULT_DEVICE, resolve_device
 

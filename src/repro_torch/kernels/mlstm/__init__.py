@@ -1,0 +1,4 @@
+from .ops import mlstm
+from .ref import mlstm_final_state, mlstm_parallel_ref, mlstm_step
+
+__all__ = ["mlstm", "mlstm_final_state", "mlstm_parallel_ref", "mlstm_step"]

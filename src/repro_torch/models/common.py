@@ -34,6 +34,7 @@ MLP = "mlp"
 VOCAB = "vocab"
 LAYERS = "layers"          # stacked layer dimension
 CACHE_SEQ = "cache_seq"
+SSM_INNER = "ssm_inner"
 
 
 @dataclasses.dataclass(frozen=True)

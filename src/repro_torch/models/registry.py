@@ -1,4 +1,4 @@
-"""The decoder-only LM and ``build``.
+"""The decoder-only LM (dense GQA or xLSTM) and ``build``.
 
 ``TransformerLM`` keeps the JAX package's surface: parameters are a tree
 passed to every call, not module state.
@@ -35,7 +35,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class TransformerLM(nn.Module):
-    """Dense GQA decoder (qwen2.5 / yi / llama-style)."""
+    """Decoder-only LM: a dense GQA decoder (qwen2.5-style) or the xLSTM
+    (periods of mLSTM layers and one sLSTM layer)."""
 
     def __init__(self, cfg: ModelConfig, impl: str = "auto"):
         super().__init__()
@@ -104,9 +105,10 @@ class TransformerLM(nn.Module):
 
 
 def build(cfg: ModelConfig, impl: str = "auto") -> TransformerLM:
-    """The model of ``cfg``. ``impl`` picks the attention path: ``auto``
-    (the CUDA kernels on CUDA tensors, the plain versions on CPU ones) or
-    ``torch`` (the plain versions on any device)."""
+    """The model of ``cfg``. ``impl`` picks the path of the kernels
+    (attention, and the mLSTM's prefill): ``auto`` (the CUDA kernels on
+    CUDA tensors, the plain versions on CPU ones) or ``torch`` (the plain
+    versions on any device)."""
     check_impl(impl)
     if cfg.enc_layers:
         raise not_ported("cross")

@@ -1,11 +1,13 @@
-"""Decoder blocks and the layer stack, for the dense GQA decoder.
+"""Decoder blocks and the layer stack: the dense GQA decoder and the
+xLSTM.
 
 Every architecture of the JAX package is a *period* of layer specs
 repeated n_periods times; its parameters and caches are stacked along a
 leading LAYERS dim. The JAX package drives the stack with ``lax.scan`` (or
 unrolls it at <= 2 periods); here it is a Python loop over the periods,
-which computes the same thing. Only ``mixer="attn"`` with ``ffn="dense"``
-is ported: the other layer kinds raise ``NotImplementedError`` naming the
+which computes the same thing. The ported layer kinds are ``mixer="attn"``
+with ``ffn="dense"`` and the xLSTM's ``mlstm`` and ``slstm`` with
+``ffn="none"``; the others raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import attention as attn_mod
+from . import xlstm as xlstm_mod
 from .layers import rmsnorm, rmsnorm_template, swiglu, swiglu_template
 
 _NOT_PORTED = {
@@ -23,9 +26,6 @@ _NOT_PORTED = {
     "moe": "mixture-of-experts FFN: ROADMAP queue 1 item 10",
     "mamba": "Mamba layers and the selective_scan kernel: ROADMAP queue 1 "
              "item 10, queue 2 row 8",
-    "mlstm": "mLSTM layers and the mlstm_chunkwise kernel: ROADMAP queue 1 "
-             "item 10, queue 2 row 9",
-    "slstm": "sLSTM layers: ROADMAP queue 1 item 10",
     "cross": "cross-attention (VLM, encoder-decoder): ROADMAP queue 1 item "
              "10",
     "layernorm": "LayerNorm blocks (audio family): ROADMAP queue 1 item 10",
@@ -41,20 +41,24 @@ def not_ported(what: str) -> NotImplementedError:
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str                  # attn (mla | cross | mamba | mlstm | slstm)
-    ffn: str                    # dense (moe | none)
+    mixer: str                  # attn | mlstm | slstm (mla | cross | mamba)
+    ffn: str                    # dense | none (moe)
     cross_sub: bool = False     # extra cross-attn sublayer (enc-dec)
 
 
 def layout(cfg: ModelConfig):
-    """Return (period: list[LayerSpec], n_periods) for a dense GQA
-    decoder; other families raise ``NotImplementedError``."""
+    """Return (period: list[LayerSpec], n_periods) for a dense GQA decoder
+    or the xLSTM; other families raise ``NotImplementedError``."""
     if cfg.enc_layers:
         raise not_ported("cross")
     if cfg.family == "hybrid":
         raise not_ported("mamba")
-    if cfg.family == "ssm":
-        raise not_ported("mlstm")
+    if cfg.family == "ssm":                                # xlstm
+        sp = cfg.slstm_period
+        period = [LayerSpec("mlstm", "none") for _ in range(sp - 1)]
+        period.append(LayerSpec("slstm", "none"))
+        assert cfg.n_layers % sp == 0
+        return period, cfg.n_layers // sp
     if cfg.family == "vlm":
         raise not_ported("cross")
     if cfg.attn_type == "mla":
@@ -65,9 +69,9 @@ def layout(cfg: ModelConfig):
 
 
 def _check(cfg: ModelConfig, spec: LayerSpec) -> None:
-    if spec.mixer != "attn":
+    if spec.mixer not in ("attn", "mlstm", "slstm"):
         raise not_ported(spec.mixer)
-    if spec.ffn != "dense":
+    if spec.ffn not in ("dense", "none"):
         raise not_ported(spec.ffn)
     if spec.cross_sub:
         raise not_ported("cross")
@@ -77,47 +81,77 @@ def _check(cfg: ModelConfig, spec: LayerSpec) -> None:
 
 def block_template(cfg: ModelConfig, spec: LayerSpec):
     _check(cfg, spec)
-    return {"norm1": rmsnorm_template(cfg.d_model),
-            "mixer": attn_mod.gqa_template(cfg),
-            "norm2": rmsnorm_template(cfg.d_model),
-            "ffn": swiglu_template(cfg.d_model, cfg.d_ff)}
+    mixer = {"attn": attn_mod.gqa_template,
+             "mlstm": xlstm_mod.mlstm_template,
+             "slstm": xlstm_mod.slstm_template}[spec.mixer]
+    t = {"norm1": rmsnorm_template(cfg.d_model), "mixer": mixer(cfg)}
+    if spec.ffn == "dense":
+        t["norm2"] = rmsnorm_template(cfg.d_model)
+        t["ffn"] = swiglu_template(cfg.d_model, cfg.d_ff)
+    return t
 
 
 def block_cache_template(cfg, spec: LayerSpec, batch: int, max_len: int,
                          dtype=None):
-    """Per-layer decode cache matching block_template's spec."""
+    """Per-layer decode cache matching block_template's spec: the KV cache
+    of an attention layer, the recurrent state of an xLSTM layer."""
     _check(cfg, spec)
-    return {"self": attn_mod.cache_template(cfg, batch, max_len, dtype)}
+    if spec.mixer == "attn":
+        return {"self": attn_mod.cache_template(cfg, batch, max_len, dtype)}
+    state = {"mlstm": xlstm_mod.mlstm_state_template,
+             "slstm": xlstm_mod.slstm_state_template}[spec.mixer]
+    return {"state": state(cfg, batch, dtype)}
+
+
+def _ffn(params, x, spec: LayerSpec):
+    if spec.ffn == "none":
+        return x
+    return x + swiglu(params["ffn"], rmsnorm(params["norm2"], x))
 
 
 def block_apply(params, x, cfg, spec: LayerSpec, *, impl: str = "auto",
                 cache=None):
     """Causal full-sequence block (training, or prefill when ``cache`` is
-    given).
+    given; the prefill writes the cache in place).
 
     Residual adds promote as ``jnp`` does (a bf16 stream plus an f32
     sublayer output is f32). Returns (x, cache, aux)."""
     _check(cfg, spec)
     h = rmsnorm(params["norm1"], x)
-    out = attn_mod.gqa_apply(params["mixer"], h, cfg, impl=impl,
-                             cache=None if cache is None else cache["self"])
+    if spec.mixer == "attn":
+        out = attn_mod.gqa_apply(
+            params["mixer"], h, cfg, impl=impl,
+            cache=None if cache is None else cache["self"])
+    elif spec.mixer == "mlstm":
+        out = xlstm_mod.mlstm_apply(
+            params["mixer"], h, cfg, impl=impl,
+            state=None if cache is None else cache["state"])
+    else:
+        out = xlstm_mod.slstm_apply(
+            params["mixer"], h, cfg,
+            state=None if cache is None else cache["state"])
     if cache is not None:
         out = out[0]
-    x = x + out
-    x = x + swiglu(params["ffn"], rmsnorm(params["norm2"], x))
+    x = _ffn(params, x + out, spec)
     return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def block_decode(params, x, cfg, spec: LayerSpec, cache, lens, *,
                  impl: str = "auto"):
-    """Single-token decode through one block. x: [b, 1, d]."""
+    """Single-token decode through one block. x: [b, 1, d]; the cache is
+    updated in place."""
     _check(cfg, spec)
     h = rmsnorm(params["norm1"], x)
-    out, _ = attn_mod.gqa_decode(params["mixer"], h, cfg, cache["self"],
-                                 lens, impl=impl)
-    x = x + out
-    x = x + swiglu(params["ffn"], rmsnorm(params["norm2"], x))
-    return x, cache
+    if spec.mixer == "attn":
+        out, _ = attn_mod.gqa_decode(params["mixer"], h, cfg, cache["self"],
+                                     lens, impl=impl)
+    elif spec.mixer == "mlstm":
+        out, _ = xlstm_mod.mlstm_decode(params["mixer"], h, cfg,
+                                        cache["state"])
+    else:
+        out, _ = xlstm_mod.slstm_decode(params["mixer"], h, cfg,
+                                        cache["state"])
+    return _ffn(params, x + out, spec), cache
 
 
 def _period(tree, li: int):

@@ -1,21 +1,22 @@
 """Continuous-batching inference engine with step-boundary preemption.
 
-Lanes hold per-sequence KV cache slots inside one batched cache tree;
-``decode_tick`` advances every lane with one batched decode step (ragged
-lengths through the cache's per-lane ``len``). LCFSP preemption frees a
-lane between steps; the scheduler decides when.
+Lanes hold per-sequence KV caches or recurrent states inside one batched
+cache tree; ``decode_tick`` advances every lane with one batched decode
+step (ragged lengths through the cache's per-lane ``len``). LCFSP
+preemption frees a lane between steps; the scheduler decides when.
 
 A "frame analysis" request is a prefill of the frame's tokens plus
 ``decode_tokens`` decode steps. An admit is one function, as the JAX
 package's fused admit: prefill into a memoised single-lane cache, copy
-that cache into the lane, take the first token's argmax. The single-lane
-cache is never cleared: a prefill overwrites its first s rows, and the
-stale rows beyond are copied into the lane with them, where decode masks
-them (it attends to the lane's first ``len`` rows only).
+that cache into the lane, take the first token's argmax. The JAX package
+never writes its single-lane cache, so each of its prefills starts from
+zeros; here the prefill writes the cache in place, so it is zeroed before
+each prefill. Without that an sLSTM layer, whose prefill starts from the
+cache's state, would start from the previous prompt's state.
 
 The caches are updated in place (the JAX package makes new ones), so an
 admit or a tick allocates no cache. The engine runs on ``device``, CUDA
-by default; its model's attention then goes through the CUDA kernels.
+by default; its model then runs through the CUDA kernels.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import common as c
-from ..models.common import init_params, tree_map
+from ..models.common import init_params, tree_leaves, tree_map
 from .scheduler import Frame
 
 FREE, DECODING = 0, 2
@@ -108,6 +109,8 @@ class Engine:
         and return the last position's logits ``[V]``."""
         tok = torch.as_tensor(np.asarray(tokens, np.int32),
                               device=self.device)[None]
+        for leaf in tree_leaves(self._single_cache):
+            leaf.zero_()
         logits, single = self.model.prefill(self.params, {"tokens": tok},
                                             self._single_cache)
         self.cache = _insert_lane(self.cache, single, lane)

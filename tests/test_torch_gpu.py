@@ -18,6 +18,9 @@ from repro_torch.kernels.decode_attention import ref as dec_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.mlstm import kernel as ml_kernel
+from repro_torch.kernels.mlstm import ops as ml_ops
+from repro_torch.kernels.mlstm import ref as ml_ref
 from repro_torch.kernels.slot_solver import ops, ref
 from repro_torch.serving import Engine, Frame
 
@@ -455,3 +458,107 @@ def test_gpu_reduced_model_kernels_match_torch(cuda):
     assert fa_ops.launches["flash_attention"] == 2 * 2 * len(prompts)
     assert dec_ops.launches["flash_decode"] == 8 * 2
     assert eng_k.admit(Frame(0, 0.0, 0.0), np.arange(5, dtype=np.int32))
+
+
+# ---------------------------------------------------------------------------
+# mlstm_chunkwise
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py's bar (atol 2e-3, rtol 1e-3) in f32; bf16 outputs
+# round at 2^-8 relative, held at 5e-2 as the attention kernels are.
+MLSTM_TOL = {torch.float32: (2e-3, 1e-3), torch.bfloat16: (5e-2, 5e-2)}
+# (b, s, h, d): tests/test_kernels.py's sweep, the reduced model's d = 32
+# off the tile, then xlstm-1.3b's widths (h = 4, d = 1024) at a frame, off
+# the tile and a long prompt.
+MLSTM_SHAPES = [(2, 128, 2, 64), (1, 256, 4, 128), (2, 192, 2, 64),
+                (3, 70, 4, 32), (1, 6, 4, 1024), (1, 200, 4, 1024),
+                (1, 2048, 4, 1024)]
+
+
+def _mlstm_inputs(b, s, h, d, dtype, dev, seed):
+    """The reference tests' distributions: q, k, v ~ N(0, 1), i ~ N(0,
+    0.25), f ~ N(2, 1)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (_normal((b, s, h, d), dtype, dev, seed + i) for i in range(3))
+    ig = torch.as_tensor((rng.standard_normal((b, s, h)) * 0.5)
+                         .astype(np.float32), device=dev).to(dtype)
+    fg = torch.as_tensor((rng.standard_normal((b, s, h)) + 2.0)
+                         .astype(np.float32), device=dev).to(dtype)
+    return q, k, v, ig, fg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MLSTM_SHAPES)
+def test_gpu_mlstm_chunkwise_matches_plain(cuda, shape, dtype):
+    args = _mlstm_inputs(*shape, dtype, cuda, 17)
+    ml_ops.reset_launches()
+    out = ml_ops.mlstm(*args)
+    torch.cuda.synchronize()
+    assert ml_ops.launches["mlstm_chunkwise"] == 1
+    assert out.dtype == dtype and out.shape == args[0].shape
+    atol, rtol = MLSTM_TOL[dtype]
+    torch.testing.assert_close(out.float(),
+                               ml_ref.mlstm_parallel_ref(*args).float(),
+                               atol=atol, rtol=rtol)
+
+
+def test_gpu_mlstm_wrapper_refuses_bad_inputs(cuda, monkeypatch):
+    q, k, v, ig, fg = _mlstm_inputs(1, 8, 2, 64, torch.float32, cuda, 18)
+    with pytest.raises(TypeError, match="dtype"):
+        ml_ops.mlstm(q.half(), k.half(), v.half(), ig.half(), fg.half())
+    with pytest.raises(TypeError, match="dtype"):
+        ml_ops.mlstm(q, k, v, ig.bfloat16(), fg)
+    with pytest.raises(ValueError, match="several devices"):
+        ml_ops.mlstm(q, k.cpu(), v, ig, fg)
+    with pytest.raises(ValueError, match="contiguous"):
+        ml_ops.mlstm(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                     ig, fg)
+    with pytest.raises(ValueError, match="shapes"):
+        ml_ops.mlstm(q, k, v[:, :4].contiguous(), ig, fg)
+    qd, kd, vd, igd, fgd = _mlstm_inputs(1, 8, 2, 24, torch.float32, cuda, 19)
+    with pytest.raises(ValueError, match="head dim"):
+        ml_ops.mlstm(qd, kd, vd, igd, fgd)
+    with pytest.raises(ValueError, match="impl"):
+        ml_ops.mlstm(q, k, v, ig, fg, impl="cuda")
+
+    def broken():
+        raise RuntimeError("nvcc failed")
+    monkeypatch.setattr(ml_kernel._Library, "get", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ml_ops.mlstm(q, k, v, ig, fg)
+
+
+def _reduced_xlstm_engine(impl, dev, params=None):
+    model = models.build(configs.get("xlstm-1.3b").reduced(), impl=impl)
+    if params is None:
+        params = models.common.init_params(
+            model.template(), torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+    return Engine(model, params, n_lanes=3, max_len=64, decode_tokens=8,
+                  device=dev), params
+
+
+def test_gpu_reduced_xlstm_kernel_matches_torch(cuda):
+    """The reduced xlstm-1.3b (2 periods of [mlstm, slstm]) on the card:
+    the kernel run (each prefill through mlstm_chunkwise, once per mLSTM
+    layer; decode without it) against the impl="torch" run of the same
+    engine, teacher-forced on the kernel run's tokens."""
+    eng_k, params = _reduced_xlstm_engine("auto", cuda)
+    eng_p, _ = _reduced_xlstm_engine("torch", cuda, params)
+    ml_ops.reset_launches()
+    prompts = [np.arange(2, 9), np.arange(40, 61), np.arange(100, 106)]
+    last = np.zeros(3, np.int32)
+    for lane, toks in enumerate(prompts):
+        lk = eng_k.prefill_lane(toks, lane)
+        lp = eng_p.prefill_lane(toks, lane)
+        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+        last[lane] = int(torch.argmax(lk))
+    assert ml_ops.launches["mlstm_chunkwise"] == 2 * len(prompts)
+    for _ in range(8):
+        lk = eng_k.decode_logits(last)
+        lp = eng_p.decode_logits(last)
+        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+        last = torch.argmax(lk, -1).cpu().numpy().astype(np.int32)
+    assert ml_ops.launches["mlstm_chunkwise"] == 2 * len(prompts)
+    assert eng_k.admit(Frame(0, 0.0, 0.0), np.arange(5, dtype=np.int32))
+    assert ml_ops.launches["mlstm_chunkwise"] == 2 * len(prompts) + 2

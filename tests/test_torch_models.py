@@ -39,14 +39,17 @@ def _tree_np(tree):
 
 
 def test_configs_copy_the_reference():
-    j, t = j_configs.get("qwen2.5-3b"), t_configs.get("qwen2.5-3b")
-    assert dataclasses.asdict(j) == dataclasses.asdict(t)
-    assert dataclasses.asdict(j.reduced()) == dataclasses.asdict(t.reduced())
-    assert t.padded_vocab == j.padded_vocab
+    for name in ("qwen2.5-3b", "xlstm-1.3b"):
+        j, t = j_configs.get(name), t_configs.get(name)
+        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+        assert (dataclasses.asdict(j.reduced())
+                == dataclasses.asdict(t.reduced()))
+        assert t.padded_vocab == j.padded_vocab
+    assert set(t_configs.ARCHS) == {"qwen2.5-3b", "xlstm-1.3b"}
     assert set(t_configs.ARCHS) | set(t_configs.NOT_PORTED) == set(
         j_configs.ARCHS)
     assert t_configs.get("qwen2.5-3b").padded_vocab == 152_064
-    for name in ("xlstm-1.3b", "yi-6b", "yi-34b"):
+    for name in ("jamba-1.5-large-398b", "yi-6b", "yi-34b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_configs.get(name)
     with pytest.raises(KeyError):

@@ -6,9 +6,9 @@
 Phases, each of which raises on failure (exit code non-zero):
 
   1. card     - nvidia-smi name/power limit, torch/CUDA versions, nvcc builds
-                of the four kernel libraries (slot solver, flash attention,
-                flash decode, mlstm_chunkwise) from the sources in this
-                checkout, in parallel;
+                of the five kernel libraries (slot solver, flash attention,
+                flash decode, mlstm_chunkwise, selective_scan) from the
+                sources in this checkout, in parallel;
   2. kernels  - each CUDA kernel against its plain PyTorch version on the
                 card at the main paths' shapes and at edge cases, with
                 CUDA-event and profiler times: config_argmin and
@@ -26,7 +26,15 @@ Phases, each of which raises on failure (exit code non-zero):
                 f32 and bf16 (2e-3 + 1e-3 * |want| / 5e-2) and at
                 xlstm-1.3b's widths (h=4, d=1024, s = 6, 2048, 3072) in
                 f32, timed beside its plain version (no single PyTorch
-                call computes it: library_ms is null);
+                call computes it: library_ms is null); selective_scan at
+                tests/test_kernels.py's sweep shapes and at jamba's widths
+                (b=1, inner 16384, n 16, s = 6, 2048, 3072), with and
+                without h0, in f32 (y and h_last within 1e-4 + 1e-4 *
+                |want|) and bf16 (y and h_last bitwise the bf16 rounding of
+                the kernel's own f32 run on the same inputs, y within one
+                bf16 rounding plus the f32 atol, 2^-8 * |want| + 1e-4, of
+                the f32 plain version), timed beside its plain version
+                (library_ms null);
   3. end to end - each path driven through its entry point with the launch
                 counters zeroed just before and read just after, against the
                 plain (solver_backend="torch") run on the card:
@@ -64,6 +72,19 @@ Phases, each of which raises on failure (exit code non-zero):
                 admit and never in a tick. Also measured: the share of an
                 admit spent in the sLSTM's per-token loop and in the mLSTM
                 kernel, and of a tick in the mLSTM state step.
+  6. hybrid serving - jamba-1.5-large-398b at full width, cut to one period
+                (8 layers: 1 attention and 7 Mamba, 4 MoE and 4 dense FFNs)
+                and 4 of its 16 experts (top-2, capacity factor 1.25 kept;
+                16.25 B f32 parameters, 64.99 GB from a seeded
+                torch.Generator, xlstm-1.3b's freed first), the same (a) and
+                (b) as phase 4 with logits within 2e-3; selective_scan must
+                launch 7 times per admit and never in a tick,
+                flash_attention once per admit and flash_decode once per
+                tick. The teacher-forced check also counts the top-2
+                routing decisions that differ between the two engines and
+                their gate gaps. Also measured: the share of an admit spent
+                in the 7 scans and in the 4 MoE layers, and of a tick in
+                the Mamba decode steps and the MoE layers.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit``, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -72,6 +93,8 @@ prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import itertools
 import json
 import statistics
@@ -742,6 +765,126 @@ def check_mlstm(dev):
     return out
 
 
+# selective_scan. Shapes (b, s, inner, n): tests/test_kernels.py's sweep,
+# then jamba's widths (inner = 2 * 8192, n = 16): a 6-token frame and
+# phase 6's longest prompts. f32: the reference's bar (atol 1e-4) with a
+# relative term, for y and h_last. bf16: y and h_last bitwise the bf16
+# rounding of the kernel's own f32 run on the same bf16-valued inputs (it
+# computes in f32 and rounds y once), and y within one bf16 rounding
+# (2^-8 * |want|) plus the f32 atol of the f32 plain version; the excess
+# over one rounding alone (2^-8 * |want| + 1e-6) is logged.
+SCAN_TOL = (1e-4, 1e-4)
+SCAN_BF16_TOL = (1e-4, 2.0 ** -8)
+SCAN_SWEEP = [(2, 128, 64, 16), (1, 256, 128, 16), (2, 96, 32, 8)]
+SCAN_FULL = [(1, s, 16384, 16) for s in (6, 2048, 3072)]
+# Operations per (t, i, n): dt * A, exp, two products and a sum for h, a
+# product and a sum for y; per (t, i): dt * x, D * x and the last sum.
+OPS_SCAN_STATE = 7
+OPS_SCAN_CHANNEL = 3
+
+
+def scan_inputs(b, s, inner, n, dtype, dev, seed, h0=False):
+    """The reference tests' distributions: x, B, C, D ~ N(0, 1), dt =
+    softplus(N(0, 1) - 1), A = -exp(N(0, 0.25)), h0 ~ N(0, 0.25); x, dt,
+    B and C in ``dtype``, the rest f32."""
+    import torch
+    x = normal((b, s, inner), dtype, dev, seed)
+    dt = torch.nn.functional.softplus(
+        normal((b, s, inner), "float32", dev, seed + 1) - 1.0).to(x.dtype)
+    A = -torch.exp(normal((inner, n), "float32", dev, seed + 2) * 0.5)
+    B = normal((b, s, n), dtype, dev, seed + 3)
+    C = normal((b, s, n), dtype, dev, seed + 4)
+    D = normal((inner,), "float32", dev, seed + 5)
+    return [x, dt, A, B, C, D,
+            normal((b, inner, n), "float32", dev, seed + 6) * 0.5
+            if h0 else None]
+
+
+def check_scan(dev):
+    """Hold selective_scan against its plain version on the card and time
+    both at jamba's prefill widths. Returns {label: results}."""
+    import torch
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan import ref as ss_ref
+
+    def within(name, got, want, atol, rtol):
+        err = (got.float() - want).abs()
+        bad = err > atol + rtol * want.abs()
+        if bad.any() or not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: {int(bad.sum())} of {got.numel()}"
+                                 f" outside {atol} + {rtol} * |want|; max "
+                                 f"abs err {float(err.max()):.3e}")
+        return float(err.max()), float((err / (atol + rtol * want.abs()))
+                                       .max())
+
+    worst = {}
+    for dtype in ("float32", "bfloat16"):
+        for i, shape in enumerate(SCAN_SWEEP + SCAN_FULL):
+            for h0 in (False, True):
+                args = scan_inputs(*shape, dtype, dev, 10 * i, h0)
+                y, h = ss_ops.selective_scan(*args)
+                torch.cuda.synchronize()
+                y_want, h_want = ss_ref.selective_scan_ref(
+                    *(a if a is None else a.float() for a in args))
+                name = f"selective_scan {shape} {dtype} h0={h0}"
+                eh = within(name + " h_last", h, h_want, *SCAN_TOL)
+                ey = within(name + " y", y, y_want,
+                            *(SCAN_TOL if dtype == "float32"
+                              else SCAN_BF16_TOL))
+                if dtype == "bfloat16":
+                    y32, h32 = ss_ops.selective_scan(
+                        *(a if a is None else a.float() for a in args))
+                    if not (torch.equal(y, y32.to(y.dtype))
+                            and torch.equal(h, h32)):
+                        raise AssertionError(f"{name}: not the bf16 rounding"
+                                             " of the kernel's f32 run")
+                    excess = ((y.float() - y_want).abs()
+                              - 2.0 ** -8 * y_want.abs() - 1e-6)
+                    worst["bf16 excess"] = max(worst.get("bf16 excess",
+                                                         -1.0),
+                                               float(excess.max()))
+                for key, e in (("y", ey), ("h", eh)):
+                    prev = worst.get((dtype, key), (0.0, 0.0))
+                    worst[dtype, key] = tuple(map(max, prev, e))
+    excess = worst.pop("bf16 excess")
+    for (dtype, key), (err, share) in sorted(worst.items()):
+        log(f"  selective_scan {dtype} {key}: max abs err {err:.3e}, worst "
+            f"element at {share:.3f} of its bar over "
+            f"{2 * len(SCAN_SWEEP + SCAN_FULL)} cases")
+    log(f"  selective_scan bf16: y is the bf16 rounding of the kernel's f32 "
+        f"run, bitwise; largest excess over one bf16 rounding alone "
+        f"(2^-8 * |want| + 1e-6): {excess:.3e}")
+
+    # Timed at jamba's widths, f32 (the served model's stream), no h0:
+    # bytes = x, dt, B, C, A, D read once and y, h_last written once.
+    out = {}
+    for b, s, inner, n in SCAN_FULL:
+        args = scan_inputs(b, s, inner, n, "float32", dev, 90)
+        r = dict(
+            ms=cuda_ms(lambda: ss_ops.selective_scan(*args), reps=10),
+            device_ms=device_ms(lambda: ss_ops.selective_scan(*args),
+                                "selective_scan_kernel", reps=5),
+            plain_ms=cuda_ms(lambda: ss_ref.selective_scan_ref(*args),
+                             reps=3, warmup=1),
+            library_ms=None,
+            bytes=4 * (3 * b * s * inner + 2 * b * s * n + inner * n + inner
+                       + b * inner * n),
+            ops=(OPS_SCAN_STATE * b * s * inner * n
+                 + OPS_SCAN_CHANNEL * b * s * inner))
+        r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
+        log(f"  selective_scan b={b} s={s} inner={inner} n={n} f32: "
+            f"{r['ms']:.4f} ms per wrapper call, {r['device_ms']} ms on the "
+            f"device, {r['plain_ms']:.4f} ms plain, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}); "
+            f"{r['bytes'] / r['ms'] / 1e6:.1f} GB/s; "
+            f"{(inner + 127) // 128 * b} CTAs on 132 SMs")
+        out[f"s={s}"] = r
+    out["selective_scan"] = dict(out["s=2048"],
+                                 max_abs_err=max(worst["float32", "y"][0],
+                                                 worst["float32", "h"][0]))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: end to end
 # ---------------------------------------------------------------------------
@@ -876,57 +1019,61 @@ def profile_slot(fn, label):
 # kernel's rounding differences, ~1e-4 after one period, reach 5.8e-2
 # after six (the first full run). So the bar is 0.1 at full depth, and one
 # period of the same weights is held to 1e-3.
-LOGIT_ATOL = {"qwen2.5-3b": 2e-3, "xlstm-1.3b": 0.1}
+LOGIT_ATOL = {"qwen2.5-3b": 2e-3, "xlstm-1.3b": 0.1,
+              "jamba-1.5-large-398b": 2e-3}
 ONE_PERIOD_ATOL = 1e-3
 ARGMAX_SHARE = 0.99    # identical greedy tokens, teacher-forced
 N_TICKS = 64
 # Frames per stream of the engine-rung epochs (a): the service's cap is
 # 192; 8 still admits, preempts and completes frames on every stream, and
-# keeps phases 4-5 inside the script's time.
+# keeps phases 4-6 inside the script's time.
 ENGINE_FRAMES = 8
+# jamba-1.5-large-398b is 1.59 TB of f32 parameters: phase 6 keeps every
+# width and serves one period (8 of 72 layers) with 4 of its 16 experts
+# (top-2 and the capacity factor kept): 16.25 B parameters, 64.99 GB.
+JAMBA_CUT = dict(n_layers=8, n_experts=4)
 
 
 def kernel_counts(model):
     """Launches per admit and per tick of each LM kernel: flash_attention
     once per attention layer in a prefill, flash_decode once per attention
-    layer in a tick, mlstm_chunkwise once per mLSTM layer in a prefill.
-    Returns (per_admit, per_tick) over the kernels the model runs."""
+    layer in a tick, mlstm_chunkwise once per mLSTM layer and
+    selective_scan once per Mamba layer in a prefill. Returns (per_admit,
+    per_tick) over the kernels the model runs."""
     layers = {kind: model.n_periods * sum(spec.mixer == kind
                                           for spec in model.period)
-              for kind in ("attn", "mlstm")}
+              for kind in ("attn", "mlstm", "mamba")}
     per_admit = {"flash_attention": layers["attn"], "flash_decode": 0,
-                 "mlstm_chunkwise": layers["mlstm"]}
+                 "mlstm_chunkwise": layers["mlstm"],
+                 "selective_scan": layers["mamba"]}
     per_tick = {"flash_attention": 0, "flash_decode": layers["attn"],
-                "mlstm_chunkwise": 0}
+                "mlstm_chunkwise": 0, "selective_scan": 0}
     path = [k for k in per_admit if per_admit[k] + per_tick[k] > 0]
     return ({k: per_admit[k] for k in path}, {k: per_tick[k] for k in path})
 
 
-def xlstm_shares(eng, prompt):
-    """Host time, synchronised around each call, of one admit's sLSTM loops
-    (slstm_apply) and mLSTM kernel calls, and of one tick's mLSTM state
-    steps (mlstm_step: the in-place update of C and n and the read-out),
-    as shares of that admit and that tick."""
+def timed_shares(eng, prompt, parts):
+    """Host time, synchronised around each call, of one admit of
+    ``prompt`` and of one tick, and of the calls of ``parts`` ({label:
+    (module, function name)}, patched for the two) inside each. Returns
+    (admit_s, tick_s, {label: (seconds in the admit, in the tick)})."""
     import torch
-    from repro_torch.models import xlstm as xm
     spent = {}
 
-    def timed(name):
-        fn = getattr(xm, name)
-
+    def timed(label, fn):
         def call(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            spent[label] = spent.get(label, 0.0) + time.perf_counter() - t0
             return res
-        return fn, call
+        return call
 
-    patched = {name: timed(name)
-               for name in ("slstm_apply", "mlstm", "mlstm_step")}
-    for name, (_, call) in patched.items():
-        setattr(xm, name, call)
+    originals = {label: getattr(mod, name)
+                 for label, (mod, name) in parts.items()}
+    for label, (mod, name) in parts.items():
+        setattr(mod, name, timed(label, originals[label]))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -939,20 +1086,96 @@ def xlstm_shares(eng, prompt):
         eng.decode_tick()
         tick_s = time.perf_counter() - t0
     finally:
-        for name, (fn, _) in patched.items():
-            setattr(xm, name, fn)
-    out = dict(slstm_share=in_admit["slstm_apply"] / admit_s,
-               mlstm_kernel_share=in_admit["mlstm"] / admit_s,
-               state_step_share=spent["mlstm_step"] / tick_s)
+        for label, (mod, name) in parts.items():
+            setattr(mod, name, originals[label])
+    return admit_s, tick_s, {label: (in_admit.get(label, 0.0),
+                                     spent.get(label, 0.0))
+                             for label in parts}
+
+
+def xlstm_shares(eng, prompt):
+    """One admit's sLSTM loops (slstm_apply) and mLSTM kernel calls, and one
+    tick's mLSTM state steps (mlstm_step: the in-place update of C and n
+    and the read-out), as shares of that admit and that tick."""
+    from repro_torch.models import xlstm as xm
+    admit_s, tick_s, t = timed_shares(eng, prompt, {
+        name: (xm, name) for name in ("slstm_apply", "mlstm", "mlstm_step")})
+    out = dict(slstm_share=t["slstm_apply"][0] / admit_s,
+               mlstm_kernel_share=t["mlstm"][0] / admit_s,
+               state_step_share=t["mlstm_step"][1] / tick_s)
     log(f"  shares (host clock, synchronised around each call): one admit "
         f"of {len(prompt)} tokens {admit_s:.3f} s, sLSTM loops "
-        f"{in_admit['slstm_apply']:.3f} s ({100 * out['slstm_share']:.1f}%),"
-        f" mlstm_chunkwise calls {in_admit['mlstm']:.3f} s "
+        f"{t['slstm_apply'][0]:.3f} s ({100 * out['slstm_share']:.1f}%),"
+        f" mlstm_chunkwise calls {t['mlstm'][0]:.3f} s "
         f"({100 * out['mlstm_kernel_share']:.1f}%); one tick "
         f"{1e3 * tick_s:.2f} ms, mLSTM state steps "
-        f"{1e3 * spent['mlstm_step']:.2f} ms "
+        f"{1e3 * t['mlstm_step'][1]:.2f} ms "
         f"({100 * out['state_step_share']:.1f}%)")
     return out
+
+
+def jamba_shares(eng, prompt):
+    """One admit's selective_scan calls and MoE layers, and one tick's
+    Mamba decode steps and MoE layers, as shares of that admit and that
+    tick."""
+    from repro_torch.models import moe, ssm
+    admit_s, tick_s, t = timed_shares(eng, prompt, {
+        "scan": (ssm, "selective_scan"), "moe": (moe, "moe_apply"),
+        "mamba_decode": (ssm, "mamba_decode")})
+    out = dict(scan_share=t["scan"][0] / admit_s,
+               moe_admit_share=t["moe"][0] / admit_s,
+               mamba_step_share=t["mamba_decode"][1] / tick_s,
+               moe_tick_share=t["moe"][1] / tick_s)
+    log(f"  shares (host clock, synchronised around each call): one admit "
+        f"of {len(prompt)} tokens {admit_s:.3f} s, selective_scan calls "
+        f"{t['scan'][0]:.3f} s ({100 * out['scan_share']:.1f}%), MoE layers "
+        f"{t['moe'][0]:.3f} s ({100 * out['moe_admit_share']:.1f}%); one "
+        f"tick {1e3 * tick_s:.2f} ms, Mamba decode steps "
+        f"{1e3 * t['mamba_decode'][1]:.2f} ms "
+        f"({100 * out['mamba_step_share']:.1f}%), MoE layers "
+        f"{1e3 * t['moe'][1]:.2f} ms ({100 * out['moe_tick_share']:.1f}%)")
+    return out
+
+
+def record_routing(records):
+    """Patch the MoE router to append, per call, each token's top-k
+    experts and the gap between its k-th and (k+1)-th router
+    probabilities (on the card); returns the undo function."""
+    import torch
+    from repro_torch.models import layers, moe
+
+    original = moe._routing
+
+    def routing(params, x, cfg, capacity):
+        out = original(params, x, cfg, capacity)
+        probs = torch.softmax(layers.einsum("bsd,de->bse", x,
+                                            params["router"]).float(), -1)
+        top = torch.sort(probs, -1, descending=True).values
+        k = cfg.top_k
+        records.append((out[0], top[..., k - 1] - top[..., k]))
+        return out
+    moe._routing = routing
+
+    def undo():
+        moe._routing = original
+    return undo
+
+
+def routing_flips(records, n_moe):
+    """Compare the routing of the kernel and plain engines' calls, which
+    alternate in blocks of ``n_moe`` (one admit or tick of each): the
+    tokens whose ordered top-k experts differ, of all routed, and the
+    largest plain-run gate gap among them."""
+    flips, total, gap = 0, 0, 0.0
+    for j in range(0, len(records), 2 * n_moe):
+        for i in range(n_moe):
+            (ek, _), (ep, gp) = records[j + i], records[j + n_moe + i]
+            diff = (ek != ep).any(-1)
+            flips += int(diff.sum())
+            total += diff.numel()
+            if diff.any():
+                gap = max(gap, float(gp[diff].max()))
+    return flips, total, gap
 
 
 def xlstm_rounding(cfg, params, prompt, dev):
@@ -962,7 +1185,6 @@ def xlstm_rounding(cfg, params, prompt, dev):
     same weights, held to ONE_PERIOD_ATOL. (2) The plain run at full depth
     against itself with its embedding table times (1 + 2^-23 u), u = +-1
     (a one-ulp change of the input)."""
-    import dataclasses
 
     import numpy as np
     import torch
@@ -1003,8 +1225,9 @@ def xlstm_rounding(cfg, params, prompt, dev):
     return dict(one_period_err=err_one, one_ulp_sensitivity=sens)
 
 
-def serve_lm(dev, name):
-    """Serve ``name`` at full width and depth through the port's Engine:
+def serve_lm(dev, name, cut=None):
+    """Serve ``name`` at full width (and depth, unless ``cut`` replaces
+    fields of its config) through the port's Engine:
     (a) the engine rung of the service (measure_engine_epoch, 8 streams,
     FCFS and LCFSP), (b) long ragged prompts and 64 decode ticks, timed,
     then held teacher-forced against the impl="torch" engine. Every kernel
@@ -1019,14 +1242,17 @@ def serve_lm(dev, name):
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mlstm import ops as ml_ops
+    from repro_torch.kernels.selective_scan import ops as ss_ops
     from repro_torch.serving import (Engine, Frame, engine_plane,
                                      make_replay_engine)
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on: the reference's products "
                              "are full f32")
-    all_ops = (fa_ops, dec_ops, ml_ops)
+    all_ops = (fa_ops, dec_ops, ml_ops, ss_ops)
     cfg = configs.get(name)
+    if cut:
+        cfg = dataclasses.replace(cfg, **cut)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = models.build(cfg)
@@ -1057,9 +1283,12 @@ def serve_lm(dev, name):
 
     n_params = model.param_count()
     mixers = collections.Counter(spec.mixer for spec in model.period)
+    n_moe = model.n_periods * sum(spec.ffn == "moe" for spec in model.period)
     log(f"  {name}: {cfg.n_layers} layers ("
         + ", ".join(f"{model.n_periods * n} {kind}"
                     for kind, n in mixers.items())
+        + (f"; {n_moe} MoE FFNs of {cfg.n_experts} experts, top "
+           f"{cfg.top_k}" if n_moe else "")
         + f"), d_model {cfg.d_model}, {cfg.n_heads} heads, vocab "
         f"{cfg.vocab} (padded {cfg.padded_vocab}); {n_params / 1e9:.4f} B "
         f"parameters in f32 ({4 * n_params / 1e9:.2f} GB), initialised on "
@@ -1143,6 +1372,8 @@ def serve_lm(dev, name):
         "layers ask")
     if "slstm" in mixers:
         out.update(xlstm_shares(eng_b, prompts[-1]))
+    if "mamba" in mixers:
+        out.update(jamba_shares(eng_b, prompts[-1]))
     del eng_b
 
     # Teacher-forced: the kernel engine's tokens feed both engines.
@@ -1151,6 +1382,8 @@ def serve_lm(dev, name):
                    max_len=4096, device=dev)
     errs, same, total = [], 0, 0
     last = np.zeros(8, np.int32)
+    routes = []
+    undo = record_routing(routes) if n_moe else (lambda: None)
     for lane, prompt in enumerate(prompts):
         lk = eng_k.prefill_lane(prompt, lane)
         lp = eng_p.prefill_lane(prompt, lane)
@@ -1170,6 +1403,7 @@ def serve_lm(dev, name):
         total += nk.numel()
         last = nk.cpu().numpy().astype(np.int32)
         forced.append(last.copy())
+    undo()
     share = same / total
     replayed = int((np.stack(forced, 1) == served[:, :N_TICKS + 1]).sum())
     atol = LOGIT_ATOL[name]
@@ -1179,6 +1413,13 @@ def serve_lm(dev, name):
         f"{same}/{total} = {share:.4f} (bar {ARGMAX_SHARE}); the kernel "
         f"engine's greedy tokens repeat run (b)'s on {replayed}/"
         f"{8 * (N_TICKS + 1)}")
+    if n_moe:
+        flips, routed, gap = routing_flips(routes, n_moe)
+        out.update(routing_flips=flips, routed=routed)
+        log(f"  routing, kernel vs plain engine: {flips} of {routed} top-"
+            f"{cfg.top_k} decisions differ over the {n_moe} MoE layers; "
+            f"largest gate gap (k-th minus next probability, plain run) "
+            f"among them {gap:.3e}")
     if max(errs) > atol or share < ARGMAX_SHARE:
         raise AssertionError(f"{name} teacher-forced: kernel run outside "
                              "the bar against the plain run")
@@ -1209,8 +1450,10 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mlstm import kernel as ml_kernel
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
     from repro_torch.kernels.slot_solver import kernel, ops
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1224,12 +1467,13 @@ def main() -> int:
                  "flash_decode": (dec_kernel.SOURCES,
                                   _build.ATTENTION_FLAGS),
                  "mlstm_chunkwise": (ml_kernel.SOURCES,
-                                     _build.ATTENTION_FLAGS)}
+                                     _build.ATTENTION_FLAGS),
+                 "selective_scan": (ss_kernel.SOURCES, _build.NVCC_FLAGS)}
     with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each
         futures = {name: pool.submit(_build.build, name, *args)
                    for name, args in libraries.items()}
         lib_paths = {name: f.result() for name, f in futures.items()}
-    for lib in (kernel, fa_kernel, dec_kernel, ml_kernel):
+    for lib in (kernel, fa_kernel, dec_kernel, ml_kernel, ss_kernel):
         lib.load()
     log(f"  build: {time.perf_counter() - t0:.2f} s -> "
         + ", ".join(p.name for p in lib_paths.values()))
@@ -1288,6 +1532,7 @@ def main() -> int:
                        mode, thr, timing=False)
     attn = check_attention(dev)
     mlstm = check_mlstm(dev)
+    scan = check_scan(dev)
 
     log("== phase 3: end to end")
 
@@ -1428,6 +1673,13 @@ def main() -> int:
 
     log("== phase 5: xLSTM serving (xlstm-1.3b, full width and depth)")
     xl = serve_lm(dev, "xlstm-1.3b")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("== phase 6: hybrid serving (jamba-1.5-large-398b, full width, "
+        f"cut {JAMBA_CUT}); {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "still allocated")
+    jamba = serve_lm(dev, "jamba-1.5-large-398b", cut=JAMBA_CUT)
 
     if "jax" in sys.modules or any(m.split(".")[0] == "repro"
                                    for m in sys.modules):
@@ -1469,7 +1721,7 @@ def main() -> int:
             device_ms=r["device_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
     # The LM kernels: launches from the engine rung of the model that runs
-    # them, phase 4 (a) or 5 (a).
+    # them, phase 4 (a), 5 (a) or 6 (a).
     lm_kernels = {
         "flash_attention": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -1479,7 +1731,10 @@ def main() -> int:
             "src/repro/kernels/decode_attention/kernel.py:65", attn, lm),
         "mlstm_chunkwise": (
             "src/repro_torch/kernels/mlstm/csrc/mlstm_chunkwise.cu",
-            "src/repro/kernels/mlstm/kernel.py:80", mlstm, xl)}
+            "src/repro/kernels/mlstm/kernel.py:80", mlstm, xl),
+        "selective_scan": (
+            "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
+            "src/repro/kernels/selective_scan/kernel.py:52", scan, jamba)}
     for name, (source, replaced, timed_lm, served) in lm_kernels.items():
         r = timed_lm[name]
         kernels.append(dict(
@@ -1501,7 +1756,12 @@ def main() -> int:
         f"b=8 t=4096 h=16 kvh=2 d=128 f32, kv_len {list(PROMPT_LENS)}; "
         "mlstm_chunkwise at b=1 s=2048 h=4 d=1024 f32 (s=6: "
         f"{mlstm['s=6']['ms']:.4f} ms, s=3072: {mlstm['s=3072']['ms']:.4f} "
-        f"ms); LM launches (b): {lm['counts_b']}, {xl['counts_b']}")
+        "ms); selective_scan at b=1 s=2048 inner=16384 n=16 f32 (s=6: "
+        f"{scan['s=6']['ms']:.4f} ms, s=3072: {scan['s=3072']['ms']:.4f} "
+        f"ms); LM launches (b): {lm['counts_b']}, {xl['counts_b']}, "
+        f"{jamba['counts_b']}")
+    log(f"  chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
+        "build included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,47 @@
+"""Plain PyTorch versions of the Mamba selective scan (S6).
+
+    h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t
+    y_t = sum_n h_t[n] * C_t[n] + D * x_t
+
+The port's counterparts of the JAX package's ``kernels/selective_scan/
+ref.py``. ``selective_scan_ref`` steps over the sequence in the order of
+the JAX package's Pallas kernel (``kernel.py:_scan_kernel``), in f32, and
+keeps only the [b, inner, n] state: the JAX package's own reference
+materialises the [b, s, inner, n] trajectory for an associative scan,
+3.2 GB per layer at jamba's widths and 3,072 tokens.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def selective_scan_ref(x, dt, A, B, C, D, h0=None):
+    """x, dt: [b, s, inner]; A: [inner, n]; B, C: [b, s, n]; D: [inner];
+    h0: [b, inner, n] or None (zeros). Returns (y [b, s, inner] in x's
+    dtype, h_last [b, inner, n] in f32)."""
+    b, s, inner = x.shape
+    x32, dt32 = x.float(), dt.float()
+    A32, B32, C32, D32 = A.float(), B.float(), C.float(), D.float()
+    h = (torch.zeros((b, inner, A.shape[1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    y = torch.empty((b, s, inner), dtype=torch.float32, device=x.device)
+    for t in range(s):
+        xt, dtt = x32[:, t], dt32[:, t]                          # [b, inner]
+        da = torch.exp(dtt[..., None] * A32)                     # [b, i, n]
+        h = da * h + (dtt * xt)[..., None] * B32[:, t, None, :]
+        y[:, t] = torch.sum(h * C32[:, t, None, :], dim=-1) + D32 * xt
+    return y.to(x.dtype), h
+
+
+def selective_step(x, dt, A, B, C, D, h):
+    """One decode step (no kernel in either package). x, dt: [b, inner];
+    B, C: [b, n]; h: [b, inner, n]. Returns (y [b, inner] in x's dtype,
+    h_new [b, inner, n] in f32), with the JAX package's operation order
+    ``(dt * B) * x``."""
+    x32, dt32 = x.float(), dt.float()
+    da = torch.exp(dt32[..., None] * A.float()[None])
+    h_new = (da * h.float()
+             + dt32[..., None] * B.float()[:, None, :] * x32[..., None])
+    y = (torch.einsum("bin,bn->bi", h_new, C.float())
+         + D.float()[None] * x32)
+    return y.to(x.dtype), h_new

@@ -32,9 +32,14 @@ KV_HEADS = "kv_heads"
 HEAD_DIM = "head_dim"
 MLP = "mlp"
 VOCAB = "vocab"
+EXPERTS = "experts"
+EXPERT_MLP = "expert_mlp"
 LAYERS = "layers"          # stacked layer dimension
 CACHE_SEQ = "cache_seq"
 SSM_INNER = "ssm_inner"
+SSM_STATE = "ssm_state"
+CONV = "conv"
+LORA = "lora"              # low-rank dims (Mamba's dt rank)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +48,7 @@ class P:
     shape: tuple
     axes: tuple                 # logical axis name (or None) per dim
     init: str = "fan_in"        # fan_in | normal | zeros | ones | embed
+    #                             | s4d | s4d_dt
     scale: Optional[float] = None
     dtype: Optional[Any] = None
 
@@ -101,8 +107,19 @@ def _initializer(p: P, generator: torch.Generator, dtype, device):
     if p.init == "fan_in":
         scale = p.scale if p.scale is not None else 1.0
         return normal(scale / math.sqrt(max(_fan_in(p), 1)))
-    # The JAX package's s4d / s4d_dt (Mamba) come with its layers
-    # (ROADMAP queue 1 item 10c).
+    if p.init == "s4d":
+        # S4D-real A_log: log(1..n) broadcast over inner (and layers).
+        row = torch.log(torch.arange(1, p.shape[-1] + 1, dtype=torch.float32,
+                                     device=device))
+        return row.to(dtype).expand(p.shape).contiguous()
+    if p.init == "s4d_dt":
+        # Mamba's dt bias: the inverse softplus of a log-uniform dt in
+        # [1e-3, 1e-1].
+        u = torch.rand(p.shape, generator=generator, dtype=torch.float32,
+                       device=device)
+        lo, hi = math.log(1e-3), math.log(0.1)
+        dt = torch.exp(u * (hi - lo) + lo)
+        return torch.log(torch.expm1(dt)).to(dtype)
     raise ValueError(f"unknown init {p.init!r}")
 
 

@@ -1,4 +1,4 @@
-"""The decoder-only LM (dense GQA or xLSTM) and ``build``.
+"""The decoder-only LM (dense GQA, xLSTM or the hybrid) and ``build``.
 
 ``TransformerLM`` keeps the JAX package's surface: parameters are a tree
 passed to every call, not module state.
@@ -35,8 +35,11 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class TransformerLM(nn.Module):
-    """Decoder-only LM: a dense GQA decoder (qwen2.5-style) or the xLSTM
-    (periods of mLSTM layers and one sLSTM layer)."""
+    """Decoder-only LM: a dense GQA decoder (qwen2.5-style), the xLSTM
+    (periods of mLSTM layers and one sLSTM layer) or the hybrid (jamba:
+    periods of one attention and Mamba layers, MoE FFNs on every other
+    layer). The port runs on one card, so experts are padded as the
+    reference pads them for an expert-parallel degree of 1."""
 
     def __init__(self, cfg: ModelConfig, impl: str = "auto"):
         super().__init__()
@@ -44,10 +47,11 @@ class TransformerLM(nn.Module):
         self.impl = impl
         self.period, self.n_periods = layout(cfg)
         self.dtype = DTYPES[cfg.dtype]
+        self.ep_pad = cfg.padded_experts(1) or None
 
     def template(self):
         cfg = self.cfg
-        per = {f"p{i}": block_template(cfg, spec)
+        per = {f"p{i}": block_template(cfg, spec, self.ep_pad)
                for i, spec in enumerate(self.period)}
         t = {"embed": embedding_template(cfg.padded_vocab, cfg.d_model),
              "blocks": stack_template(per, self.n_periods),
@@ -106,9 +110,9 @@ class TransformerLM(nn.Module):
 
 def build(cfg: ModelConfig, impl: str = "auto") -> TransformerLM:
     """The model of ``cfg``. ``impl`` picks the path of the kernels
-    (attention, and the mLSTM's prefill): ``auto`` (the CUDA kernels on
-    CUDA tensors, the plain versions on CPU ones) or ``torch`` (the plain
-    versions on any device)."""
+    (attention, the mLSTM's prefill and the Mamba layers' selective scan):
+    ``auto`` (the CUDA kernels on CUDA tensors, the plain versions on CPU
+    ones) or ``torch`` (the plain versions on any device)."""
     check_impl(impl)
     if cfg.enc_layers:
         raise not_ported("cross")

@@ -1,13 +1,13 @@
-"""Decoder blocks and the layer stack: the dense GQA decoder and the
-xLSTM.
+"""Decoder blocks and the layer stack: the dense GQA decoder, the xLSTM
+and the hybrid (jamba: attention, Mamba and MoE).
 
 Every architecture of the JAX package is a *period* of layer specs
 repeated n_periods times; its parameters and caches are stacked along a
 leading LAYERS dim. The JAX package drives the stack with ``lax.scan`` (or
 unrolls it at <= 2 periods); here it is a Python loop over the periods,
-which computes the same thing. The ported layer kinds are ``mixer="attn"``
-with ``ffn="dense"`` and the xLSTM's ``mlstm`` and ``slstm`` with
-``ffn="none"``; the others raise ``NotImplementedError`` naming the
+which computes the same thing. The ported layer kinds are the mixers
+``attn``, ``mamba``, ``mlstm`` and ``slstm`` and the FFNs ``dense``,
+``moe`` and ``none``; the others raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -18,14 +18,15 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import attention as attn_mod
+from . import moe as moe_mod
+from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
 from .layers import rmsnorm, rmsnorm_template, swiglu, swiglu_template
 
 _NOT_PORTED = {
     "mla": "MLA attention (minicpm3): ROADMAP queue 1 item 10",
-    "moe": "mixture-of-experts FFN: ROADMAP queue 1 item 10",
-    "mamba": "Mamba layers and the selective_scan kernel: ROADMAP queue 1 "
-             "item 10, queue 2 row 8",
+    "moe": "MoE serving outside the hybrid layout (dbrx, qwen2-moe): "
+           "ROADMAP queue 1 item 10d",
     "cross": "cross-attention (VLM, encoder-decoder): ROADMAP queue 1 item "
              "10",
     "layernorm": "LayerNorm blocks (audio family): ROADMAP queue 1 item 10",
@@ -41,18 +42,25 @@ def not_ported(what: str) -> NotImplementedError:
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str                  # attn | mlstm | slstm (mla | cross | mamba)
-    ffn: str                    # dense | none (moe)
+    mixer: str                  # attn | mamba | mlstm | slstm (mla | cross)
+    ffn: str                    # dense | moe | none
     cross_sub: bool = False     # extra cross-attn sublayer (enc-dec)
 
 
 def layout(cfg: ModelConfig):
-    """Return (period: list[LayerSpec], n_periods) for a dense GQA decoder
-    or the xLSTM; other families raise ``NotImplementedError``."""
+    """Return (period: list[LayerSpec], n_periods) for a dense GQA decoder,
+    the xLSTM or the hybrid; other families raise ``NotImplementedError``."""
     if cfg.enc_layers:
         raise not_ported("cross")
-    if cfg.family == "hybrid":
-        raise not_ported("mamba")
+    if cfg.family == "hybrid":                             # jamba
+        period = []
+        for i in range(cfg.attn_period):
+            mixer = "attn" if i == 0 else "mamba"
+            ffn = "moe" if (i % cfg.moe_period == 1 or cfg.moe_period == 1) \
+                else "dense"
+            period.append(LayerSpec(mixer, ffn))
+        assert cfg.n_layers % cfg.attn_period == 0
+        return period, cfg.n_layers // cfg.attn_period
     if cfg.family == "ssm":                                # xlstm
         sp = cfg.slstm_period
         period = [LayerSpec("mlstm", "none") for _ in range(sp - 1)]
@@ -69,9 +77,9 @@ def layout(cfg: ModelConfig):
 
 
 def _check(cfg: ModelConfig, spec: LayerSpec) -> None:
-    if spec.mixer not in ("attn", "mlstm", "slstm"):
+    if spec.mixer not in ("attn", "mamba", "mlstm", "slstm"):
         raise not_ported(spec.mixer)
-    if spec.ffn not in ("dense", "none"):
+    if spec.ffn not in ("dense", "moe", "none"):
         raise not_ported(spec.ffn)
     if spec.cross_sub:
         raise not_ported("cross")
@@ -79,34 +87,49 @@ def _check(cfg: ModelConfig, spec: LayerSpec) -> None:
         raise not_ported("layernorm")
 
 
-def block_template(cfg: ModelConfig, spec: LayerSpec):
+def block_template(cfg: ModelConfig, spec: LayerSpec,
+                   n_experts_padded: int | None = None):
     _check(cfg, spec)
     mixer = {"attn": attn_mod.gqa_template,
+             "mamba": ssm_mod.mamba_template,
              "mlstm": xlstm_mod.mlstm_template,
              "slstm": xlstm_mod.slstm_template}[spec.mixer]
     t = {"norm1": rmsnorm_template(cfg.d_model), "mixer": mixer(cfg)}
-    if spec.ffn == "dense":
+    if spec.ffn != "none":
         t["norm2"] = rmsnorm_template(cfg.d_model)
-        t["ffn"] = swiglu_template(cfg.d_model, cfg.d_ff)
+        t["ffn"] = (moe_mod.moe_template(cfg, n_experts_padded)
+                    if spec.ffn == "moe"
+                    else swiglu_template(cfg.d_model, cfg.d_ff))
     return t
 
 
 def block_cache_template(cfg, spec: LayerSpec, batch: int, max_len: int,
                          dtype=None):
     """Per-layer decode cache matching block_template's spec: the KV cache
-    of an attention layer, the recurrent state of an xLSTM layer."""
+    of an attention layer, the recurrent state of a Mamba or xLSTM
+    layer."""
     _check(cfg, spec)
     if spec.mixer == "attn":
         return {"self": attn_mod.cache_template(cfg, batch, max_len, dtype)}
-    state = {"mlstm": xlstm_mod.mlstm_state_template,
+    state = {"mamba": ssm_mod.mamba_state_template,
+             "mlstm": xlstm_mod.mlstm_state_template,
              "slstm": xlstm_mod.slstm_state_template}[spec.mixer]
     return {"state": state(cfg, batch, dtype)}
 
 
-def _ffn(params, x, spec: LayerSpec):
+def _ffn(params, x, cfg, spec: LayerSpec, *, decode: bool = False):
+    """The FFN sublayer and its residual add: (x, the MoE's aux loss or
+    None for other FFNs). At decode the MoE's capacity is dropless
+    (``n_experts / top_k``)."""
     if spec.ffn == "none":
-        return x
-    return x + swiglu(params["ffn"], rmsnorm(params["norm2"], x))
+        return x, None
+    h = rmsnorm(params["norm2"], x)
+    if spec.ffn == "dense":
+        return x + swiglu(params["ffn"], h), None
+    out, aux = moe_mod.moe_apply(
+        params["ffn"], h, cfg,
+        capacity_factor=cfg.n_experts / max(cfg.top_k, 1) if decode else None)
+    return x + out, aux
 
 
 def block_apply(params, x, cfg, spec: LayerSpec, *, impl: str = "auto",
@@ -115,13 +138,18 @@ def block_apply(params, x, cfg, spec: LayerSpec, *, impl: str = "auto",
     given; the prefill writes the cache in place).
 
     Residual adds promote as ``jnp`` does (a bf16 stream plus an f32
-    sublayer output is f32). Returns (x, cache, aux)."""
+    sublayer output is f32). Returns (x, cache, aux): aux is the MoE's
+    load-balancing loss (0 for other FFNs)."""
     _check(cfg, spec)
     h = rmsnorm(params["norm1"], x)
     if spec.mixer == "attn":
         out = attn_mod.gqa_apply(
             params["mixer"], h, cfg, impl=impl,
             cache=None if cache is None else cache["self"])
+    elif spec.mixer == "mamba":
+        out = ssm_mod.mamba_apply(
+            params["mixer"], h, cfg, impl=impl,
+            state=None if cache is None else cache["state"])
     elif spec.mixer == "mlstm":
         out = xlstm_mod.mlstm_apply(
             params["mixer"], h, cfg, impl=impl,
@@ -132,8 +160,10 @@ def block_apply(params, x, cfg, spec: LayerSpec, *, impl: str = "auto",
             state=None if cache is None else cache["state"])
     if cache is not None:
         out = out[0]
-    x = _ffn(params, x + out, spec)
-    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _ffn(params, x + out, cfg, spec)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, cache, aux
 
 
 def block_decode(params, x, cfg, spec: LayerSpec, cache, lens, *,
@@ -145,13 +175,16 @@ def block_decode(params, x, cfg, spec: LayerSpec, cache, lens, *,
     if spec.mixer == "attn":
         out, _ = attn_mod.gqa_decode(params["mixer"], h, cfg, cache["self"],
                                      lens, impl=impl)
+    elif spec.mixer == "mamba":
+        out, _ = ssm_mod.mamba_decode(params["mixer"], h, cfg,
+                                      cache["state"])
     elif spec.mixer == "mlstm":
         out, _ = xlstm_mod.mlstm_decode(params["mixer"], h, cfg,
                                         cache["state"])
     else:
         out, _ = xlstm_mod.slstm_decode(params["mixer"], h, cfg,
                                         cache["state"])
-    return _ffn(params, x + out, spec), cache
+    return _ffn(params, x + out, cfg, spec, decode=True)[0], cache
 
 
 def _period(tree, li: int):
@@ -171,7 +204,7 @@ def stack_apply(stacked, x, cfg, period, *, impl: str = "auto",
                 caches=None):
     """Run the period stack. ``stacked``/``caches``: {"p{i}": tree} with a
     leading n_periods dim on every leaf; caches are written in place.
-    Returns (x, caches, aux)."""
+    Returns (x, caches, aux), aux the sum of the MoE layers' losses."""
     if cfg.remat != "none" and torch.is_grad_enabled():
         # Rematerialisation only changes what a backward pass keeps; an
         # inference run (no autograd) computes the same without it.

@@ -21,6 +21,9 @@ from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.mlstm import kernel as ml_kernel
 from repro_torch.kernels.mlstm import ops as ml_ops
 from repro_torch.kernels.mlstm import ref as ml_ref
+from repro_torch.kernels.selective_scan import kernel as ss_kernel
+from repro_torch.kernels.selective_scan import ops as ss_ops
+from repro_torch.kernels.selective_scan import ref as ss_ref
 from repro_torch.kernels.slot_solver import ops, ref
 from repro_torch.serving import Engine, Frame
 
@@ -296,16 +299,16 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 
 # (b, s, t, h, kvh, d): tests/test_kernels.py's sweep, then qwen2.5-3b's
 # prefill widths (h=16, kvh=2, d=128) at a frame (s=6), a non-multiple of
-# the tile, and a long prompt.
+# the tile, and a long prompt, then jamba's (h=64, kvh=8).
 PREFILL_SHAPES = [(2, 256, 256, 4, 2, 64), (1, 128, 384, 8, 8, 128),
                   (2, 256, 256, 4, 1, 128), (1, 192, 192, 6, 2, 64),
                   (1, 6, 6, 16, 2, 128), (1, 192, 192, 16, 2, 128),
-                  (1, 2048, 2048, 16, 2, 128)]
+                  (1, 2048, 2048, 16, 2, 128), (1, 300, 300, 64, 8, 128)]
 # (b, t, h, kvh, d): tests/test_kernels.py's sweep, then qwen2.5-3b's
-# decode widths over 8 lanes of a 4096-row cache.
+# and jamba's decode widths over 8 lanes of a 4096-row cache.
 DECODE_SHAPES = [(2, 512, 8, 2, 64), (4, 1024, 4, 4, 128),
                  (1, 384, 8, 1, 128), (3, 640, 16, 8, 64),
-                 (8, 4096, 16, 2, 128)]
+                 (8, 4096, 16, 2, 128), (8, 4096, 64, 8, 128)]
 
 
 def _normal(shape, dtype, dev, seed):
@@ -562,3 +565,149 @@ def test_gpu_reduced_xlstm_kernel_matches_torch(cuda):
     assert ml_ops.launches["mlstm_chunkwise"] == 2 * len(prompts)
     assert eng_k.admit(Frame(0, 0.0, 0.0), np.arange(5, dtype=np.int32))
     assert ml_ops.launches["mlstm_chunkwise"] == 2 * len(prompts) + 2
+
+
+# ---------------------------------------------------------------------------
+# selective_scan
+# ---------------------------------------------------------------------------
+
+# f32: the reference's bar (atol 1e-4) with a relative term for jamba's
+# long sequences; the kernel rounds as the plain version does but sums the
+# n states in another order. bf16: the kernel computes in f32 as it does
+# for f32 inputs and rounds y once, so its bf16 y is the bf16 rounding of
+# its f32 y on the same (bf16-valued) inputs, bitwise, and h_last equals
+# that run's; against the plain version y is then within one bf16 rounding
+# (2^-8 * |want|) plus the f32 bar's atol (near y = 0 the sum over n in
+# another order moves y by more than 1e-6).
+SCAN_TOL = (1e-4, 1e-4)
+# (b, s, inner, n): tests/test_kernels.py's sweep, a ragged channel block
+# and a ragged chunk, then jamba's widths (inner 16384, n 16).
+SCAN_SHAPES = [(2, 128, 64, 16), (1, 256, 128, 16), (2, 96, 32, 8),
+               (3, 37, 200, 5), (1, 6, 16384, 16), (1, 300, 16384, 16)]
+
+
+def _scan_inputs(b, s, inner, n, dtype, dev, seed, h0=False):
+    """The reference tests' distributions (see test_torch_selective_scan);
+    x, dt, B and C in ``dtype``, A, D and h0 in f32."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(a.astype(np.float32), device=dev).to(dt)
+    out = [t(rng.standard_normal((b, s, inner)), dtype),
+           t(np.logaddexp(rng.standard_normal((b, s, inner)) - 1.0, 0),
+             dtype),
+           t(-np.exp(rng.standard_normal((inner, n)) * 0.5)),
+           t(rng.standard_normal((b, s, n)), dtype),
+           t(rng.standard_normal((b, s, n)), dtype),
+           t(rng.standard_normal(inner))]
+    out.append(t(rng.standard_normal((b, inner, n)) * 0.5) if h0 else None)
+    return out
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+def test_gpu_selective_scan_matches_plain(cuda, shape, dtype, h0):
+    args = _scan_inputs(*shape, dtype, cuda, 20, h0)
+    ss_ops.reset_launches()
+    y, h = ss_ops.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ss_ops.launches["selective_scan"] == 1
+    assert y.dtype == dtype and y.shape == args[0].shape
+    assert h.dtype == torch.float32 and h.shape == (shape[0], shape[2],
+                                                    shape[3])
+    f32 = [a if a is None else a.float() for a in args]
+    y_want, h_want = ss_ref.selective_scan_ref(*f32)
+    atol, rtol = SCAN_TOL
+    torch.testing.assert_close(h, h_want, atol=atol, rtol=rtol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, y_want, atol=atol, rtol=rtol)
+    else:
+        y32, h32 = ss_ops.selective_scan(*f32)
+        assert torch.equal(y, y32.to(dtype)) and torch.equal(h, h32)
+        err = (y.float() - y_want).abs()
+        assert bool((err <= 2.0 ** -8 * y_want.abs() + atol).all()), \
+            float(err.max())
+
+
+def test_gpu_selective_scan_wrapper_refuses_bad_inputs(cuda, monkeypatch):
+    x, dt, A, B, C, D, _ = _scan_inputs(1, 8, 64, 16, torch.float32, cuda,
+                                        21)
+    ss_ops.reset_launches()
+    with pytest.raises(TypeError, match="dtype"):
+        ss_ops.selective_scan(x.half(), dt.half(), A, B, C, D)
+    with pytest.raises(TypeError, match="dtype"):
+        ss_ops.selective_scan(x, dt.bfloat16(), A, B, C, D)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ss_ops.selective_scan(x, dt, A, B.half(), C, D)
+    with pytest.raises(TypeError, match="h0"):
+        ss_ops.selective_scan(x, dt, A, B, C, D,
+                              torch.zeros((1, 64, 16), device=cuda,
+                                          dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="several devices"):
+        ss_ops.selective_scan(x, dt.cpu(), A, B, C, D)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss_ops.selective_scan(x.transpose(1, 2).contiguous().transpose(1, 2),
+                              dt, A, B, C, D)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss_ops.selective_scan(x, dt, A.t().contiguous().t(), B, C, D)
+    with pytest.raises(ValueError, match="shapes"):
+        ss_ops.selective_scan(x, dt[:, :4].contiguous(), A, B, C, D)
+    with pytest.raises(ValueError, match="shapes"):
+        ss_ops.selective_scan(x, dt, A, B, C, D[:32].contiguous())
+    xs, dts, As, Bs, Cs, Ds, _ = _scan_inputs(1, 8, 64, 17, torch.float32,
+                                              cuda, 22)
+    with pytest.raises(ValueError, match="state size"):
+        ss_ops.selective_scan(xs, dts, As, Bs, Cs, Ds)
+    with pytest.raises(ValueError, match="impl"):
+        ss_ops.selective_scan(x, dt, A, B, C, D, impl="cuda")
+    assert ss_ops.launches["selective_scan"] == 0
+
+    def broken():
+        raise RuntimeError("nvcc failed")
+    monkeypatch.setattr(ss_kernel._Library, "get", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ss_ops.selective_scan(x, dt, A, B, C, D)
+
+
+def _reduced_jamba_engine(impl, dev, params=None):
+    model = models.build(configs.get("jamba-1.5-large-398b").reduced(),
+                         impl=impl)
+    if params is None:
+        params = models.common.init_params(
+            model.template(), torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+    return Engine(model, params, n_lanes=3, max_len=64, decode_tokens=8,
+                  device=dev), params
+
+
+def test_gpu_reduced_jamba_kernels_match_torch(cuda):
+    """The reduced jamba (2 periods of [attn, mamba x3], MoE on the odd
+    layers) on the card: the kernel run (each prefill through
+    flash_attention once and selective_scan three times per period, each
+    tick through flash_decode once per period and no scan) against the
+    impl="torch" run of the same engine, teacher-forced on the kernel
+    run's tokens."""
+    eng_k, params = _reduced_jamba_engine("auto", cuda)
+    eng_p, _ = _reduced_jamba_engine("torch", cuda, params)
+    for mod in (fa_ops, dec_ops, ss_ops):
+        mod.reset_launches()
+    prompts = [np.arange(2, 9), np.arange(40, 61), np.arange(100, 106)]
+    last = np.zeros(3, np.int32)
+    for lane, toks in enumerate(prompts):
+        lk = eng_k.prefill_lane(toks, lane)
+        lp = eng_p.prefill_lane(toks, lane)
+        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+        last[lane] = int(torch.argmax(lk))
+    assert ss_ops.launches["selective_scan"] == 6 * len(prompts)
+    assert fa_ops.launches["flash_attention"] == 2 * len(prompts)
+    for _ in range(8):
+        lk = eng_k.decode_logits(last)
+        lp = eng_p.decode_logits(last)
+        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+        last = torch.argmax(lk, -1).cpu().numpy().astype(np.int32)
+    assert ss_ops.launches["selective_scan"] == 6 * len(prompts)
+    assert dec_ops.launches["flash_decode"] == 2 * 8
+    for key, leaf in eng_k.cache["blocks"]["p1"]["state"].items():
+        torch.testing.assert_close(leaf, eng_p.cache["blocks"]["p1"]
+                                   ["state"][key], atol=1e-4, rtol=1e-4)

@@ -19,22 +19,26 @@ Phases, each of which raises on failure (exit code non-zero):
                 sweep shapes and at qwen2.5-3b's widths in f32 and bf16
                 (2e-5 / 5e-2; bf16 at qwen2.5-3b's widths also against the
                 f32 plain version at 1e-5 + 1e-2 * |want|), ragged kv_len
-                including 1, t and 0 (zeros),
+                including 1, t and 0 (zeros) and lengths on and beside the
+                split boundaries (flash_decode also at jamba's widths; its
+                device time is per wrapper call, split and combine passes
+                summed),
                 each timed beside its plain version and one
                 scaled_dot_product_attention call (library_ms);
                 mlstm_chunkwise at tests/test_kernels.py's sweep shapes in
                 f32 and bf16 (2e-3 + 1e-3 * |want| / 5e-2) and at
                 xlstm-1.3b's widths (h=4, d=1024, s = 6, 2048, 3072) in
                 f32, timed beside its plain version (no single PyTorch
-                call computes it: library_ms is null); selective_scan at
-                tests/test_kernels.py's sweep shapes and at jamba's widths
-                (b=1, inner 16384, n 16, s = 6, 2048, 3072), with and
-                without h0, in f32 (y and h_last within 1e-4 + 1e-4 *
-                |want|) and bf16 (y and h_last bitwise the bf16 rounding of
-                the kernel's own f32 run on the same inputs, y within one
-                bf16 rounding plus the f32 atol, 2^-8 * |want| + 1e-4, of
-                the f32 plain version), timed beside its plain version
-                (library_ms null);
+                call computes it: library_ms is null) against two bounds,
+                the f32 CUDA cores' and 3xTF32 on the tensor cores';
+                selective_scan at tests/test_kernels.py's sweep shapes and
+                at jamba's widths (b=1, inner 16384, n 16, s = 6, 2048,
+                3072), with and without h0, in f32 (y and h_last within
+                1e-4 + 1e-4 * |want|) and bf16 (y and h_last bitwise the
+                bf16 rounding of the kernel's own f32 run on the same
+                inputs, y within one bf16 rounding plus the f32 atol, 2^-8
+                * |want| + 1e-4, of the f32 plain version), timed beside
+                its plain version (library_ms null);
   3. end to end - each path driven through its entry point with the launch
                 counters zeroed just before and read just after, against the
                 plain (solver_backend="torch") run on the card:
@@ -67,7 +71,10 @@ Phases, each of which raises on failure (exit code non-zero):
                 the same (a) and (b) as phase 4 with logits within 0.1
                 (see LOGIT_ATOL), then one period (8 layers) of the same
                 weights teacher-forced within 1e-3 and the plain run's
-                response to a one-ulp change of its input embedding;
+                response to a one-ulp change of its input embedding (its
+                logits over one lane, and its share of identical argmax
+                tokens against the plain engine, teacher-forced as in (b):
+                what rounding alone leaves of the 0.99 bar);
                 mlstm_chunkwise must launch in (a) and in (b), 42 times per
                 admit and never in a tick. Also measured: the share of an
                 admit spent in the sLSTM's per-token loop and in the mLSTM
@@ -97,6 +104,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -107,9 +115,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, FP32 outside the
-# tensor cores.
+# tensor cores, dense TF32 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 # Operations per unit of work, counted from the expressions in
 # csrc/slot_solver.cu (each +, -, *, /, sqrt, min/max and compare is one):
@@ -151,12 +160,28 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel_name: str, reps: int = 20):
-    """Mean device milliseconds per launch of the kernel whose name holds
-    ``kernel_name``, from torch.profiler; None if the trace holds no device
-    time for it."""
+def kernel_name(key: str) -> str:
+    """The function's name in a profiler key, e.g. ``flash_decode_kernel``
+    in ``void (anonymous namespace)::flash_decode_kernel<float>(...)``."""
+    key = key.replace("(anonymous namespace)::", "")
+    return re.match(r"(?:void\s+)?(?:\w+::)*(\w*)", key).group(1)
+
+
+def device_ms(fn, kernels, reps: int = 20, passes=None):
+    """Device milliseconds per call of ``fn``: the mean time per launch of
+    each kernel named in ``kernels`` (exact names; one name or a tuple, as
+    flash_decode's split and combine passes, each launched once per call),
+    summed, from torch.profiler. Profiler keys with no device time are
+    skipped, so they do not enter the launch count the mean divides by.
+    Raises if two keys hold one listed name (two
+    instantiations) or a kernel whose name starts as a listed one's does
+    (its stem, the name without ``_kernel``) is not listed. None if the
+    trace holds device time for none or only some of the listed kernels.
+    ``passes``, a dict, is filled with each kernel's ms per launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    names = (kernels,) if isinstance(kernels, str) else tuple(kernels)
+    stems = tuple(n.removesuffix("_kernel") for n in names)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -164,13 +189,24 @@ def device_ms(fn, kernel_name: str, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
+    found = {}
     for evt in prof.key_averages():
-        if kernel_name in evt.key:
-            total_us += getattr(evt, "device_time_total",
-                                getattr(evt, "cuda_time_total", 0.0))
-            count += evt.count
-    return total_us / count / 1e3 if count and total_us > 0 else None
+        us = getattr(evt, "device_time_total",
+                     getattr(evt, "cuda_time_total", 0.0))
+        if not evt.count or us <= 0:
+            continue
+        name = kernel_name(evt.key)
+        if name in names:
+            if name in found:
+                raise AssertionError(f"device_ms: two profiler keys hold "
+                                     f"{name}: {evt.key!r}")
+            found[name] = us / evt.count / 1e3
+        elif name.startswith(stems):
+            raise AssertionError(f"device_ms: kernel {name} ({evt.key!r}) "
+                                 f"is not among {names}")
+    if passes is not None:
+        passes.update(found)
+    return sum(found.values()) if len(found) == len(names) else None
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -493,6 +529,7 @@ PREFILL_FULL = [(1, s, s, 16, 2, 128) for s in (6, 192, 2048)]
 DECODE_SWEEP = [(2, 512, 8, 2, 64), (4, 1024, 4, 4, 128),
                 (1, 384, 8, 1, 128), (3, 640, 16, 8, 64)]
 DECODE_FULL = (8, 4096, 16, 2, 128)
+DECODE_JAMBA = (8, 4096, 64, 8, 128)
 # Phase 4's prompt lengths (ragged, 512-3,072 tokens): the cache fill the
 # decode timing reads.
 PROMPT_LENS = (512, 896, 1280, 1664, 2048, 2432, 2816, 3072)
@@ -521,6 +558,7 @@ def check_attention(dev):
     on the card and time both at the main path's shapes. Returns
     {kernel: results}."""
     import torch
+    from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention import ref as dec_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -581,35 +619,43 @@ def check_attention(dev):
                      dec_ops.decode_attention(q, kc, vc, lens),
                      dec_ref.decode_ref(q, kc, vc, lens), dtype)
             worst["flash_decode"] = max(worst["flash_decode"], e)
-        b, t, h, kvh, d = DECODE_FULL
-        q = normal((b, h, d), dtype, dev, 70)
-        kc = normal((b, t, kvh, d), dtype, dev, 71)
-        vc = normal((b, t, kvh, d), dtype, dev, 72)
-        for lens in ([1, t, 37, 511, 512, 513, 2048, t - 1],
-                     [0, 5, 0, t, 0, 1, 0, 0]):
-            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
-            got = dec_ops.decode_attention(q, kc, vc, kv_len)
-            name = f"flash_decode {DECODE_FULL} kv_len={lens} {dtype}"
-            e = held(name, got, dec_ref.decode_ref(q, kc, vc, kv_len),
-                     dtype)
-            if dtype == "bfloat16":
-                tight_worst["flash_decode"] = max(
-                    tight_worst["flash_decode"],
-                    tight(name, got, dec_ref.decode_ref(
-                        q.float(), kc.float(), vc.float(), kv_len)),
-                    key=lambda r: r[1])
-            empty = kv_len == 0
-            if empty.any() and torch.count_nonzero(got[empty]) != 0:
-                raise AssertionError("flash_decode: kv_len = 0 must give "
-                                     "zeros")
-            worst["flash_decode"] = max(worst["flash_decode"], e)
+        for full in (DECODE_FULL, DECODE_JAMBA):
+            b, t, h, kvh, d = full
+            q = normal((b, h, d), dtype, dev, 70)
+            kc = normal((b, t, kvh, d), dtype, dev, 71)
+            vc = normal((b, t, kvh, d), dtype, dev, 72)
+            # Ragged lanes, empty lanes, and lanes on and beside the
+            # boundaries of the split the host plans for this cache.
+            chunk = dec_kernel.split_plan(b, t, kvh,
+                                          dec_kernel.sm_count(dev))[1]
+            for lens in ([1, t, 37, 511, 512, 513, 2048, t - 1],
+                         [0, 5, 0, t, 0, 1, 0, 0],
+                         [chunk - 1, chunk, chunk + 1, 2 * chunk,
+                          3 * chunk - 1, 3 * chunk + 1, t - chunk, 2]):
+                kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+                got = dec_ops.decode_attention(q, kc, vc, kv_len)
+                name = f"flash_decode {full} kv_len={lens} {dtype}"
+                e = held(name, got, dec_ref.decode_ref(q, kc, vc, kv_len),
+                         dtype)
+                if dtype == "bfloat16" and full == DECODE_FULL:
+                    tight_worst["flash_decode"] = max(
+                        tight_worst["flash_decode"],
+                        tight(name, got, dec_ref.decode_ref(
+                            q.float(), kc.float(), vc.float(), kv_len)),
+                        key=lambda r: r[1])
+                empty = kv_len == 0
+                if empty.any() and torch.count_nonzero(got[empty]) != 0:
+                    raise AssertionError("flash_decode: kv_len = 0 must "
+                                         "give zeros")
+                worst["flash_decode"] = max(worst["flash_decode"], e)
         for name, e in worst.items():
             errs[name, dtype] = e
         log(f"  attention kernels {dtype}: flash_attention max abs err "
             f"{worst['flash_attention']:.3e} over "
             f"{len(PREFILL_SWEEP + PREFILL_FULL)} shapes, flash_decode "
             f"{worst['flash_decode']:.3e} over {len(DECODE_SWEEP) + 2} "
-            "shapes; kv_len = 0 gives zeros")
+            "shapes (qwen2.5-3b's and jamba's with 3 kv_len sets each, "
+            "split boundaries included); kv_len = 0 gives zeros")
     for name, (e, share) in tight_worst.items():
         log(f"  {name} bf16 at qwen2.5-3b widths vs the f32 plain version: "
             f"max abs err {e:.3e}, worst element at {share:.3f} of the "
@@ -666,8 +712,12 @@ def check_attention(dev):
         return call
 
     kern = cold(lambda kc, vc: dec_ops.decode_attention(q, kc, vc, kv_len))
+    passes = {}
     r = dict(
-        ms=cuda_ms(kern), device_ms=device_ms(kern, "flash_decode_kernel"),
+        ms=cuda_ms(kern),
+        device_ms=device_ms(kern, ("flash_decode_kernel",
+                                   "flash_decode_combine_kernel"),
+                            passes=passes),
         plain_ms=cuda_ms(cold(lambda kc, vc: dec_ref.decode_ref(
             q, kc, vc, kv_len))),
         library_ms=cuda_ms(cold(lambda kc, vc: sdpa(q[:, None], kc, vc,
@@ -679,12 +729,23 @@ def check_attention(dev):
     kc, vc = caches[0]
     held("sdpa yardstick decode", sdpa(q[:, None], kc, vc, mask=mask)[:, :, 0],
          dec_ref.decode_ref(q, kc, vc, kv_len), "bfloat16")
+    n_split, chunk = dec_kernel.split_plan(b, t, kvh,
+                                           dec_kernel.sm_count(dev))
+    live = sum(-(-n // chunk) for n in PROMPT_LENS) * kvh
+    r.update(n_split=n_split, chunk=chunk, passes=passes)
+    dev_s = r["device_ms"] or float("nan")
     log(f"  flash_decode b={b} t={t} h={h} kvh={kvh} d={d} f32, kv_len "
         f"{list(PROMPT_LENS)}: {r['ms']:.4f} ms per wrapper call, "
-        f"{r['device_ms']} ms on the device, {r['plain_ms']:.4f} ms plain, "
-        f"{r['library_ms']:.4f} ms SDPA, bound {r['bound_ms']:.6f} ms "
-        f"({r['bound_by']}); {r['bytes'] / r['ms'] / 1e6:.1f} GB/s; "
-        f"{b * kvh} CTAs on 132 SMs; caches cold (four in turn)")
+        f"{r['device_ms']} ms on the device per call (both passes: "
+        + ", ".join(f"{k} {v:.6f}" for k, v in passes.items())
+        + f"), {r['plain_ms']:.4f} ms plain, {r['library_ms']:.4f} ms "
+        f"SDPA, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+        f"{100 * r['bound_ms'] / dev_s:.1f}% of it on the device; "
+        f"{r['bytes'] / dev_s / 1e6:.1f} GB/s on the device, "
+        f"{r['bytes'] / r['ms'] / 1e6:.1f} GB/s per wrapper call; n_split "
+        f"{n_split} of {chunk} rows, {b * kvh * n_split} CTAs ({live} over "
+        f"live rows) on {dec_kernel.sm_count(dev)} SMs; caches cold (four "
+        "in turn)")
     out["flash_decode"] = r
     return out
 
@@ -711,6 +772,7 @@ def check_mlstm(dev):
     """Hold mlstm_chunkwise against its plain version on the card and time
     both at xlstm-1.3b's prefill widths. Returns {label: results}."""
     import torch
+    from repro_torch.kernels.mlstm import kernel as ml_kernel
     from repro_torch.kernels.mlstm import ops as ml_ops
     from repro_torch.kernels.mlstm import ref as ml_ref
 
@@ -741,7 +803,10 @@ def check_mlstm(dev):
 
     # Timed at xlstm-1.3b's widths, f32 (the served model's q/k/v): FLOPs
     # 4*b*h*d*s(s+1)/2 (q.k and S.v over the causal triangle); bytes q, k,
-    # v and the output, and the two f32 gate rows the kernel reads.
+    # v and the output, and the two f32 gate rows the kernel reads. Two
+    # bounds: the f32 CUDA cores' (bound_ms, comparable with earlier runs)
+    # and that of the unit the kernel uses, 3xTF32 on the tensor cores
+    # (three TF32 products per f32 product at 495 TFLOP/s).
     out = {}
     for b, s, h, d in MLSTM_FULL:
         args = mlstm_inputs(b, s, h, d, "float32", dev, 90)
@@ -755,10 +820,19 @@ def check_mlstm(dev):
             bytes=4 * (4 * b * s * h * d + 2 * b * s * h),
             ops=4 * b * h * d * s * (s + 1) / 2)
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
+        r["tc_bound_ms"] = max(r["bytes"] / HBM_BYTES_PER_S,
+                               3 * r["ops"] / TF32_FLOPS) * 1e3
+        n_ranks, dv = ml_kernel.cluster_plan(d)
+        dev_s = r["device_ms"] or float("nan")
         log(f"  mlstm_chunkwise b={b} s={s} h={h} d={d} f32: {r['ms']:.4f} "
             f"ms per wrapper call, {r['device_ms']} ms on the device, "
-            f"{r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.6f} ms "
-            f"({r['bound_by']}); {r['ops'] / r['ms'] / 1e9:.2f} TFLOP/s")
+            f"{r['plain_ms']:.4f} ms plain; cluster of {n_ranks} CTAs x "
+            f"{dv} columns; bound {r['bound_ms']:.6f} ms ({r['bound_by']}, "
+            f"f32 cores, {100 * r['bound_ms'] / dev_s:.1f}% of it), "
+            f"3xTF32 tensor-core bound {r['tc_bound_ms']:.6f} ms "
+            f"({100 * r['tc_bound_ms'] / dev_s:.1f}% of it); "
+            f"{r['ops'] / dev_s / 1e9:.2f} TFLOP/s on the device, "
+            f"{r['ops'] / r['ms'] / 1e9:.2f} per wrapper call")
         out[f"s={s}"] = r
     out["mlstm_chunkwise"] = dict(out["s=2048"],
                                   max_abs_err=worst["float32"])
@@ -979,9 +1053,11 @@ def identical(name, run_k, run_p):
         f"{len(run_k.records)} slots")
 
 
-def profile_slot(fn, label):
+def profile_slot(fn, label, watch=()):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
-    the device busy share: summed kernel time over the host wall time."""
+    the device busy share: summed kernel time over the host wall time.
+    Each name in ``watch`` also gets its summed time and share of the
+    device time (all kernels whose name holds it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1004,6 +1080,10 @@ def profile_slot(fn, label):
         "kernels by device time:")
     for ms, count, key in rows[:6]:
         log(f"    {ms:10.3f} ms  {count:6d} launches  {key[:70]}")
+    for name in watch:
+        ms = sum(r[0] for r in rows if name in r[2])
+        log(f"    {name} (all passes): {ms:.3f} ms, "
+            f"{100 * ms / max(busy, 1e-9):.1f}% of the device time")
     return wall, busy
 
 
@@ -1178,6 +1258,16 @@ def routing_flips(records, n_moe):
     return flips, total, gap
 
 
+def one_ulp_nudge(params, dev):
+    """``params`` with the embedding table times (1 + 2^-23 u), u = +-1 from
+    a fixed seed: a one-ulp change of the model's input."""
+    import torch
+    table = params["embed"]["table"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sign = torch.randint(0, 2, table.shape, generator=gen, device=dev) * 2 - 1
+    return dict(params, embed={"table": table * (1 + sign * 2.0 ** -23)})
+
+
 def xlstm_rounding(cfg, params, prompt, dev):
     """The xLSTM's sensitivity to rounding, on one lane: the prefill of
     ``prompt`` and 8 decode steps fed the prompt's first 8 tokens. (1) The
@@ -1208,12 +1298,9 @@ def xlstm_rounding(cfg, params, prompt, dev):
     err_one = float((run(models.build(one), one_params)
                      - run(models.build(one, impl="torch"), one_params))
                     .abs().max())
-    table = params["embed"]["table"]
-    gen = torch.Generator(device=dev).manual_seed(5)
-    sign = torch.randint(0, 2, table.shape, generator=gen, device=dev) * 2 - 1
-    nudged = dict(params, embed={"table": table * (1 + sign * 2.0 ** -23)})
     plain = models.build(cfg, impl="torch")
-    sens = float((run(plain, nudged) - run(plain, params)).abs().max())
+    sens = float((run(plain, one_ulp_nudge(params, dev))
+                  - run(plain, params)).abs().max())
     log(f"  rounding: kernel vs plain over one period ({one.n_layers} "
         f"layers), prefill of {len(prompt)} tokens and 8 decode steps: max "
         f"abs logit err {err_one:.3e} (bar {ONE_PERIOD_ATOL}); the plain "
@@ -1355,7 +1442,8 @@ def serve_lm(dev, name, cut=None):
     need_exact(f"{name} (b) admits and ticks", counts_b, len(prompts),
                N_TICKS)
     served = np.array([lane.out for lane in eng_b.lanes])
-    wall, busy = profile_slot(eng_b.decode_tick, "one decode tick (b)")
+    wall, busy = profile_slot(eng_b.decode_tick, "one decode tick (b)",
+                              watch=[k for k, n in per_tick.items() if n])
     ms_tick = 1e3 * float(np.mean(tick_s))
     out = dict(
         counts_a=counts_a, counts_b=counts_b, sec_a=sec_a,
@@ -1376,10 +1464,18 @@ def serve_lm(dev, name, cut=None):
         out.update(jamba_shares(eng_b, prompts[-1]))
     del eng_b
 
-    # Teacher-forced: the kernel engine's tokens feed both engines.
+    # Teacher-forced: the kernel engine's tokens feed both engines. For the
+    # xLSTM a third engine, the plain one with a one-ulp change of its input
+    # embedding, is fed them too: its agreement with the plain engine is
+    # what rounding alone leaves of the argmax bar (a report, not a bar).
     eng_k = Engine(model, params, n_lanes=8, max_len=4096, device=dev)
     eng_p = Engine(models.build(cfg, impl="torch"), params, n_lanes=8,
                    max_len=4096, device=dev)
+    eng_n = (Engine(models.build(cfg, impl="torch"),
+                    one_ulp_nudge(params, dev), n_lanes=8, max_len=4096,
+                    device=dev)
+             if "slstm" in mixers else None)
+    errs_n, same_n = [], 0
     errs, same, total = [], 0, 0
     last = np.zeros(8, np.int32)
     routes = []
@@ -1391,6 +1487,10 @@ def serve_lm(dev, name, cut=None):
         last[lane] = int(torch.argmax(lk))
         same += int(last[lane] == int(torch.argmax(lp)))
         total += 1
+        if eng_n is not None:
+            ln = eng_n.prefill_lane(prompt, lane)
+            errs_n.append(float((ln - lp).abs().max()))
+            same_n += int(int(torch.argmax(ln)) == int(torch.argmax(lp)))
     forced = [last.copy()]
     for _ in range(N_TICKS):
         lk = eng_k.decode_logits(last)
@@ -1401,6 +1501,10 @@ def serve_lm(dev, name, cut=None):
         nk, npl = torch.argmax(lk, -1), torch.argmax(lp, -1)
         same += int((nk == npl).sum())
         total += nk.numel()
+        if eng_n is not None:
+            ln = eng_n.decode_logits(last)
+            errs_n.append(float((ln - lp).abs().max()))
+            same_n += int((torch.argmax(ln, -1) == npl).sum())
         last = nk.cpu().numpy().astype(np.int32)
         forced.append(last.copy())
     undo()
@@ -1413,6 +1517,12 @@ def serve_lm(dev, name, cut=None):
         f"{same}/{total} = {share:.4f} (bar {ARGMAX_SHARE}); the kernel "
         f"engine's greedy tokens repeat run (b)'s on {replayed}/"
         f"{8 * (N_TICKS + 1)}")
+    if eng_n is not None:
+        out.update(nudged_argmax_share=same_n / total,
+                   nudged_max_logit_err=max(errs_n))
+        log(f"  teacher-forced plain engine vs itself with a one-ulp change "
+            f"of its input embedding: max abs logit err {max(errs_n):.3e}; "
+            f"identical argmax on {same_n}/{total} = {same_n / total:.4f}")
     if n_moe:
         flips, routed, gap = routing_flips(routes, n_moe)
         out.update(routing_flips=flips, routed=routed)
@@ -1425,7 +1535,7 @@ def serve_lm(dev, name, cut=None):
                              "the bar against the plain run")
     out.update(max_logit_err=max(errs), argmax_share=share)
     if "slstm" in mixers:
-        del eng_k, eng_p
+        del eng_k, eng_p, eng_n
         out.update(xlstm_rounding(cfg, params, prompts[0], dev))
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"  peak device memory {out['peak_gb']:.2f} GB")
@@ -1742,7 +1852,9 @@ def main() -> int:
             launches=served["counts_a"][name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"],
+            **{k: r[k] for k in ("tc_bound_ms", "n_split", "passes")
+               if k in r}))
     log("  timed shapes: config_argmin and waterfill_pair at N=10000 S=32 "
         "(loop effort), waterfill at N=30 S=3 (bandwidth, loop effort), "
         "waterfill_tiled at N=100000 S=1 G=8 (bandwidth, loop effort), "

@@ -2,8 +2,11 @@
 
 The library is built at the first launch (``kernels._build``), never when
 this module is imported. ``flash_decode`` takes CUDA tensors whose device,
-dtype, shape and contiguity the wrapper in ``ops`` has checked, launches
-on PyTorch's current stream, and raises if the launch returns an error.
+dtype, shape, contiguity and alignment the wrapper in ``ops`` has checked,
+launches the split and the combine pass on PyTorch's current stream, and
+raises if a launch returns an error. ``split_plan`` is the host's choice of
+the split, shared with the plain split version (``ref.decode_split_ref``)
+and the tests.
 """
 from __future__ import annotations
 
@@ -16,16 +19,28 @@ from .. import _build
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_decode.cu",)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_SMEM_BYTES = 227 * 1024        # a block's shared memory on the H100
-MIN_BLOCK_K = 16                   # the smallest cache tile the kernel takes
+TILE = 32             # cache rows per stage of the split pass (``TILE``)
+CTAS_PER_SM = 4       # the split aims at this many CTAs per SM
+H100_SMS = 132
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def smem_bytes(g: int, d: int, block_k: int = MIN_BLOCK_K) -> int:
-    """Shared memory of one CTA (``smem_bytes`` in the source)."""
-    return 4 * (g * d + block_k * (d + 1) + block_k * d + g * block_k +
-                g * d + 3 * g)
+def split_plan(b: int, t: int, kvh: int, n_sm: int = H100_SMS
+               ) -> tuple[int, int]:
+    """(n_split, chunk) for a cache of ``t`` rows, ``b`` sequences and
+    ``kvh`` KV heads on ``n_sm`` SMs.
+
+    Split i of a (sequence, KV head) owns rows [i * chunk, (i + 1) *
+    chunk); chunk is a multiple of ``TILE``. The grid b * kvh * n_split
+    aims at ``CTAS_PER_SM`` CTAs per SM, so it covers the SMs at least
+    twice wherever the cache has that many tiles. The plan reads no
+    ``kv_len``: the launch shape is fixed for a given cache, and splits
+    beyond a sequence's length return at once."""
+    want = -(-CTAS_PER_SM * n_sm // max(b * kvh, 1))
+    tiles = max(-(-t // TILE), 1)
+    chunk = max(tiles // want, 1) * TILE
+    return max(-(-t // chunk), 1), chunk
 
 
 class _Library:
@@ -37,9 +52,9 @@ class _Library:
         if cls.lib is None:
             lib = ctypes.CDLL(str(_build.build(
                 "flash_decode", SOURCES, _build.ATTENTION_FLAGS)))
-            # q, k_cache, v_cache, kv_len, o, dtype, b, t, h, kvh, d,
-            # scale, stream
-            lib.flash_decode_fwd.argtypes = ([_P] * 5 + [_I] * 6 +
+            # q, k_cache, v_cache, kv_len, o, ws, dtype, b, t, h, kvh, d,
+            # n_split, chunk, scale, stream
+            lib.flash_decode_fwd.argtypes = ([_P] * 6 + [_I] * 8 +
                                              [_F, _P])
             lib.flash_decode_fwd.restype = ctypes.c_int
             lib.decode_error_string.argtypes = [ctypes.c_int]
@@ -53,15 +68,32 @@ def load() -> ctypes.CDLL:
     return _Library.get()
 
 
+_SMS: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of ``device``, read once per device."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
 def flash_decode(q, k_cache, v_cache, kv_len, out, *, scale: float) -> None:
     lib = _Library.get()
     b, h, d = q.shape
     t, kvh = k_cache.shape[1], k_cache.shape[2]
+    n_split, chunk = split_plan(b, t, kvh, sm_count(q.device))
+    # The split pass's partials: acc[d], then the running max m and the
+    # denominator l of each (sequence, q head, split).
+    ws = torch.empty((b, h, n_split, d + 2), dtype=torch.float32,
+                     device=q.device)
     stream = _P(torch.cuda.current_stream().cuda_stream)
     err = lib.flash_decode_fwd(
         _P(q.data_ptr()), _P(k_cache.data_ptr()), _P(v_cache.data_ptr()),
-        _P(kv_len.data_ptr()), _P(out.data_ptr()), _I(DTYPES[q.dtype]),
-        _I(b), _I(t), _I(h), _I(kvh), _I(d), _F(scale), stream)
+        _P(kv_len.data_ptr()), _P(out.data_ptr()), _P(ws.data_ptr()),
+        _I(DTYPES[q.dtype]), _I(b), _I(t), _I(h), _I(kvh), _I(d),
+        _I(n_split), _I(chunk), _F(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError {err} "
                            f"({lib.decode_error_string(err).decode()})")

@@ -4,8 +4,9 @@
 for tensors on the CPU and launches the CUDA kernel for tensors on a CUDA
 device, after checking device, dtype, shape and contiguity; there is no
 fallback from the kernel to the plain version. ``impl`` is read as in
-``kernels.attention_common``. ``launches`` counts kernel launches (the plain
-version never counts).
+``kernels.attention_common``. ``launches`` counts wrapper calls that
+launch the kernel, one per call although the kernel runs as two passes
+(split, then combine); the plain version never counts.
 """
 from __future__ import annotations
 
@@ -45,10 +46,10 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
     if kv_len.dtype != torch.int32 or not kv_len.is_contiguous():
         raise TypeError(f"decode_attention: kv_len must be contiguous "
                         f"int32, got {kv_len.dtype}")
-    if kernel.smem_bytes(h // kvh, d) > kernel.MAX_SMEM_BYTES:
-        raise ValueError(f"decode_attention: a group of {h // kvh} q heads "
-                         f"of dim {d} needs more shared memory than a "
-                         "block has")
+    for key, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {key} is not 16-byte "
+                             "aligned (the kernel copies 16-byte units)")
     out = torch.empty_like(q)
     kernel.flash_decode(q, k_cache, v_cache, kv_len, out, scale=d ** -0.5)
     launches["flash_decode"] += 1

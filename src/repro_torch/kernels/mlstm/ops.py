@@ -49,6 +49,10 @@ def mlstm(q, k, v, i_gate, f_gate, *, impl: str = "auto") -> torch.Tensor:
         raise ValueError(f"mlstm: b * h = {b * h} exceeds the grid's 65535")
     check_operands("mlstm", {"q": q, "k": k, "v": v, "i_gate": i_gate,
                              "f_gate": f_gate})
+    for key, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"mlstm: {key} is not 16-byte aligned (the "
+                             "kernel copies 16-byte units)")
     cum_f = torch.cumsum(torch.nn.functional.logsigmoid(f_gate.float()),
                          dim=1)
     out = torch.empty_like(q)

@@ -24,12 +24,23 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .kernel import slice_width
+
 NEG_INF = -1e30
 
 
 def mlstm_parallel_ref(q, k, v, i_gate, f_gate):
     """q, k, v: [b, s, h, d]; i_gate, f_gate: [b, s, h] pre-activations.
     Returns h: [b, s, h, d] in q's dtype."""
+    return mlstm_cluster_ref(q, k, v, i_gate, f_gate, 1)
+
+
+def mlstm_cluster_ref(q, k, v, i_gate, f_gate, n_ranks):
+    """``mlstm_parallel_ref`` with the CUDA kernel's cluster schedule of the
+    scores: the q.k products are summed over ``n_ranks`` slices of the d
+    columns (``kernel.slice_width`` each), in rank order 0, 1, ..., R - 1,
+    then scaled, as every CTA of a cluster adds the partials it reads.
+    ``n_ranks = 1`` is ``mlstm_parallel_ref``."""
     s, d = q.shape[1], q.shape[3]
     logf = F.logsigmoid(f_gate.float())                       # [b, s, h]
     logi = i_gate.float()
@@ -41,8 +52,14 @@ def mlstm_parallel_ref(q, k, v, i_gate, f_gate):
     dtil = torch.where(causal[None, :, :, None], dtil, neg)   # [b, t, s, h]
     m = torch.amax(dtil, dim=2)                               # [b, t, h]
     dec = torch.exp(dtil - m[:, :, None, :])
-    qk = torch.einsum("bthd,bshd->btsh", q.float(), k.float()) * (d ** -0.5)
-    S = qk * dec
+    dv = slice_width(d, n_ranks)
+    qk = None
+    for r in range(n_ranks):
+        cols = slice(r * dv, min((r + 1) * dv, d))
+        part = torch.einsum("bthd,bshd->btsh", q[..., cols].float(),
+                            k[..., cols].float())
+        qk = part if qk is None else qk + part
+    S = (qk * (d ** -0.5)) * dec
     den = torch.sum(S, dim=2)                                 # [b, t, h]
     den = torch.maximum(torch.abs(den), torch.exp(-m))
     out = torch.einsum("btsh,bshd->bthd", S, v.float())

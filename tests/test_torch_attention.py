@@ -215,3 +215,77 @@ def test_attention_sources_and_build_flags(tmp_path):
         assert "-1e30f" in src
         assert not any(w in src for w in ("__expf", "use_fast_math",
                                           "scaled_dot_product"))
+
+
+# ---------------------------------------------------------------------------
+# flash decode's split schedule (the CUDA kernel's split and combine passes)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.decode_attention import kernel as dec_kernel  # noqa: E402,E501
+
+
+@pytest.mark.parametrize("n_split,chunk", [(4, 64), (8, 32), (3, 96),
+                                           (1, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_split_matches_reference_and_pallas(n_split, chunk, dtype):
+    """Per-split partials combined as the kernel does, against decode_ref
+    and the Pallas kernel in interpret mode. Lanes: kv_len on a split
+    boundary and beside it (so later splits are wholly beyond kv_len),
+    1, t, and 0 (zeros, as the TPU kernel gives)."""
+    b, t, h, kvh, d = 8, 256, 8, 2, 32
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(
+        [(b, h, d), (b, t, kvh, d), (b, t, kvh, d)], dtype, seed=7)
+    lens = np.array([chunk, chunk - 1, chunk + 1, 2 * chunk - 3 if
+                     n_split > 1 else 200, 1, t, t - 1, 0], np.int32)
+    out = dec_ref.decode_split_ref(qt, kt, vt, torch.from_numpy(lens),
+                                   n_split, chunk)
+    assert out.dtype == DTYPES[dtype][1]
+    assert not out[-1].float().any()
+    pallas = j_flash_decode(qj, kj, vj, jnp.asarray(lens), block_k=128,
+                            interpret=True)
+    _assert_close(out, pallas, tol(dtype))
+    want = j_decode_ref(qj, kj, vj, jnp.asarray(lens))
+    _assert_close(out[:-1], np.asarray(want, np.float32)[:-1], tol(dtype))
+    _assert_close(out, dec_ref.decode_ref(qt, kt, vt, torch.from_numpy(lens)),
+                  tol(dtype))
+
+
+def test_combine_partials_is_the_softmax_merge():
+    """Random partials: the combination equals softmax weights rebuilt from
+    the raw maxima; empty partials carry no weight; all empty gives 0."""
+    rng = np.random.default_rng(8)
+    m = torch.from_numpy(rng.normal(size=(3, 5)).astype(np.float32))
+    l = torch.from_numpy(rng.uniform(1, 4, (3, 5)).astype(np.float32))
+    acc = torch.from_numpy(rng.normal(size=(3, 5, 16)).astype(np.float32))
+    m[1, 2], l[1, 2], acc[1, 2] = -1e30, 0.0, float("nan")
+    m[2], l[2] = -1e30, 0.0
+    got = dec_ref.combine_partials(m, l, acc)
+    m64, l64, a64 = m.double(), l.double(), acc.double()
+    for row in (0, 1):
+        live = l64[row] > 0
+        w = torch.exp(m64[row][live] - m64[row][live].max())
+        want = ((a64[row][live] * w[:, None]).sum(0)
+                / (l64[row][live] * w).sum())
+        np.testing.assert_allclose(got[row].numpy(), want.numpy(), rtol=1e-6)
+    assert torch.equal(got[2], torch.zeros(16))
+
+
+@pytest.mark.parametrize("b,t,kvh", [(8, 4096, 2), (8, 4096, 8), (1, 6, 2),
+                                     (3, 640, 8), (1, 384, 1), (2, 512, 2),
+                                     (64, 4096, 8), (2, 0, 1), (1, 33, 4)])
+@pytest.mark.parametrize("n_sm", [132, 114])
+def test_decode_split_plan(b, t, kvh, n_sm):
+    """The host's split: a multiple of the tile, covering the cache with no
+    empty split, and enough CTAs to cover the SMs twice wherever the cache
+    has that many tiles. It reads no kv_len: its arguments are the cache's
+    shape and the SM count alone."""
+    import inspect
+    assert list(inspect.signature(dec_kernel.split_plan).parameters) == [
+        "b", "t", "kvh", "n_sm"]
+    n_split, chunk = dec_kernel.split_plan(b, t, kvh, n_sm)
+    tiles = -(-t // dec_kernel.TILE)
+    assert chunk % dec_kernel.TILE == 0 and n_split >= 1
+    assert (n_split - 1) * chunk < max(t, 1) <= n_split * chunk
+    assert b * kvh * n_split >= min(2 * n_sm, b * kvh * max(tiles, 1))
+    assert (b, t, kvh, n_sm) != (8, 4096, 2, 132) or (n_split, chunk) == (
+        43, 96)

@@ -14,6 +14,7 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
+import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
@@ -95,6 +96,42 @@ def test_engine_admit_decode_preempt_match_reference():
     assert _tokens(done_j) == _tokens(done_t)
     assert len(done_t) == 2 and et.utilization == 0.0
     assert et._steps == ej._steps
+
+
+def test_engines_serve_padded_vocabulary_ids():
+    """A known fault of the reference, followed by the port (ROADMAP queue
+    3): both Engines take the argmax over all padded_vocab logit columns,
+    so an id at or above vocab, which is no token, can be served. Reduced
+    qwen2.5-3b with vocab 200 (padded to 256) and unembedding column 250
+    planted as 10x the column of the token the unplanted model serves
+    first: both engines then serve id 250, and the same tokens."""
+    import dataclasses
+    cfg_j = dataclasses.replace(j_configs.get("qwen2.5-3b").reduced(),
+                                vocab=200)
+    cfg_t = dataclasses.replace(t_configs.get("qwen2.5-3b").reduced(),
+                                vocab=200)
+    assert cfg_j.padded_vocab == cfg_t.padded_vocab == 256
+    mj, mt = j_build(cfg_j), t_models.build(cfg_t)
+    tree = jax.tree.map(np.asarray, j_init(mj.template(),
+                                           jax.random.PRNGKey(3)))
+    prompt = np.arange(5, 12, dtype=np.int32)
+    plain = TEngine(mt, params_from_numpy(tree, "cpu"), n_lanes=2,
+                    max_len=32, decode_tokens=3, device="cpu")
+    first = int(torch.argmax(plain.prefill_lane(prompt, 0)))
+    assert first < cfg_t.vocab
+    w = np.array(tree["unembed"]["w"])
+    w[:, 250] = 10.0 * w[:, first]
+    tree["unembed"]["w"] = w
+    ej = JEngine(mj, jax.tree.map(jnp.asarray, tree), n_lanes=2,
+                 max_len=32, decode_tokens=3)
+    et = TEngine(mt, params_from_numpy(tree, "cpu"), n_lanes=2, max_len=32,
+                 decode_tokens=3, device="cpu")
+    for eng, frame in ((ej, JFrame(0, 0.0, 0.0, seq=0)),
+                       (et, TFrame(0, 0.0, 0.0, seq=0))):
+        assert eng.admit(frame, prompt)
+        eng.decode_tick()
+    assert ej.lanes[0].out[0] == et.lanes[0].out[0] == 250
+    assert list(ej.lanes[0].out) == list(et.lanes[0].out)
 
 
 def test_engine_batched_decode_matches_sequential():

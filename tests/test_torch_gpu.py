@@ -376,6 +376,35 @@ def test_gpu_flash_decode_matches_plain(cuda, shape, dtype):
     _close(out, dec_ref.decode_ref(q, kc, vc, kv_len), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 4096, 16, 2, 128),
+                                   (8, 4096, 64, 8, 128),
+                                   (3, 640, 16, 8, 64)])
+def test_gpu_flash_decode_split_boundaries(cuda, shape, dtype):
+    """Lanes whose kv_len falls on, just below and just above a boundary of
+    the split the host plans for this cache, one row, the whole cache and
+    an empty lane; held against decode_ref and against the plain version
+    of the same split (decode_split_ref)."""
+    b, t, h, kvh, d = shape
+    n_split, chunk = dec_kernel.split_plan(b, t, kvh,
+                                           dec_kernel.sm_count(cuda))
+    assert n_split > 1 and chunk % dec_kernel.TILE == 0
+    lens = [chunk, chunk - 1, chunk + 1, 2 * chunk, 1, t, t - 1, 0][:b]
+    q = _normal((b, h, d), dtype, cuda, 20)
+    kc = _normal((b, t, kvh, d), dtype, cuda, 21)
+    vc = _normal((b, t, kvh, d), dtype, cuda, 22)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    dec_ops.reset_launches()
+    out = dec_ops.decode_attention(q, kc, vc, kv_len)
+    torch.cuda.synchronize()
+    assert dec_ops.launches["flash_decode"] == 1
+    _close(out, dec_ref.decode_ref(q, kc, vc, kv_len), dtype)
+    _close(out, dec_ref.decode_split_ref(q, kc, vc, kv_len, n_split, chunk),
+           dtype)
+    if 0 in lens:
+        assert torch.count_nonzero(out[lens.index(0)]) == 0
+
+
 def test_gpu_flash_decode_empty_cache_gives_zeros(cuda):
     q = _normal((3, 16, 128), torch.float32, cuda, 9)
     kc = _normal((3, 64, 2, 128), torch.float32, cuda, 10)
@@ -503,6 +532,72 @@ def test_gpu_mlstm_chunkwise_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(out.float(),
                                ml_ref.mlstm_parallel_ref(*args).float(),
                                atol=atol, rtol=rtol)
+
+
+# (d, cluster size) as kernel.cluster_plan gives them: 1 (d = 32, 256), 2
+# (512), 4 (1024) and 8 (2048; 4096, the widest slice).
+MLSTM_CLUSTERS = [(32, 1), (256, 1), (512, 2), (1024, 4), (2048, 8),
+                  (4096, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,n_ranks", MLSTM_CLUSTERS)
+def test_gpu_mlstm_cluster_sizes(cuda, d, n_ranks, dtype):
+    args = _mlstm_inputs(1, 200, 2, d, dtype, cuda, 23)
+    assert ml_kernel.cluster_plan(d)[0] == n_ranks
+    out = ml_ops.mlstm(*args)
+    torch.cuda.synchronize()
+    atol, rtol = MLSTM_TOL[dtype]
+    for want in (ml_ref.mlstm_cluster_ref(*args, n_ranks),
+                 ml_ref.mlstm_parallel_ref(*args)):
+        torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1024, 2048, 4096])
+def test_gpu_mlstm_cluster_shares_one_denominator(cuda, d, dtype):
+    """With v = 1 every column of an output row is sum S / den: bitwise one
+    value across all the slices of a cluster only if every CTA holds the
+    same scores, max and denominator."""
+    assert ml_kernel.cluster_plan(d)[0] > 1
+    q, k, _, ig, fg = _mlstm_inputs(1, 130, 2, d, dtype, cuda, 24)
+    out = ml_ops.mlstm(q, k, torch.ones_like(q), ig, fg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, out[..., :1].expand_as(out))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 1024])
+def test_gpu_mlstm_clamped_rows_within_the_bar(cuda, d, dtype):
+    """Tiny q makes |sum S| fall below exp(-m) on most rows, where the
+    denominator is clamped: the output stays finite and inside the bar.
+    v is scaled up by as much as q is scaled down, so the outputs are O(1)
+    (mean |want| ~1.8) and an output of zeros would fall outside the bar."""
+    q, k, v, ig, fg = _mlstm_inputs(2, 150, 2, d, torch.float32, cuda, 25)
+    q, v = q * 1e-3, v * 1e3
+    logf = torch.nn.functional.logsigmoid(fg)
+    cum = torch.cumsum(logf, dim=1)
+    dtil = cum[:, :, None] - cum[:, None] + ig[:, None]
+    causal = torch.ones(150, 150, dtype=torch.bool, device=cuda).tril()
+    dtil = torch.where(causal[None, :, :, None], dtil,
+                       torch.tensor(-1e30, device=cuda))
+    m = dtil.amax(2)
+    S = (torch.einsum("bthd,bshd->btsh", q, k) * d ** -0.5
+         * torch.exp(dtil - m[:, :, None]))
+    clamped = S.sum(2).abs() < torch.exp(-m)
+    assert clamped.float().mean() > 0.5
+    args = [x.to(dtype) for x in (q, k, v, ig, fg)]
+    out = ml_ops.mlstm(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    atol, rtol = MLSTM_TOL[dtype]
+    want = ml_ref.mlstm_parallel_ref(*args).float()
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(torch.zeros_like(want), want, atol=atol,
+                                   rtol=rtol)
+    torch.testing.assert_close(out.float(), want, atol=atol, rtol=rtol)
 
 
 def test_gpu_mlstm_wrapper_refuses_bad_inputs(cuda, monkeypatch):

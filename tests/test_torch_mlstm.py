@@ -180,3 +180,48 @@ def test_wrapper_policy_on_the_cpu():
         with pytest.raises(ValueError, match="head dim"):
             ops.check_head_dim(d)
     ops.check_head_dim(1024)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's cluster schedule (scores summed over R slices of d)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.mlstm import kernel as t_kernel  # noqa: E402
+
+
+@pytest.mark.parametrize("n_ranks", [1, 2, 4, 8])
+def test_cluster_scores_match_reference_and_interpret_kernel(n_ranks):
+    """The q.k products summed over R column slices in rank order (what
+    every CTA of a cluster adds) against the one-slice plain version, the
+    JAX package's mlstm_parallel_ref and its Pallas kernel in interpret
+    mode; R = 1 is the plain version bitwise."""
+    b, s, h, d = 1, 96, 2, 128
+    xs = _inputs(b, s, h, d, seed=31 + n_ranks)
+    got = ref.mlstm_cluster_ref(*_t(xs), n_ranks).numpy()
+    plain = ref.mlstm_parallel_ref(*_t(xs)).numpy()
+    if n_ranks == 1:
+        np.testing.assert_array_equal(got, plain)
+    np.testing.assert_allclose(got, plain, **PLAIN_TOL)
+    np.testing.assert_allclose(got, np.asarray(j_ref.mlstm_parallel_ref(
+        *_j(xs))), **PLAIN_TOL)
+    pallas = j_kernel.mlstm_chunkwise(*_j(xs), block_q=32, block_k=32,
+                                      interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), **KERNEL_TOL)
+
+
+def test_cluster_plan_covers_every_head_dim():
+    """For every head dim the wrapper takes: R <= 8 slices of DV columns
+    (a multiple of 16, at most 512) cover d with no empty slice; one CTA up
+    to d = 256, 4 x 256 at xlstm-1.3b's d = 1024, 8 x 512 at d = 4096."""
+    for d in range(16, 4097, 16):
+        n_ranks, dv = t_kernel.cluster_plan(d)
+        assert 1 <= n_ranks <= t_kernel.MAX_CLUSTER
+        assert dv % 16 == 0 and dv <= t_kernel.MAX_DV
+        assert n_ranks * dv >= d > (n_ranks - 1) * dv
+        assert n_ranks == 1 or d > t_kernel.SLICE
+    assert t_kernel.cluster_plan(256) == (1, 256)
+    assert t_kernel.cluster_plan(1024) == (4, 256)
+    assert t_kernel.cluster_plan(2048) == (8, 256)
+    assert t_kernel.cluster_plan(4096) == (8, 512)
+    assert [t_kernel.slice_width(256, r) for r in (1, 2, 4, 8)] == [
+        256, 128, 64, 32]

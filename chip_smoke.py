@@ -25,6 +25,10 @@ Phases, each of which raises on failure (exit code non-zero):
                 summed),
                 each timed beside its plain version and one
                 scaled_dot_product_attention call (library_ms);
+                flash_attention's tilings as the library reports them, its
+                registers and spills from the build's ptxas report, and its
+                device time against two bounds, the f32 CUDA cores' and
+                3xTF32 on the tensor cores';
                 mlstm_chunkwise at tests/test_kernels.py's sweep shapes in
                 f32 and bf16 (2e-3 + 1e-3 * |want| / 5e-2) and at
                 xlstm-1.3b's widths (h=4, d=1024, s = 6, 2048, 3072) in
@@ -34,7 +38,10 @@ Phases, each of which raises on failure (exit code non-zero):
                 selective_scan at tests/test_kernels.py's sweep shapes and
                 at jamba's widths (b=1, inner 16384, n 16, s = 6, 2048,
                 3072), with and without h0, in f32 (y and h_last within
-                1e-4 + 1e-4 * |want|) and bf16 (y and h_last bitwise the
+                1e-4 + 1e-4 * |want|, h_last bitwise the plain version's
+                and y bitwise the plain version of the kernel's order,
+                selective_scan_lanes_ref, at the lanes the library reports,
+                printed with its registers) and bf16 (y and h_last bitwise the
                 bf16 rounding of the kernel's own f32 run on the same
                 inputs, y within one bf16 rounding plus the f32 atol, 2^-8
                 * |want| + 1e-4, of the f32 plain version), timed beside
@@ -64,7 +71,9 @@ Phases, each of which raises on failure (exit code non-zero):
                 impl="torch": logits within atol 2e-3 at every step and the
                 share of identical argmax tokens >= 0.99. Both attention
                 kernels must launch in (a) and in (b), 36 times per admit
-                (flash_attention) and per tick (flash_decode);
+                (flash_attention) and per tick (flash_decode). Also
+                measured: the share of a 3,072-token admit spent in the
+                36 flash_attention calls;
   5. xLSTM serving - xlstm-1.3b at full width and depth (48 layers: 6
                 periods of 7 mLSTM and 1 sLSTM, f32 parameters from a
                 seeded torch.Generator, 7.94 GB; qwen2.5-3b's freed first),
@@ -207,6 +216,23 @@ def device_ms(fn, kernels, reps: int = 20, passes=None):
     if passes is not None:
         passes.update(found)
     return sum(found.values()) if len(found) == len(names) else None
+
+
+def build_usage(name, kernel_mod, flags, entry, labels):
+    """Registers and spill bytes of each instantiation of ``entry`` in the
+    built library's ptxas report, one string per instantiation, labelled
+    by every value of ``labels`` ({substring of the mangled name: label})
+    whose key its name holds."""
+    from repro_torch.kernels import _build
+    log_path = _build.build(name, kernel_mod.SOURCES, flags).with_suffix(
+        ".log")
+    out = []
+    for mangled, u in _build.ptxas_usage(log_path, entry).items():
+        label = " ".join(v for k, v in labels.items() if k in mangled)
+        out.append(f"{label}: {u.get('registers')} registers, "
+                   f"{u.get('spill_stores', 0)} B spill stores, "
+                   f"{u.get('spill_loads', 0)} B spill loads")
+    return out
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -558,9 +584,11 @@ def check_attention(dev):
     on the card and time both at the main path's shapes. Returns
     {kernel: results}."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
@@ -663,7 +691,19 @@ def check_attention(dev):
 
     out = {}
     # flash_attention at qwen2.5-3b's prefill widths, f32 (the engine's
-    # parameter dtype): FLOPs 2*b*h*s*t*d*2, halved when causal.
+    # parameter dtype): FLOPs 2*b*h*s*t*d*2, halved when causal. Two
+    # bounds: the f32 CUDA cores' (bound_ms, comparable with earlier runs)
+    # and that of the unit the kernel uses, 3xTF32 on the tensor cores.
+    tilings = {d: fa_kernel.tiling(d) for d in (128, 256)}
+    log("  flash_attention tilings: " + "; ".join(
+        f"d <= {d}: BQ {t['bq']} ({t['warps']} warps), BK {t['bk']}, "
+        f"{t['slots']} ring slots, {t['ahead']} chunks in flight"
+        for d, t in tilings.items()))
+    for line in build_usage("flash_attention", fa_kernel,
+                            _build.ATTENTION_FLAGS, "flash_attention_kernel",
+                            {"IfLi": "f32", "bfloat16": "bf16",
+                             "Li128E": "d <= 128", "Li256E": "d <= 256"}):
+        log(f"  flash_attention_kernel {line}")
     for s in (6, 192, 2048):
         q = normal((1, s, 16, 128), "float32", dev, 80)
         k = normal((1, s, 2, 128), "float32", dev, 81)
@@ -677,17 +717,25 @@ def check_attention(dev):
             bytes=4 * (2 * q.numel() + 2 * k.numel()),
             ops=2 * 16 * s * s * 128 * 2 / 2)
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
+        r["tc_bound_ms"] = max(r["bytes"] / HBM_BYTES_PER_S,
+                               3 * r["ops"] / TF32_FLOPS) * 1e3
         held(f"sdpa yardstick s={s}", sdpa(q, k, v, causal=True)
              .transpose(1, 2), fa_ref.mha_ref(q, k, v), "bfloat16")
+        dev_s = r["device_ms"] or float("nan")
         log(f"  flash_attention b=1 s=t={s} h=16 kvh=2 d=128 f32: "
             f"{r['ms']:.4f} ms per wrapper call, {r['device_ms']} ms on the "
             f"device, {r['plain_ms']:.4f} ms plain, {r['library_ms']:.4f} ms "
-            f"SDPA, bound {r['bound_ms']:.6f} ms ({r['bound_by']}); "
-            f"{r['ops'] / r['ms'] / 1e9:.2f} TFLOP/s")
+            f"SDPA, bound {r['bound_ms']:.6f} ms ({r['bound_by']}, f32 "
+            f"cores, {100 * r['bound_ms'] / dev_s:.1f}% of it), 3xTF32 "
+            f"tensor-core bound {r['tc_bound_ms']:.6f} ms "
+            f"({100 * r['tc_bound_ms'] / dev_s:.1f}% of it); "
+            f"{r['ops'] / dev_s / 1e9:.2f} TFLOP/s on the device, "
+            f"{r['ops'] / r['ms'] / 1e9:.2f} per wrapper call")
         out[f"flash_attention s={s}"] = r
     out["flash_attention"] = dict(
         out["flash_attention s=2048"],
-        max_abs_err=errs["flash_attention", "float32"])
+        max_abs_err=errs["flash_attention", "float32"],
+        tiling=tilings[128])
 
     # flash_decode over 8 lanes filled to phase 4's prompt lengths, f32:
     # bytes = the cache rows read (K and V) plus q, out and kv_len. Each
@@ -878,6 +926,8 @@ def check_scan(dev):
     """Hold selective_scan against its plain version on the card and time
     both at jamba's prefill widths. Returns {label: results}."""
     import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
     from repro_torch.kernels.selective_scan import ops as ss_ops
     from repro_torch.kernels.selective_scan import ref as ss_ref
 
@@ -891,6 +941,13 @@ def check_scan(dev):
         return float(err.max()), float((err / (atol + rtol * want.abs()))
                                        .max())
 
+    plan = ss_kernel.plan()
+    log(f"  selective_scan: {plan['lanes']} lanes per channel, chunks of "
+        f"{plan['chunk']} tokens; " + "; ".join(build_usage(
+            "selective_scan", ss_kernel, _build.NVCC_FLAGS,
+            "selective_scan_kernel",
+            {"IfL": "f32", "bfloat16": "bf16", "Lb1E": "n = 16",
+             "Lb0E": "n < 16"})))
     worst = {}
     for dtype in ("float32", "bfloat16"):
         for i, shape in enumerate(SCAN_SWEEP + SCAN_FULL):
@@ -901,6 +958,16 @@ def check_scan(dev):
                 y_want, h_want = ss_ref.selective_scan_ref(
                     *(a if a is None else a.float() for a in args))
                 name = f"selective_scan {shape} {dtype} h0={h0}"
+                if dtype == "float32":
+                    if not torch.equal(h, h_want):
+                        raise AssertionError(f"{name}: h_last is not the "
+                                             "plain version's, bitwise")
+                    y_lanes, _ = ss_ref.selective_scan_lanes_ref(
+                        *args, lanes=plan["lanes"])
+                    if not torch.equal(y, y_lanes):
+                        raise AssertionError(f"{name}: y is not the lane-"
+                                             "ordered plain version's, "
+                                             "bitwise")
                 eh = within(name + " h_last", h, h_want, *SCAN_TOL)
                 ey = within(name + " y", y, y_want,
                             *(SCAN_TOL if dtype == "float32"
@@ -928,6 +995,10 @@ def check_scan(dev):
     log(f"  selective_scan bf16: y is the bf16 rounding of the kernel's f32 "
         f"run, bitwise; largest excess over one bf16 rounding alone "
         f"(2^-8 * |want| + 1e-6): {excess:.3e}")
+    log(f"  selective_scan f32: h_last bitwise the plain version's and y "
+        f"bitwise the lane-ordered plain version's (selective_scan_lanes_ref"
+        f", {plan['lanes']} lanes) in all {2 * len(SCAN_SWEEP + SCAN_FULL)} "
+        "cases")
 
     # Timed at jamba's widths, f32 (the served model's stream), no h0:
     # bytes = x, dt, B, C, A, D read once and y, h_last written once.
@@ -946,16 +1017,21 @@ def check_scan(dev):
             ops=(OPS_SCAN_STATE * b * s * inner * n
                  + OPS_SCAN_CHANNEL * b * s * inner))
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
+        dev_s = r["device_ms"] or float("nan")
+        ctas = -(-inner * plan["lanes"] // 128) * b
         log(f"  selective_scan b={b} s={s} inner={inner} n={n} f32: "
             f"{r['ms']:.4f} ms per wrapper call, {r['device_ms']} ms on the "
             f"device, {r['plain_ms']:.4f} ms plain, bound "
-            f"{r['bound_ms']:.6f} ms ({r['bound_by']}); "
-            f"{r['bytes'] / r['ms'] / 1e6:.1f} GB/s; "
-            f"{(inner + 127) // 128 * b} CTAs on 132 SMs")
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / dev_s:.1f}% of it on the device); "
+            f"{r['bytes'] / dev_s / 1e6:.1f} GB/s on the device, "
+            f"{r['bytes'] / r['ms'] / 1e6:.1f} per wrapper call; {ctas} "
+            f"CTAs of 128 threads on 132 SMs")
         out[f"s={s}"] = r
     out["selective_scan"] = dict(out["s=2048"],
                                  max_abs_err=max(worst["float32", "y"][0],
-                                                 worst["float32", "h"][0]))
+                                                 worst["float32", "h"][0]),
+                                 lanes=plan["lanes"])
     return out
 
 
@@ -1171,6 +1247,20 @@ def timed_shares(eng, prompt, parts):
     return admit_s, tick_s, {label: (in_admit.get(label, 0.0),
                                      spent.get(label, 0.0))
                              for label in parts}
+
+
+def qwen_shares(eng, prompt):
+    """One admit's flash_attention calls as a share of that admit."""
+    from repro_torch.models import attention
+    admit_s, tick_s, t = timed_shares(eng, prompt, {
+        "flash_attention": (attention, "attn_op")})
+    out = dict(attn_share=t["flash_attention"][0] / admit_s)
+    log(f"  shares (host clock, synchronised around each call): one admit "
+        f"of {len(prompt)} tokens {admit_s:.3f} s, its "
+        f"{eng.model.n_periods * len(eng.model.period)} flash_attention "
+        f"calls {t['flash_attention'][0]:.3f} s "
+        f"({100 * out['attn_share']:.1f}%); one tick {1e3 * tick_s:.2f} ms")
+    return out
 
 
 def xlstm_shares(eng, prompt):
@@ -1458,6 +1548,8 @@ def serve_lm(dev, name, cut=None):
         f"vocabulary ids among {served.size} served tokens: "
         f"{int((served >= cfg.vocab).sum())}; launches {counts_b}, as the "
         "layers ask")
+    if set(mixers) == {"attn"}:
+        out.update(qwen_shares(eng_b, prompts[-1]))
     if "slstm" in mixers:
         out.update(xlstm_shares(eng_b, prompts[-1]))
     if "mamba" in mixers:
@@ -1853,8 +1945,8 @@ def main() -> int:
             ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
-            **{k: r[k] for k in ("tc_bound_ms", "n_split", "passes")
-               if k in r}))
+            **{k: r[k] for k in ("tc_bound_ms", "n_split", "passes",
+                                 "tiling", "lanes") if k in r}))
     log("  timed shapes: config_argmin and waterfill_pair at N=10000 S=32 "
         "(loop effort), waterfill at N=30 S=3 (bandwidth, loop effort), "
         "waterfill_tiled at N=100000 S=1 G=8 (bandwidth, loop effort), "

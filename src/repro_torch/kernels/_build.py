@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -73,3 +74,28 @@ def build(name: str, sources, flags=NVCC_FLAGS) -> Path:
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)     # atomic: a concurrent build sees all or none
     return out
+
+
+def ptxas_usage(log_path, kernel: str) -> dict:
+    """Registers and spill bytes of each instantiation of ``kernel`` from a
+    build's ``.log`` (ptxas -v): {mangled entry: {"registers", "spill_stores",
+    "spill_loads"}}."""
+    usage, entry = {}, None
+    for line in Path(log_path).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1) if kernel in m.group(1) else None
+            if entry:
+                usage[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[entry].update(spill_stores=int(m.group(1)),
+                                spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[entry]["registers"] = int(m.group(1))
+    return usage

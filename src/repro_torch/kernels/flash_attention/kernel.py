@@ -5,7 +5,9 @@ The library is built at the first launch (``kernels._build``), never when
 this module is imported. ``flash_attention`` takes CUDA tensors whose
 device, dtype, shape and contiguity the wrapper in ``ops`` has checked,
 launches on PyTorch's current stream, and raises if the launch returns an
-error.
+error. ``TILINGS`` is the kernel's choice of tiles per head-dim range,
+shared with the plain version of its schedule (``ref.flash_tiled_ref``)
+and the tests; ``tiling`` reads it back from the built library.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ from .. import _build
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (largest head dim, BQ query rows, BK keys per KV tile): the kernel's two
+# tilings (``Tiling`` in csrc/flash_attention.cu).
+TILINGS = ((128, 128, 64), (256, 64, 16))
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -36,6 +41,8 @@ class _Library:
             lib.flash_attention_fwd.argtypes = ([_P] * 4 + [_I] * 7 +
                                                 [_F, _I, _I, _P])
             lib.flash_attention_fwd.restype = ctypes.c_int
+            lib.flash_attention_tiling.argtypes = [_I, _P]
+            lib.flash_attention_tiling.restype = None
             lib.attn_error_string.argtypes = [ctypes.c_int]
             lib.attn_error_string.restype = ctypes.c_char_p
             cls.lib = lib
@@ -45,6 +52,22 @@ class _Library:
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the library."""
     return _Library.get()
+
+
+def tiles(d: int) -> tuple[int, int]:
+    """(BQ, BK) of the tiling the kernel launches for head dim ``d``."""
+    for dmax, bq, bk in TILINGS:
+        if d <= dmax:
+            return bq, bk
+    raise ValueError(f"head dim {d} beyond the kernel's {TILINGS[-1][0]}")
+
+
+def tiling(d: int) -> dict:
+    """The tiling the built library launches for head dim ``d``: BQ, BK,
+    warps per CTA, ring slots and chunks in flight."""
+    out = (ctypes.c_int * 5)()
+    _Library.get().flash_attention_tiling(_I(d), out)
+    return dict(zip(("bq", "bk", "warps", "slots", "ahead"), out))
 
 
 def flash_attention(q, k, v, out, *, scale: float, causal: bool,

@@ -47,6 +47,10 @@ def attention(q, k, v, *, causal: bool = True, scale: float | None = None,
                          f"{tuple(k.shape)}")
     check_head_dim(d)
     check_operands("attention", {"q": q, "k": k, "v": v})
+    for key, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"attention: {key} is not 16-byte aligned (the "
+                             "kernel copies 16-byte units)")
     scale = scale if scale is not None else d ** -0.5
     q_offset = (t - s) if q_offset is None else int(q_offset)
     out = torch.empty_like(q)

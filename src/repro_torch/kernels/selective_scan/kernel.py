@@ -5,7 +5,10 @@ The library is built at the first launch (``kernels._build``), never when
 this module is imported. ``selective_scan`` takes CUDA tensors whose
 device, dtype, shape and contiguity the wrapper in ``ops`` has checked,
 launches on PyTorch's current stream, and raises if the launch returns an
-error.
+error. ``LANES`` is the number of lanes a channel's states are split
+over (``LANES`` in csrc/selective_scan.cu), shared with the plain version
+that sums y in the kernel's order (``ref.selective_scan_lanes_ref``);
+``plan`` reads it back from the built library.
 """
 from __future__ import annotations
 
@@ -15,10 +18,11 @@ from pathlib import Path
 import torch
 
 from .. import _build
+from .ref import MAX_STATE  # noqa: F401  (kMaxN in the source)
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "selective_scan.cu",)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_STATE = 16          # kMaxN: the states a thread holds in registers
+LANES = 2               # lanes per channel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -34,6 +38,8 @@ class _Library:
             # x, dt, A, B, C, D, h0, y, h_last, dtype, b, s, inner, n, stream
             lib.selective_scan_fwd.argtypes = [_P] * 9 + [_I] * 5 + [_P]
             lib.selective_scan_fwd.restype = ctypes.c_int
+            lib.selective_scan_plan.argtypes = [_P]
+            lib.selective_scan_plan.restype = None
             lib.selective_scan_error_string.argtypes = [ctypes.c_int]
             lib.selective_scan_error_string.restype = ctypes.c_char_p
             cls.lib = lib
@@ -43,6 +49,13 @@ class _Library:
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the library."""
     return _Library.get()
+
+
+def plan() -> dict:
+    """The built library's lanes per channel and tokens per chunk."""
+    out = (ctypes.c_int * 2)()
+    _Library.get().selective_scan_plan(out)
+    return dict(zip(("lanes", "chunk"), out))
 
 
 def selective_scan(x, dt, A, B, C, D, h0, y, h_last) -> None:

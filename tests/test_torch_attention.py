@@ -289,3 +289,115 @@ def test_decode_split_plan(b, t, kvh, n_sm):
     assert b * kvh * n_split >= min(2 * n_sm, b * kvh * max(tiles, 1))
     assert (b, t, kvh, n_sm) != (8, 4096, 2, 132) or (n_split, chunk) == (
         43, 96)
+
+
+# ---------------------------------------------------------------------------
+# flash attention's tile schedule and operand split (the CUDA kernel's
+# plain versions)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402,E501
+
+# (b, s, t, h, kvh, d, causal, q_offset): ragged s and t, s < t and s > t,
+# an explicit q_offset of 5 and of -3 (rows before any key), full attention,
+# and head dims 16, 144 and 256.
+TILED_CASES = [
+    (1, 200, 200, 4, 2, 16, True, None),
+    (2, 70, 90, 4, 2, 64, True, 5),
+    (1, 150, 133, 4, 4, 32, True, -3),
+    (1, 130, 250, 4, 1, 144, False, None),
+    (1, 96, 160, 2, 2, 256, True, None),
+]
+
+
+@pytest.mark.parametrize("case", TILED_CASES)
+@pytest.mark.parametrize("tiling", fa_kernel.TILINGS)
+def test_flash_tiled_ref_matches_reference_and_pallas(tiling, case):
+    """The kernel's schedule (query tiles longest first, KV tiles with the
+    online softmax, causal and per-warp tile skips, the -1e30 sentinel) at
+    both tilings against mha_ref and the Pallas kernel in interpret mode.
+    Rows that see no key are left out: each side averages another set of
+    masked keys there."""
+    _, bq, bk = tiling
+    b, s, t, h, kvh, d, causal, q_offset = case
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(
+        [(b, s, h, d), (b, t, kvh, d), (b, t, kvh, d)], "float32", seed=9)
+    kw = dict(causal=causal, q_offset=q_offset)
+    out = fa_ref.flash_tiled_ref(qt, kt, vt, block_q=bq, block_k=bk, **kw)
+    assert out.dtype == torch.float32 and out.shape == (b, s, h, d)
+    off = (t - s) if q_offset is None else q_offset
+    rows = np.arange(s) + off >= 0 if causal else np.ones(s, bool)
+    assert rows.sum() > s // 2
+    got = _np(out)[:, rows]
+    for want in (j_mha_ref(qj, kj, vj, **kw),
+                 j_flash(qj, kj, vj, interpret=True, **kw)):
+        np.testing.assert_allclose(got, _np(want)[:, rows], atol=2e-5,
+                                   rtol=2e-5)
+
+
+def test_flash_tiled_ref_bf16_follows_the_f32_schedule():
+    """bf16 operands: the schedule computes in f32 and rounds once."""
+    (_, qt), (_, kt), (_, vt) = _inputs(
+        [(1, 80, 4, 64), (1, 80, 2, 64), (1, 80, 2, 64)], "bfloat16",
+        seed=10)
+    out = fa_ref.flash_tiled_ref(qt, kt, vt, block_q=128, block_k=64)
+    assert out.dtype == torch.bfloat16
+    want = fa_ref.flash_tiled_ref(qt.float(), kt.float(), vt.float(),
+                                  block_q=128, block_k=64)
+    assert torch.equal(out, want.bfloat16())
+
+
+def test_split_tf32_rounds_to_nearest_tf32():
+    """hi has 13 zero low bits and hi + lo == x exactly; hi is the nearer
+    of the two TF32 neighbours of x, ties away from zero, over random
+    magnitudes and bit patterns at, beside and on a rounding tie (and a
+    carry into the exponent)."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal(4000) * 10.0 ** rng.uniform(-30, 30, 4000))
+    low = np.array([0x0000, 0x0001, 0x0fff, 0x1000, 0x1001, 0x1fff],
+                   np.uint32)
+    top = rng.integers(0, 0x7f000000, 500, dtype=np.uint32) & ~np.uint32(
+        0x1fff)
+    ties = (top[:, None] | low[None, :]).ravel()
+    ties = np.concatenate([ties, ties | np.uint32(0x80000000),
+                           np.array([0x3f7fffff, 0xbf7ff000, 0x3f801000,
+                                     0], np.uint32)])
+    x = np.concatenate([x.astype(np.float32), ties.view(np.float32)])
+    hi, lo = fa_ref.split_tf32(torch.from_numpy(x))
+    hb = hi.numpy().view(np.uint32)
+    assert not (hb & 0x1fff).any()
+    assert torch.equal(hi + lo, torch.from_numpy(x))
+    xb = x.view(np.uint32)
+    down = (xb & ~np.uint32(0x1fff)).view(np.float32).astype(np.float64)
+    up = ((xb & ~np.uint32(0x1fff)) + 0x2000).view(np.float32).astype(
+        np.float64)
+    x64, h64 = x.astype(np.float64), hi.numpy().astype(np.float64)
+    err = np.abs(x64 - h64)
+    assert (err <= np.minimum(np.abs(x64 - down), np.abs(x64 - up))).all()
+    tie = (xb & 0x1fff) == 0x1000
+    assert (np.abs(h64[tie]) > np.abs(x64[tie])).all()
+
+
+def test_kernel_tilings_match_the_cuda_source():
+    """kernel.TILINGS (what the plain schedule and the tests use) is what
+    csrc/flash_attention.cu's Tiling launches: BQ = 16 * WARPS, BK."""
+    import re
+    src = fa_kernel.SOURCES[0].read_text()
+    for dmax, bq, bk in fa_kernel.TILINGS:
+        m = re.search(rf"struct Tiling<{dmax}> \{{\n  static constexpr int "
+                      r"WARPS = (\d+), BK = (\d+), NS = (\d+), AHEAD = (\d+);",
+                      src)
+        assert m, dmax
+        warps, kb, ns, ahead = map(int, m.groups())
+        assert (16 * warps, kb) == (bq, bk)
+        assert ns in (ahead + 1, ahead + 2) and ns >= 2
+        # f32 at the largest head dim: the Q tile and the ring fit a block's
+        # 227 KB, and the SM's 228 KB (1 KB reserved per block) holds
+        # blocks of at least 8 warps in all.
+        smem = (16 * warps + ns * kb) * ((4 * dmax + 127) // 128 * 128 + 32)
+        assert smem <= 232448
+        assert warps * (233472 // (smem + 1024)) >= 8
+    assert [fa_kernel.tiles(d) for d in (16, 128, 144, 256)] == [
+        fa_kernel.TILINGS[0][1:]] * 2 + [fa_kernel.TILINGS[1][1:]] * 2
+    with pytest.raises(ValueError, match="head dim"):
+        fa_kernel.tiles(272)

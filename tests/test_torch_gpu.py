@@ -359,6 +359,37 @@ def test_gpu_flash_attention_options(cuda, d, causal, q_offset):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,q_offset", [(True, None), (False, None),
+                                             (True, -3)])
+@pytest.mark.parametrize("d", [128, 256])
+def test_gpu_flash_attention_tilings(cuda, d, causal, q_offset, dtype):
+    """Each tiling as the library reports it (kernel.TILINGS), with s < t
+    and t not a multiple of BK: against mha_ref on the rows that see a key,
+    and against the plain version of the kernel's schedule
+    (flash_tiled_ref) on every row, those that see none included."""
+    bq, bk = fa_kernel.tiles(d)
+    got = fa_kernel.tiling(d)
+    assert (got["bq"], got["bk"], 16 * got["warps"]) == (bq, bk, bq)
+    assert got["slots"] >= 2
+    s = bq + 5
+    t = s + bk + 7                  # s < t, t not a multiple of BK
+    assert t % bk
+    q = _normal((2, s, 4, d), dtype, cuda, 30)
+    k = _normal((2, t, 2, d), dtype, cuda, 31)
+    v = _normal((2, t, 2, d), dtype, cuda, 32)
+    kw = dict(causal=causal, q_offset=q_offset)
+    fa_ops.reset_launches()
+    out = fa_ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.launches["flash_attention"] == 1
+    _close(out, fa_ref.flash_tiled_ref(q, k, v, block_q=bq, block_k=bk,
+                                       **kw), dtype)
+    off = (t - s) if q_offset is None else q_offset
+    rows = torch.arange(s, device=cuda) + off >= 0 if causal else slice(None)
+    _close(out[:, rows], fa_ref.mha_ref(q, k, v, **kw)[:, rows], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", DECODE_SHAPES)
 def test_gpu_flash_decode_matches_plain(cuda, shape, dtype):
     b, t, h, kvh, d = shape
@@ -435,6 +466,9 @@ def test_gpu_attention_wrappers_refuse_bad_inputs(cuda, monkeypatch):
             fa_ops.attention(qd, kd, kd)
     with pytest.raises(ValueError, match="impl"):
         fa_ops.attention(q, k, k, impl="cuda")
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fa_ops.attention(shifted, k, k)
     qd = _normal((2, 4, 64), torch.float32, cuda, 15)
     kc = _normal((2, 16, 2, 64), torch.float32, cuda, 16)
     with pytest.raises(TypeError, match="int32"):
@@ -676,9 +710,11 @@ def test_gpu_reduced_xlstm_kernel_matches_torch(cuda):
 # another order moves y by more than 1e-6).
 SCAN_TOL = (1e-4, 1e-4)
 # (b, s, inner, n): tests/test_kernels.py's sweep, a ragged channel block
-# and a ragged chunk, then jamba's widths (inner 16384, n 16).
+# and a ragged chunk, rows of x that are no whole number of 16-byte units
+# (the kernel's element loads), then jamba's widths (inner 16384, n 16).
 SCAN_SHAPES = [(2, 128, 64, 16), (1, 256, 128, 16), (2, 96, 32, 8),
-               (3, 37, 200, 5), (1, 6, 16384, 16), (1, 300, 16384, 16)]
+               (3, 37, 200, 5), (2, 45, 37, 16), (1, 6, 16384, 16),
+               (1, 300, 16384, 16)]
 
 
 def _scan_inputs(b, s, inner, n, dtype, dev, seed, h0=False):
@@ -714,15 +750,33 @@ def test_gpu_selective_scan_matches_plain(cuda, shape, dtype, h0):
     f32 = [a if a is None else a.float() for a in args]
     y_want, h_want = ss_ref.selective_scan_ref(*f32)
     atol, rtol = SCAN_TOL
-    torch.testing.assert_close(h, h_want, atol=atol, rtol=rtol)
     if dtype == torch.float32:
+        # Each state is updated as the plain version updates it: bitwise.
+        assert torch.equal(h, h_want)
         torch.testing.assert_close(y, y_want, atol=atol, rtol=rtol)
     else:
+        torch.testing.assert_close(h, h_want, atol=atol, rtol=rtol)
         y32, h32 = ss_ops.selective_scan(*f32)
         assert torch.equal(y, y32.to(dtype)) and torch.equal(h, h32)
         err = (y.float() - y_want).abs()
         assert bool((err <= 2.0 ** -8 * y_want.abs() + atol).all()), \
             float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+def test_gpu_selective_scan_matches_lanes_ref(cuda, shape, dtype):
+    """y is the plain version of the kernel's order (states split over the
+    launched lanes, a butterfly over them) bitwise, h_last too; bf16 is
+    the rounding of that f32 y."""
+    lanes = ss_kernel.plan()["lanes"]
+    assert lanes == ss_kernel.LANES
+    args = _scan_inputs(*shape, dtype, cuda, 23, h0=True)
+    y, h = ss_ops.selective_scan(*args)
+    y_want, h_want = ss_ref.selective_scan_lanes_ref(*args, lanes=lanes)
+    torch.cuda.synchronize()
+    assert y.dtype == y_want.dtype == dtype
+    assert torch.equal(y, y_want) and torch.equal(h, h_want)
 
 
 def test_gpu_selective_scan_wrapper_refuses_bad_inputs(cuda, monkeypatch):

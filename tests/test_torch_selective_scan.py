@@ -153,3 +153,81 @@ def test_wrapper_on_the_cpu_takes_the_plain_version(impl):
     assert ops.launches["selective_scan"] == 0
     with pytest.raises(ValueError, match="impl"):
         ops.selective_scan(*args, impl="cuda")
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's order of the sum over states (its plain version)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.selective_scan import kernel as ss_kernel  # noqa: E402,E501
+
+_JAX_SCANS = {}
+
+
+def _jax_scans(b, s, inner, n, chunk, bi):
+    """The reference's scan and its Pallas kernel in interpret mode on
+    ``_inputs(..., seed=7)``, computed once per shape."""
+    key = (b, s, inner, n, chunk, bi)
+    if key not in _JAX_SCANS:
+        arrays = _jax(_inputs(b, s, inner, n, seed=7))
+        _JAX_SCANS[key] = {
+            "ref": j_ref.selective_scan_ref(*arrays),
+            "pallas interpret": j_pallas(*arrays, chunk=chunk, block_i=bi,
+                                         interpret=True)}
+    return _JAX_SCANS[key]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("b,s,inner,n,chunk,bi", SWEEP)
+def test_lanes_ref_matches_reference_and_pallas(b, s, inner, n, chunk, bi,
+                                                lanes):
+    """y summed over the states in the kernel's lane order agrees with the
+    reference's scans; h_last is selective_scan_ref's bitwise (the states
+    are updated in the same operations)."""
+    args = _torch(_inputs(b, s, inner, n, seed=7))
+    y, h = ref.selective_scan_lanes_ref(*args, lanes=lanes)
+    y0, h0 = ref.selective_scan_ref(*args)
+    assert torch.equal(h, h0)
+    np.testing.assert_allclose(y.numpy(), y0.numpy(), atol=ATOL)
+    for name, (yj, hj) in _jax_scans(b, s, inner, n, chunk, bi).items():
+        np.testing.assert_allclose(y.numpy(), np.asarray(yj), atol=ATOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(h.numpy(), np.asarray(hj), atol=ATOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("lanes", [4, 16])
+def test_lanes_ref_short_states_h0_and_bf16(lanes):
+    """n = 5 (lanes left short or empty), an initial state, and bf16 x, dt,
+    B, C: y within the bar of the reference on the same values, bf16 y the
+    rounding of the f32 y, h_last selective_scan_ref's bitwise."""
+    x, dt, A, B, C, D, h0 = _inputs(2, 40, 24, 5, seed=8, h0=True)
+    args = _torch([x, dt, A, B, C, D, h0])
+    y, h = ref.selective_scan_lanes_ref(*args, lanes=lanes)
+    assert torch.equal(h, ref.selective_scan_ref(*args)[1])
+    yj, hj = j_ref.selective_scan_ref(*_jax([x, dt, A, B, C, D, h0]))
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), atol=ATOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(hj), atol=ATOL)
+    bf = [t.bfloat16() for t in (args[0], args[1], args[3], args[4])]
+    bf_args = [bf[0], bf[1], args[2], bf[2], bf[3], args[5], args[6]]
+    yb, hb = ref.selective_scan_lanes_ref(*bf_args, lanes=lanes)
+    y32, h32 = ref.selective_scan_lanes_ref(
+        *[t.float() for t in bf_args], lanes=lanes)
+    assert yb.dtype == torch.bfloat16
+    assert torch.equal(yb, y32.bfloat16()) and torch.equal(hb, h32)
+
+
+def test_lanes_ref_refuses_what_the_kernel_cannot_split():
+    args = _torch(_inputs(1, 4, 8, 4, seed=9))
+    for lanes in (0, 3, 32):
+        with pytest.raises(ValueError, match="lanes"):
+            ref.selective_scan_lanes_ref(*args, lanes=lanes)
+
+
+def test_kernel_lanes_match_the_cuda_source():
+    """kernel.LANES (what the plain order and the tests use) and MAX_STATE
+    are the source's LANES and kMaxN."""
+    src = ss_kernel.SOURCES[0].read_text()
+    assert f"constexpr int LANES = {ss_kernel.LANES};" in src
+    assert f"constexpr int kMaxN = {ss_kernel.MAX_STATE};" in src
+    assert 32 % ss_kernel.LANES == 0

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Sweep the tile constants of two CUDA kernels of the port on one GPU.
+"""Sweep the tile constants of CUDA kernels of the port on one GPU.
 
     python3 scripts/sweep_kernels.py [--out chiprun_out/sweep.json]
-                                     [--only flash_attention|selective_scan]
+        [--only flash_attention|selective_scan|waterfill] [--tree DIR]
 
 For each variant it rewrites the constants in a copy of the kernel's
 source (under the gitignored ``src/repro_torch/_build/sweep/``), builds
@@ -16,7 +16,24 @@ version at the sweep's shapes and times it with CUDA events:
                     causal, f32) for s = t = 6, 192 and 2048;
   selective_scan  - ``LANES`` (lanes per channel) and ``CHUNK`` (tokens per
                     staged chunk) at jamba's widths (b=1, inner 16384,
-                    n 16, f32) for s = 6 and 2048.
+                    n 16, f32) for s = 6 and 2048;
+  waterfill       - the water-fill teams (G CTAs of T threads per server,
+                    meeting through a cluster or a grid barrier) at the
+                    shapes of the main paths (FILL_SHAPES, loop effort),
+                    through the wrappers' pins (no source copies): each
+                    team held bitwise against the plain version, timed
+                    by CUDA events (wrapper) and the profiler (device),
+                    and at the host rule's plan also at two more efforts,
+                    which give the time of one bisection step and of one
+                    fill sum; then end_to_end;
+  end_to_end      - one profiled MIN slot at N=100,000 on S=32 (device
+                    time by kernel), LBCD's per-slot split at N=10,000 on
+                    S=32 (virtual solve, first-fit, per-server solve; 2
+                    slots), and the launch-bound paper cell's slots/s (LBCD
+                    fused and ``:nofuse``, energy-aware LBCD; 25 slots).
+``--tree DIR`` times the default plans of another checkout's water-fills
+instead (a parent commit unpacked with ``git archive``), for a comparison
+on one card in one call.
 
 It prints one line per variant (times, registers and spills from ptxas)
 and the fastest at the longest shape, and writes all of it as JSON. The
@@ -75,6 +92,38 @@ FA_EXPERIMENTS += [(f"pv_group{n}", [(r"constexpr int kPvGroup = \d+;",
 UNCHECKED = {"flash_attention_hi_only"}
 SCAN_VARIANTS = [(lanes, chunk) for lanes in (2, 4, 8, 16)
                  for chunk in (16, 32)]
+# Water-fill shapes: (cameras, servers, kernel). "tiled" is one bandwidth
+# fill through waterfill_tiled at auto's tile (MIN's virtual server and a
+# 32-server fleet), "pair" one waterfill_pair (LBCD's virtual server and
+# servers), "waterfill" one bandwidth fill of the paper setting.
+FILL_SHAPES = {"tiled N=100000 S=1": (100_000, 1, "tiled"),
+               "tiled N=100000 S=32": (100_000, 32, "tiled"),
+               "pair N=10000 S=1": (10_000, 1, "pair"),
+               "pair N=10000 S=32": (10_000, 32, "pair"),
+               "waterfill N=30 S=3": (30, 3, "waterfill")}
+# Teams pinned per shape beside the host rule's: (G, T, sync). The paper
+# shape pins T alone (a pinned G would launch the tiled kernel).
+FILL_TEAMS = {
+    "tiled N=100000 S=1": [(16, 256, "cluster"), (16, 256, "grid"),
+                           (32, 256, "grid"), (64, 256, "grid"),
+                           (128, 256, "grid"), (128, 128, "grid")],
+    "tiled N=100000 S=32": [(2, 256, "cluster"), (4, 256, "cluster"),
+                            (4, 256, "grid"), (4, 128, "cluster")],
+    "pair N=10000 S=1": [(8, 256, "cluster"), (16, 256, "cluster"),
+                         (16, 256, "grid"), (32, 256, "grid"),
+                         (64, 128, "grid"), (64, 256, "grid"),
+                         (128, 128, "grid"), (128, 64, "grid")],
+    "pair N=10000 S=32": [(1, 256, "none"), (2, 256, "cluster"),
+                          (2, 256, "grid"), (4, 128, "cluster"),
+                          (4, 128, "grid")],
+    "waterfill N=30 S=3": [(None, 32, None), (None, 64, None),
+                           (None, 256, None)],
+}
+LOOP = dict(outer_iters=10, inner_iters=3, final_inner_iters=5)
+# More inner steps (each FCFS chain 2 * 6 + 10 * 6 = 72 steps longer) and
+# more outer steps (10 evaluations more, each a fill sum and 3 steps).
+MORE_INNER = dict(outer_iters=10, inner_iters=9, final_inner_iters=5)
+MORE_OUTER = dict(outer_iters=20, inner_iters=3, final_inner_iters=5)
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -268,14 +317,163 @@ def sweep_scan(dev, kernel, ops, ref, _build):
     return rows, failed
 
 
-def main() -> int:
+def sweep_waterfill(dev, kernel, ops, _build, tree):
+    """Every team of FILL_TEAMS (the host rule's plan first) at each of
+    FILL_SHAPES; only the default plans where the wrappers take no pins
+    (an older checkout)."""
     import torch
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.core import allocate, bcd
+    usage = _build.ptxas_usage(
+        _build.build("slot_solver", kernel.SOURCES).with_suffix(".log"),
+        "waterfill")
+    print("waterfill registers: " + "; ".join(
+        f"{k}: {u.get('registers')} registers, "
+        f"{u.get('spill_stores', 0)} B spill stores"
+        for k, u in usage.items()), flush=True)
+    pins_taken = hasattr(ops, "fill_plan")
+    rows, failed = [], []
+    for shape, (n, s, kind) in FILL_SHAPES.items():
+        d = chip_smoke.kernel_inputs(
+            n, s, 11, dev, server_id=[0] * n if s == 1 else None)
+        layout = ops.server_layout(d["sid"], s)
+        bw = (d["k"], d["p"], d["pol"], d["mu"], d["sid"], d["bb"], s)
+        pair = (d["k"], d["p"], d["pol"], d["mu"], d["inv_xi"], d["sid"],
+                d["bb"], d["bc"], s)
+
+        def call(effort, pins, kind=kind, bw=bw, pair=pair, layout=layout):
+            if kind == "pair":
+                return lambda: ops.waterfill_pair(*pair, layout=layout,
+                                                  **pins, **effort)
+            tile = bcd.DEFAULT_TILE_N if kind == "tiled" else None
+            return lambda: (ops.waterfill_bandwidth(
+                *bw, layout=layout, tile_n=tile, **pins, **effort),)
+
+        def plain(effort, kind=kind, bw=bw, pair=pair):
+            if kind == "pair":
+                return allocate.waterfill_pair(*pair, **effort)
+            return (allocate.waterfill_bandwidth(*bw, **effort),)
+        want = plain(LOOP)
+        name = {"tiled": "waterfill_tiled_kernel",
+                "pair": "waterfill_pair_kernel",
+                "waterfill": "waterfill_kernel"}[kind]
+        teams = [None] + (FILL_TEAMS[shape] if pins_taken else [])
+        for team in teams:
+            pins = {} if team is None else {
+                k: v for k, v in zip(("group", "threads", "sync"), team)
+                if v is not None}
+            if pins_taken:
+                plan = ops.fill_plan(n, s, torch.cuda.get_device_properties(
+                    dev).multi_processor_count, **pins)
+                tag = f"G={plan.group} T={plan.threads} {plan.sync}"
+            else:
+                tag = "parent plan"
+            tag += " (host rule)" if team is None else ""
+            try:
+                got = call(LOOP, pins)()
+                torch.cuda.synchronize()
+                bad = sum(int((g != w).sum()) for g, w in zip(got, want))
+                if bad:
+                    raise AssertionError(f"{bad} outputs differ from the "
+                                         "plain version")
+                row = dict(shape=shape, team=tag, tree=tree,
+                           ms=cuda_ms(call(LOOP, pins)),
+                           device_ms=chip_smoke.device_ms(
+                               call(LOOP, pins), name))
+                if team is None:
+                    for label, effort in (("more_inner", MORE_INNER),
+                                          ("more_outer", MORE_OUTER)):
+                        row[f"device_ms {label}"] = chip_smoke.device_ms(
+                            call(effort, pins), name)
+                    if None not in (row["device_ms"],
+                                    row["device_ms more_inner"],
+                                    row["device_ms more_outer"]):
+                        fills = 2 if kind == "pair" else 1
+                        step = (row["device_ms more_inner"]
+                                - row["device_ms"]) / (72 * fills)
+                        row["step_us"] = step * 1e3
+                        row["sum_us"] = ((row["device_ms more_outer"]
+                                          - row["device_ms"]) / (10 * fills)
+                                         - 3 * step) * 1e3
+                        row["chain_floor_ms"] = chain_floor(
+                            kind, row["step_us"], row["sum_us"], chip_smoke)
+                rows.append(row)
+                extra = "".join(f", {k} {row[k]:.4f}" for k in
+                                ("step_us", "sum_us", "chain_floor_ms")
+                                if k in row)
+                print(f"{shape} {tag}: {row['ms']:.4f} ms wrapper, "
+                      f"{row['device_ms']} ms device{extra}", flush=True)
+            except (AssertionError, RuntimeError, ValueError) as exc:
+                print(f"{shape} {tag}: FAILED {str(exc)[:500]}", flush=True)
+                failed.append(dict(shape=shape, team=tag, error=str(exc)))
+    return rows, failed
+
+
+def chain_floor(kind, step_us, sum_us, chip_smoke):
+    """The serial chain of one call at LOOP: its fill sums one after the
+    other (2 + outer per fill, and the compute floors of a pair) and each
+    FCFS camera's dependent bisection steps (chip_smoke.fill_steps), at
+    the measured time of a sum and of a step; in ms."""
+    modes = (True, False) if kind == "pair" else (True,)
+    sums = len(modes) * (LOOP["outer_iters"] + 2) + (kind == "pair")
+    steps = sum(chip_smoke.fill_steps(LOOP, bw)[0] for bw in modes)
+    return (sums * sum_us + steps * step_us) / 1e3
+
+
+def fill_end_to_end(dev, chip_smoke, tree):
+    """One profiled MIN slot at N=100,000 on S=32 and LBCD's per-slot
+    split at N=10,000 on S=32, at the default backend."""
+    from repro_torch.core import baselines, energy, lbcd, profiles
+
+    def system(n, s, n_slots):
+        share = n / (10 * s)                 # the paper's per-camera share
+        return dict(n_cameras=n, n_servers=s, n_slots=n_slots,
+                    mean_bandwidth_hz=30e6 * share,
+                    mean_compute_flops=50e12 * share, seed=0)
+    tab = profiles.EdgeSystem(**system(100_000, 32, 1)).horizon(1, device=dev)
+    baselines.rollout_min(tab, device=dev)                  # warm-up
+    wall, busy = chip_smoke.profile_slot(
+        lambda: baselines.rollout_min(tab, device=dev),
+        f"MIN N=100000 one slot ({tree})", watch=("waterfill",))
+    split = chip_smoke.split_times(system(10_000, 32, 2), 2, dev)
+    print(f"LBCD N=10000 S=32 per-slot split ({tree}, s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in split.items()), flush=True)
+    paper = dict(n_cameras=30, n_servers=3, n_slots=25, seed=0)
+    cells = {
+        f"LBCD {spec}": lambda spec=spec: lbcd.LBCDController(
+            profiles.EdgeSystem(**paper), v=10.0, p_min=0.7,
+            solver_backend=spec, device=dev)
+        for spec in ("auto", "auto:nofuse")}
+    cells["energy-aware LBCD"] = lambda: energy.EnergyAwareLBCD(
+        profiles.EdgeSystem(**paper), energy=energy.EnergyModel(), v=10.0,
+        p_min=0.7, device=dev)
+    chip_smoke.drive(cells["LBCD auto"], 5)                 # warm-up
+    rates = {}
+    for label, make in cells.items():
+        rates[label] = 25 / chip_smoke.drive(make, 25)[1]
+    print(f"paper cell N=30 S=3 T=25 ({tree}), slots/s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in rates.items()), flush=True)
+    return dict(shape="end to end", tree=tree, min_slot_wall_s=wall,
+                min_slot_device_ms=busy, lbcd_split_s=split,
+                paper_slots_per_s=rates)
+
+
+def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="chiprun_out/sweep.json")
     parser.add_argument("--only", choices=("flash_attention",
-                                           "selective_scan"),
-                        help="sweep one kernel")
+                                           "selective_scan", "waterfill",
+                                           "end_to_end"),
+                        help="sweep one kernel, or only time end to end")
+    parser.add_argument("--tree", help="time the water-fills of this "
+                        "checkout (--only waterfill unless end_to_end)")
     args = parser.parse_args()
+    if args.tree:
+        sys.path.insert(0, str(Path(args.tree).resolve() / "src"))
+        if args.only != "end_to_end":
+            args.only = "waterfill"
+    import torch
     if not torch.cuda.is_available():
         print("sweep_kernels: no CUDA device", file=sys.stderr)
         return 2
@@ -291,15 +489,26 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}", flush=True)
     dev = torch.device("cuda")
+    from repro_torch.kernels.slot_solver import kernel as sl_kernel
+    from repro_torch.kernels.slot_solver import ops as sl_ops
     fa_rows, fa_failed, ss_rows, ss_failed = [], [], [], []
-    if args.only != "selective_scan":
+    wf_rows, wf_failed = [], []
+    if args.only in (None, "flash_attention"):
         fa_rows, fa_failed = sweep_attention(dev, fa_kernel, fa_ops, fa_ref,
                                              _build)
-    if args.only != "flash_attention":
+    if args.only in (None, "selective_scan"):
         ss_rows, ss_failed = sweep_scan(dev, ss_kernel, ss_ops, ss_ref,
                                         _build)
+    tree = args.tree or "this checkout"
+    if args.only in (None, "waterfill"):
+        wf_rows, wf_failed = sweep_waterfill(dev, sl_kernel, sl_ops, _build,
+                                             tree)
+    if args.only in (None, "waterfill", "end_to_end"):
+        sys.path.insert(0, str(ROOT))
+        import chip_smoke
+        wf_rows.append(fill_end_to_end(dev, chip_smoke, tree))
     result = dict(card=smi, flash_attention=fa_rows, selective_scan=ss_rows,
-                  failed=fa_failed + ss_failed)
+                  waterfill=wf_rows, failed=fa_failed + ss_failed + wf_failed)
     out = ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))

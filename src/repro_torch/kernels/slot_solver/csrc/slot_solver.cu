@@ -39,9 +39,13 @@ constexpr int kLCFSP = 1;
 constexpr int kModeBandwidth = 0;
 constexpr int kModeCompute = 1;
 constexpr int kConfigThreads = 128;
-constexpr int kFillThreads = 256;
-constexpr int kTiledThreads = 512;
-constexpr int kMaxGroup = 8;          // CTAs per server: a portable cluster
+constexpr int kFillThreads = 256;     // most threads per water-fill CTA
+constexpr int kSlots = 4;             // cameras a thread keeps in registers
+constexpr int kMaxGroup = 128;        // most CTAs per server
+constexpr int kMaxCluster = 16;       // most CTAs per cluster (> 8: non-portable)
+constexpr int kSyncNone = 0;          // G = 1: a plain launch
+constexpr int kSyncCluster = 1;       // partials through distributed smem
+constexpr int kSyncGrid = 2;          // partials through global memory
 constexpr int kBaselineThreads = 128;
 constexpr int kModeDos = 0;
 constexpr int kModeJcab = 1;
@@ -168,34 +172,47 @@ __global__ void config_argmin_kernel(
 }
 
 // --------------------------------------------------------------------------
-// Water-filling (Algorithm 1 lines 4/5), shared by kernels 2 and 3.
+// Water-filling (Algorithm 1 lines 4/5), shared by kernels 2, 3 and 4.
 //
-// One CTA owns one server: the cameras of server s are the contiguous
-// segment order[start[s] : start[s] + count[s]] of the stably sorted
-// camera order (ops.ServerLayout). Per-server fill sums are block
-// reductions over that segment (segment_sum below), which replace the
-// Pallas kernels' [S, Np] membership products. The per-server Illinois
-// state (duals a/b, residuals fa/fb) is held identically by every thread
-// of the CTA, updated from the reduction result that all threads read.
-// The per-camera brackets (xa, xb), the current evaluation x, the
-// per-camera bound and the reduction buffer live in a [5, N] global
-// scratch indexed by sorted position, so a segment of any length works
-// with one CTA.
-//
-// The reduction is a pairwise halving tree over the segment zero-padded to
-// a power of two, the order allocate.tree_segment_sum follows, so the
-// kernels and their plain versions add in the same order and agree
-// bitwise; the plain version needs no atomics either.
+// The cameras of server s are the contiguous segment order[start[s] :
+// start[s] + count[s]] of the stably sorted camera order
+// (ops.ServerLayout). G CTAs of T threads work on one server (a Team;
+// G and T powers of two, picked on the host from N, S and the card's SM
+// count, never from the per-server counts on the device): thread t of
+// CTA g owns the residue class c = g + G * t, i.e. the segment positions
+// c + Q * i with Q = G * T. (A grid launch holds only as many teams as
+// the card co-schedules; each walks servers s = team (mod teams).)
 //
 // Bound on this card: neither bytes nor operations. Each dual evaluation
-// depends on the previous one's reduction, and each FCFS camera runs a
-// bisection of dependent h evaluations, so the time is a serial chain of
-// outer_iters + 3 evaluations of up to inner_iters + 4 dependent steps
-// each, plus a log2(segment) reduction per evaluation. Design: the chain
-// runs entirely inside one launch with no trip to the host, and the
-// cameras of a server spread over the CTA's threads. At a few servers
-// only a few SMs work (3 of 132 at S = 3); kernel 4 spreads a server over
-// a cluster of CTAs.
+// depends on the previous one's fill sum, and each FCFS camera runs a
+// bisection of dependent h evaluations (three IEEE divisions each), so
+// the time is a serial chain of outer + 3 evaluations of up to inner + 4
+// dependent steps each, plus one fill sum per evaluation. Design:
+//   * one server's search spreads over G CTAs, a camera a thread up to
+//     one wave of the card (G = 128 for MIN's virtual server of 100,000
+//     cameras, 64 for LBCD's of 10,000);
+//   * each thread gathers its cameras' parameters once per fill and keeps
+//     them and the brackets xa, xb in registers for up to kSlots cameras,
+//     whose bisection chains it interleaves so that their divisions
+//     overlap. Cameras beyond kSlots per thread (a segment far above the
+//     host's estimate: the host sees only the mean) keep their state in
+//     the [5, N] global scratch;
+//   * a fill sum is the pairwise halving tree of the segment zero-padded
+//     to P = 2^k >= count, the order allocate.tree_segment_sum follows.
+//     With Q a power of two, its first log2(P/Q) levels fold each residue
+//     class alone (class_sum, in registers), the next log2(T) levels fold
+//     the T classes of one CTA (one shared-memory stage for the pairs
+//     t, t + h with h >= 32, warp shuffles below), and the last log2(G)
+//     levels fold the G CTA partials, exchanged once: through distributed
+//     shared memory after a cluster barrier (G <= kMaxCluster), or through
+//     global memory, where the last CTA to arrive on a counter folds them
+//     and publishes the total tagged with the sum's number, on which the
+//     others wait (a cooperative launch guarantees that the server's CTAs
+//     are co-resident). Kernels and plain versions thus add in the same
+//     order and agree bitwise, at every G and T.
+// Every CTA of a server runs the same fixed number of sums (2 + outer per
+// fill, plus the compute floors), empty CTAs and empty servers included,
+// so all reach every barrier.
 // --------------------------------------------------------------------------
 
 struct Cam {
@@ -207,131 +224,376 @@ struct Cam {
   bool is_l;
 };
 
-// Sum of src[0:count) by a pairwise halving tree: pad to P = 2^k >= count
-// with zeros, then x[j] += x[j + h] for h = P/2, P/4, ..., 1. Every thread
-// of the CTA calls it and gets the sum; buf holds max(1, P/2) floats.
-__device__ float segment_sum(const float* src, int count, float* buf) {
-  __syncthreads();                 // src complete; buf free from last call
-  if (count <= 1) return count == 1 ? src[0] : 0.0f;
-  int h = 1;
-  while (2 * h < count) h <<= 1;   // h = P / 2
-  for (int j = threadIdx.x; j < h; j += blockDim.x)
-    buf[j] = src[j] + (j + h < count ? src[j + h] : 0.0f);
-  __syncthreads();
-  for (h >>= 1; h >= 1; h >>= 1) {
-    for (int j = threadIdx.x; j < h; j += blockDim.x)
-      buf[j] = buf[j] + buf[j + h];
-    __syncthreads();
-  }
-  return buf[0];
+// A finite stand-in for a register slot that holds no camera.
+__device__ __forceinline__ Cam idle_cam() {
+  return Cam{1.0f, 0.5f, 1.0f, 1e-9f, 1.0f, true};
 }
 
-// The cameras of one server split over the G CTAs of a thread-block
-// cluster by residue class: CTA g owns segment positions j = g (mod G).
-// class_sum folds class g by the halving tree of width P/G (P = 2^k >=
-// count), the same pairs the full tree of segment_sum adds in its first
-// log2(P/G) levels; folding the G class sums by the halving tree of width
-// G then reproduces segment_sum's result bit for bit. Class g's tree uses
-// buf[g * P/(2G) : (g+1) * P/(2G)), inside the segment's own row.
-__device__ float class_sum(const float* src, int count, int g, int G,
-                           float* buf) {
-  __syncthreads();                 // src complete; buf free from last call
-  if (count <= 1) return (g == 0 && count == 1) ? src[0] : 0.0f;
+// Scratch rows of one segment, each [N] in sorted position; only
+// positions past a thread's kSlots cameras are used.
+struct Rows {
+  float* xa;
+  float* xb;
+  float* xt;
+  float* bound;   // bandwidth: per-camera cap hi; compute: floor lo
+  float* buf;     // class_sum's tree of spilled positions
+};
+
+__device__ __forceinline__ Rows rows_of(float* scratch, int n, int start) {
+  return Rows{scratch + start, scratch + n + start, scratch + 2 * n + start,
+              scratch + 3 * n + start, scratch + 4 * n + start};
+}
+
+// Relaxed (gpu scope) accesses of the grid exchange, and its arrival RMW.
+__device__ __forceinline__ void st_relaxed(float* p, float v) {
+  asm volatile("st.relaxed.gpu.global.f32 [%0], %1;" ::"l"(p), "f"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ float ld_relaxed(const float* p) {
+  float v;
+  asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];"
+               : "=f"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long arrive(unsigned long long* p) {
+  unsigned long long old;
+  asm volatile("atom.acq_rel.gpu.global.add.u64 %0, [%1], 1;"
+               : "=l"(old)
+               : "l"(p)
+               : "memory");
+  return old;
+}
+
+// A server's total: the sum's number (from 1) in the high word, the value
+// in the low word, stored and read as one 64-bit word, so a reader that
+// sees the number sees the value.
+__device__ __forceinline__ void publish(unsigned long long* p, unsigned epoch,
+                                        float v) {
+  const unsigned long long w =
+      (static_cast<unsigned long long>(epoch) << 32) | __float_as_uint(v);
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(w)
+               : "memory");
+}
+
+__device__ __forceinline__ float await(const unsigned long long* p,
+                                       unsigned epoch) {
+  unsigned long long w;
+  do {
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+                 : "=l"(w)
+                 : "l"(p)
+                 : "memory");
+  } while (static_cast<unsigned>(w >> 32) != epoch);
+  return __uint_as_float(static_cast<unsigned>(w));
+}
+
+// The G CTAs of one server and the sums they take together. Every thread
+// of every CTA of the server calls sum() in the same order and gets the
+// same total. The partials alternate between two slots, so the next sum
+// can start before the slowest reader is done with this one.
+// Grid: per server 2 + G 64-bit words, zeroed: the arrivals (counted on,
+// never reset: sum e is complete at e * G), the total, and G words of two
+// partials each (one per parity).
+struct Team {
+  int G;            // CTAs per server
+  int g;            // rank of this CTA among them
+  int Q;            // G * blockDim.x
+  int cls;          // this thread's residue class
+  int count;        // cameras of the server
+  int cnt;          // positions of the segment in this thread's class
+  int kact;         // max over the warp of min(cnt, kSlots)
+  int sync;         // kSyncNone / kSyncCluster / kSyncGrid
+  float* red;       // __shared__ float[2][kFillThreads]: the class sums
+  float* xslot;     // __shared__ float[2]: the CTA's partial (cluster) or
+                    // the server's total (grid)
+  unsigned long long* gslot;   // global [2 + G]: the server's words (grid)
+  int parity;       // which half of red and xslot this sum uses
+  unsigned epoch;   // this sum's number on the server (grid), from 1
+
+  __device__ int pos(int i) const { return cls + Q * i; }
+
+  // The width-G tree over the CTA partials as one warp folds it: lane l
+  // reads CTA l + 32 k, the levels h >= 32 fold over k, shuffles the rest;
+  // lane 0 holds the total.
+  template <class Read>
+  __device__ float fold_partials(const Read& read) const {
+    const int lane = threadIdx.x & 31;
+    const int ng = G > 32 ? G / 32 : 1;
+    float u[kMaxGroup / 32];
+#pragma unroll
+    for (int k = 0; k < kMaxGroup / 32; ++k) {
+      const int r = lane + 32 * k;
+      u[k] = k < ng && r < G ? read(r) : 0.0f;
+    }
+#pragma unroll
+    for (int h = kMaxGroup / 64; h >= 1; h >>= 1) {
+      if (h < ng) {
+#pragma unroll
+        for (int i = 0; i < h; ++i) u[i] = u[i] + u[i + h];
+      }
+    }
+    float s = u[0];
+#pragma unroll
+    for (int h = 16; h >= 1; h >>= 1)
+      if (h < G) s = s + __shfl_down_sync(0xffffffffu, s, h);
+    return s;
+  }
+
+  __device__ float sum(const float (&v)[kSlots], const float* src,
+                       float* tmp);
+};
+
+__device__ Team make_team(int s, int group, int sync, int count, float* red,
+                          float* xslot, unsigned long long* gslots,
+                          int parity) {
+  Team t;
+  t.G = group;
+  t.g = blockIdx.x % group;
+  t.Q = group * blockDim.x;
+  t.cls = t.g + group * threadIdx.x;
+  t.count = count;
+  t.cnt = count > t.cls ? (count - t.cls + t.Q - 1) / t.Q : 0;
+  t.kact = static_cast<int>(__reduce_max_sync(
+      0xffffffffu, static_cast<unsigned>(min(t.cnt, kSlots))));
+  t.sync = sync;
+  t.red = red;
+  t.xslot = xslot;
+  t.gslot = sync == kSyncGrid ? gslots + (2 + group) * s : nullptr;
+  t.parity = parity;
+  t.epoch = 1;
+  return t;
+}
+
+// The halving tree of this thread's residue class: its positions, zero-
+// padded to w = P / Q, folded as x[i] += x[i + h] for h = w/2, ..., 1 (the
+// first log2(w) levels of the segment's tree). Positions i < kSlots are
+// v[i]; the rare ones past them are src[pos(i)], folded through tmp (the
+// first level's targets are all real positions: cnt >= w/2).
+__device__ float class_sum(const Team& t, const float (&v)[kSlots],
+                           const float* src, float* tmp) {
   int p = 1;
-  while (p < count) p <<= 1;
-  if (p <= G) return g < count ? src[g] : 0.0f;   // one element at most
-  int h = p / G / 2;               // half the class's width, >= 1
-  const int cnt = (count - g + G - 1) / G;        // elements of class g
-  float* b = buf + g * h;
-  for (int i = threadIdx.x; i < h; i += blockDim.x)
-    b[i] = src[g + G * i] + (i + h < cnt ? src[g + G * (i + h)] : 0.0f);
-  __syncthreads();
-  for (h >>= 1; h >= 1; h >>= 1) {
-    for (int i = threadIdx.x; i < h; i += blockDim.x) b[i] = b[i] + b[i + h];
-    __syncthreads();
+  while (p < t.count) p <<= 1;
+  const int w = p > t.Q ? p / t.Q : 1;
+  float x[kSlots];
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r) x[r] = r < t.cnt ? v[r] : 0.0f;
+  for (int h = w / 2; h >= kSlots; h >>= 1) {
+    const float* s = h == w / 2 ? src : tmp;
+    for (int i = kSlots; i < h; ++i)
+      tmp[t.pos(i)] =
+          s[t.pos(i)] + (i + h < t.cnt ? s[t.pos(i + h)] : 0.0f);
+#pragma unroll
+    for (int r = 0; r < kSlots; ++r)
+      x[r] = x[r] + (r + h < t.cnt ? s[t.pos(r + h)] : 0.0f);
   }
-  return b[0];
+#pragma unroll
+  for (int h = kSlots / 2; h >= 1; h >>= 1) {
+    if (h < w) {
+#pragma unroll
+      for (int r = 0; r < h; ++r) x[r] = x[r] + x[r + h];
+    }
+  }
+  return x[0];
 }
 
-// Who works on one server's segment, and how its fill sums are taken.
-// BlockTeam: one CTA (waterfill, waterfill_pair). ClusterTeam: the G CTAs
-// of a cluster (waterfill_tiled); each CTA publishes its class sum in its
-// shared memory, one cluster barrier later every thread of every CTA reads
-// the G partials through distributed shared memory and folds them in the
-// same order, so all hold the same total. The partials alternate between
-// two slots, so the next sum can start before the slowest reader is done
-// with this one, and one barrier per sum suffices.
-struct BlockTeam {
-  __device__ int first() const { return threadIdx.x; }
-  __device__ int stride() const { return blockDim.x; }
-  __device__ float sum(const float* src, int count, float* buf) {
-    return segment_sum(src, count, buf);
+__device__ float Team::sum(const float (&v)[kSlots], const float* src,
+                           float* tmp) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  float s = class_sum(*this, v, src, tmp);
+  // Levels h >= 32 of the tree over the CTA's T classes pair lanes of one
+  // index: every warp folds them alike from one shared stage.
+  if (blockDim.x > 32) {
+    float* buf = red + parity * kFillThreads;
+    buf[threadIdx.x] = s;
+    __syncthreads();
+    const int nk = blockDim.x / 32;
+    float u[kFillThreads / 32];
+#pragma unroll
+    for (int k = 0; k < kFillThreads / 32; ++k)
+      u[k] = k < nk ? buf[lane + 32 * k] : 0.0f;
+#pragma unroll
+    for (int h = kFillThreads / 64; h >= 1; h >>= 1) {
+      if (h < nk) {
+#pragma unroll
+        for (int i = 0; i < h; ++i) u[i] = u[i] + u[i + h];
+      }
+    }
+    s = u[0];
   }
-  __device__ void finish() {}
-};
-
-struct ClusterTeam {
-  int g;          // rank of this CTA in the cluster
-  int G;          // CTAs per server, a power of two <= kMaxGroup
-  float* slots;   // __shared__ float[2]
-  int parity;
-
-  __device__ int first() const { return g + G * threadIdx.x; }
-  __device__ int stride() const { return G * blockDim.x; }
-  __device__ float sum(const float* src, int count, float* buf) {
+#pragma unroll
+  for (int h = 16; h >= 1; h >>= 1) s = s + __shfl_down_sync(full, s, h);
+  // The width-G tree over the CTA partials (lane 0 of each warp holds this
+  // CTA's). Cluster: every warp reads the G partials through distributed
+  // shared memory after one cluster barrier. Grid: each CTA stores its
+  // partial and arrives; the last to arrive folds the G partials and
+  // publishes the total, on which the others wait; warp 0 does this and
+  // hands the total to the CTA through shared memory.
+  if (sync == kSyncCluster) {
+    if (threadIdx.x == 0) xslot[parity] = s;
     cg::cluster_group cluster = cg::this_cluster();
-    const float part = class_sum(src, count, g, G, buf);
-    if (threadIdx.x == 0) slots[parity] = part;
     cluster.sync();
-    float v[kMaxGroup];
-    for (int r = 0; r < G; ++r)
-      v[r] = *cluster.map_shared_rank(slots + parity, r);
-    for (int h = G / 2; h >= 1; h >>= 1)
-      for (int j = 0; j < h; ++j) v[j] = v[j] + v[j + h];
-    parity ^= 1;
-    return v[0];
+    float* mine = xslot + parity;
+    s = fold_partials(
+        [&](int r) { return *cluster.map_shared_rank(mine, r); });
+  } else if (sync == kSyncGrid) {
+    if (threadIdx.x < 32) {
+      float* part = reinterpret_cast<float*>(gslot + 2) + (epoch & 1u);
+      int last = 0;
+      if (lane == 0) {
+        st_relaxed(part + 2 * g, s);
+        last = arrive(gslot) + 1 == static_cast<unsigned long long>(epoch) * G;
+      }
+      last = __shfl_sync(full, last, 0);
+      __syncwarp();                    // lane 0's acquire orders the reads
+      if (last) {
+        s = fold_partials([&](int r) { return ld_relaxed(part + 2 * r); });
+        if (lane == 0) publish(gslot + 1, epoch, s);
+      } else if (lane == 0) {
+        s = await(gslot + 1, epoch);
+      }
+      if (lane == 0) xslot[parity] = s;
+    }
+    __syncthreads();
+    s = xslot[parity];
+    ++epoch;
   }
-  // No CTA may exit while another can still read its partials.
-  __device__ void finish() { cg::this_cluster().sync(); }
-};
+  s = __shfl_sync(full, s, 0);
+  parity ^= 1;
+  return s;
+}
 
+// -dA/dx of an FCFS camera at normalized allocation x (allocate._h_*'s
+// FCFS branch). Only FCFS cameras bisect: an LCFSP camera takes its
+// closed form, so its bisection, run beside the others', is discarded.
 template <int MODE>
-__device__ __forceinline__ float h_fn(float x, const Cam& c) {
+__device__ __forceinline__ float h_fcfs(float x, const Cam& c) {
   float d;
   if (MODE == kModeBandwidth) {
     const float lam = fmaxf(c.scale * x, kEps);
-    d = c.is_l ? d_lcfsp_dlam(lam, c.p)
-               : d_fcfs_dlam(fminf(lam, 0.999f * c.other), c.other, c.p);
+    d = d_fcfs_dlam(fminf(lam, 0.999f * c.other), c.other, c.p);
   } else {
     const float mu = fmaxf(c.scale * x, kEps);
-    d = c.is_l ? d_lcfsp_dmu(mu, c.p)
-               : d_fcfs_dmu(fminf(c.other, 0.999f * mu), mu, c.p);
+    d = d_fcfs_dmu(fminf(c.other, 0.999f * mu), mu, c.p);
   }
   return fmaxf(-d * c.scale, 0.0f);
 }
 
-// x(nu) clipped to [lo, hi]: the LCFSP closed form, or for FCFS the
-// largest x in [blo, bhi] with h(x) >= nu by bisection
+// x(nu) clipped to [lo, hi] from the bisection bracket [a, b] after its
+// steps: the LCFSP closed form, or for FCFS the bracket's midpoint
 // (allocate._waterfill.alloc_at).
 template <int MODE>
-__device__ __forceinline__ float alloc_at(float nu, float blo, float bhi,
-                                          int iters, const Cam& c) {
+__device__ __forceinline__ float settle(float nu, float a, float b,
+                                        const Cam& c) {
   float x;
   if (c.is_l) {
     x = MODE == kModeBandwidth
             ? sqrtf((1.0f + 1.0f / c.p) / fmaxf(c.scale * nu, kEps))
             : sqrtf(1.0f / fmaxf(c.p * c.scale * nu, kEps));
   } else {
-    float a = blo, b = bhi;
-    for (int k = 0; k < iters; ++k) {
-      const float mid = 0.5f * (a + b);
-      const bool up = h_fn<MODE>(mid, c) >= nu;
-      a = up ? mid : a;
-      b = up ? b : mid;
-    }
     x = 0.5f * (a + b);
   }
   return fminf(fmaxf(x, c.lo), c.hi);
+}
+
+// One camera: the largest x in [blo, bhi] with h(x) >= nu by bisection.
+template <int MODE>
+__device__ __forceinline__ float alloc_at(float nu, float blo, float bhi,
+                                          int iters, const Cam& c) {
+  float a = blo, b = bhi;
+  if (!c.is_l) {
+    for (int k = 0; k < iters; ++k) {
+      const float mid = 0.5f * (a + b);
+      const bool up = h_fcfs<MODE>(mid, c) >= nu;
+      a = up ? mid : a;
+      b = up ? b : mid;
+    }
+  }
+  return settle<MODE>(nu, a, b, c);
+}
+
+// KA cameras side by side: their bisection chains are independent, so
+// step k of every camera is issued before step k + 1 of any, and their
+// divisions overlap. Each chain keeps its own order of operations.
+template <int MODE, int KA>
+__device__ __forceinline__ void alloc_n(float nu, const float (&blo)[kSlots],
+                                        const float (&bhi)[kSlots],
+                                        int iters, const Cam (&c)[kSlots],
+                                        float (&x)[kSlots]) {
+  float a[KA], b[KA];
+#pragma unroll
+  for (int r = 0; r < KA; ++r) {
+    a[r] = blo[r];
+    b[r] = bhi[r];
+  }
+  for (int k = 0; k < iters; ++k) {
+#pragma unroll
+    for (int r = 0; r < KA; ++r) {
+      const float mid = 0.5f * (a[r] + b[r]);
+      const bool up = h_fcfs<MODE>(mid, c[r]) >= nu;
+      a[r] = up ? mid : a[r];
+      b[r] = up ? b[r] : mid;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < KA; ++r) x[r] = settle<MODE>(nu, a[r], b[r], c[r]);
+}
+
+// The register slots of a warp that holds at most kact cameras a thread.
+template <int MODE>
+__device__ __forceinline__ void alloc_slots(int kact, float nu,
+                                            const float (&blo)[kSlots],
+                                            const float (&bhi)[kSlots],
+                                            int iters,
+                                            const Cam (&c)[kSlots],
+                                            float (&x)[kSlots]) {
+  static_assert(kSlots == 4, "alloc_slots dispatches 1..4 slots");
+  switch (kact) {
+    case 1: alloc_n<MODE, 1>(nu, blo, bhi, iters, c, x); break;
+    case 2: alloc_n<MODE, 2>(nu, blo, bhi, iters, c, x); break;
+    case 3: alloc_n<MODE, 3>(nu, blo, bhi, iters, c, x); break;
+    case 4: alloc_n<MODE, 4>(nu, blo, bhi, iters, c, x); break;
+    default: break;
+  }
+}
+
+// Interior minimizer lam* of A_F on (0, mu) of KA cameras side by side
+// (argmin_lam_fcfs, each chain in its own order).
+template <int KA>
+__device__ __forceinline__ void argmin_n(const Cam (&c)[kSlots],
+                                         float (&out)[kSlots]) {
+  float lo[KA], hi[KA];
+#pragma unroll
+  for (int r = 0; r < KA; ++r) {
+    lo[r] = 1e-9f;
+    hi[r] = 0.999999f * c[r].other;
+  }
+  for (int i = 0; i < 26; ++i) {
+#pragma unroll
+    for (int r = 0; r < KA; ++r) {
+      const float mid = 0.5f * (lo[r] + hi[r]);
+      const bool neg = d_fcfs_dlam(mid, c[r].other, c[r].p) < 0.0f;
+      lo[r] = neg ? mid : lo[r];
+      hi[r] = neg ? hi[r] : mid;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < KA; ++r) out[r] = 0.5f * (lo[r] + hi[r]);
+}
+
+__device__ __forceinline__ void argmin_slots(int kact, const Cam (&c)[kSlots],
+                                             float (&out)[kSlots]) {
+  switch (kact) {
+    case 1: argmin_n<1>(c, out); break;
+    case 2: argmin_n<2>(c, out); break;
+    case 3: argmin_n<3>(c, out); break;
+    case 4: argmin_n<4>(c, out); break;
+    default: break;
+  }
 }
 
 __device__ __forceinline__ void bracket(float xa, float xb, const Cam& c,
@@ -341,160 +603,242 @@ __device__ __forceinline__ void bracket(float xa, float xb, const Cam& c,
   *bhi = fminf(c.hi, xa + pad);
 }
 
-// Scratch rows of one segment, each [N] in sorted position.
-struct Rows {
-  float* xa;
-  float* xb;
-  float* xt;
-  float* bound;   // bandwidth: per-camera cap hi; compute: floor lo
-  float* buf;     // segment_sum's tree
-};
-
-__device__ __forceinline__ Rows rows_of(float* scratch, int n, int start) {
-  return Rows{scratch + start, scratch + n + start, scratch + 2 * n + start,
-              scratch + 3 * n + start, scratch + 4 * n + start};
-}
-
 // The Illinois dual search of one server (kernel.py:_illinois_waterfill,
-// allocate._waterfill): the same iteration budgets, inner_iters + 4 for the
-// two endpoint fills, inner_iters per Illinois step, final_inner_iters for
-// the final allocation, which is left in w.xt[0:count]. `load(j)` returns
-// the parameters of the j-th camera of the segment; `team` says which
-// positions this thread owns and takes the fill sums.
-template <int MODE, class Team, class Load>
-__device__ void illinois_waterfill(Team& team, const Load& load, int count,
-                                   Rows w, int outer_iters, int inner_iters,
-                                   int final_inner_iters) {
-  const float nu_lo = expf(kLogNuLo);
-  const float nu_hi = expf(kLogNuHi);
-  for (int j = team.first(); j < count; j += team.stride()) {
-    const Cam c = load(j);
-    float blo, bhi;
-    bracket(c.hi, c.lo, c, &blo, &bhi);
-    w.xa[j] = alloc_at<MODE>(nu_lo, blo, bhi, inner_iters + 4, c);
-    w.xb[j] = alloc_at<MODE>(nu_hi, blo, bhi, inner_iters + 4, c);
+// allocate._waterfill): outer + 3 evaluations in one loop -- the two
+// endpoint fills (e = 0, 1; inner + 4 steps on the cameras' [lo, hi]),
+// outer Illinois steps (inner steps on the bracket [xb, xa]), and the
+// final allocation (final_inner steps), left in x (and, past kSlots, in
+// w.xt). c holds the thread's register cameras; spill(j) gives the
+// parameters of a camera past them.
+template <int MODE, class Spill>
+__device__ void illinois_waterfill(Team& team, const Cam (&c)[kSlots],
+                                   const Spill& spill, Rows w, int outer,
+                                   int inner, int final_inner,
+                                   float (&x)[kSlots]) {
+  float xa[kSlots], xb[kSlots], blo[kSlots], bhi[kSlots];
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r) {
+    xa[r] = c[r].hi;
+    xb[r] = c[r].lo;
+    x[r] = 0.0f;
   }
-  float a = kLogNuLo, b = kLogNuHi;
-  float fa = team.sum(w.xa, count, w.buf) - 1.0f;
-  float fb = team.sum(w.xb, count, w.buf) - 1.0f;
-  for (int it = 0; it < outer_iters; ++it) {
-    const float denom = fa - fb;
-    float t = fabsf(denom) > 1e-12f ? fa / denom : 0.5f;
-    t = fminf(fmaxf(t, 0.05f), 0.95f);
-    const float mid = a + t * (b - a);
-    const float nu = expf(mid);
-    for (int j = team.first(); j < count; j += team.stride()) {
-      const Cam c = load(j);
-      float blo, bhi;
-      bracket(w.xa[j], w.xb[j], c, &blo, &bhi);
-      w.xt[j] = alloc_at<MODE>(nu, blo, bhi, inner_iters, c);
+  float a = kLogNuLo, b = kLogNuHi, fa = 0.0f, fb = 0.0f;
+  const int last = outer + 2;
+  for (int e = 0; e <= last; ++e) {
+    const bool ends = e < 2;
+    float mid = 0.0f, nu;
+    if (ends) {
+      nu = expf(e == 0 ? kLogNuLo : kLogNuHi);
+    } else if (e < last) {
+      const float denom = fa - fb;
+      float t = fabsf(denom) > 1e-12f ? fa / denom : 0.5f;
+      t = fminf(fmaxf(t, 0.05f), 0.95f);
+      mid = a + t * (b - a);
+      nu = expf(mid);
+    } else {
+      nu = expf(0.5f * (a + b));
     }
-    const float f = team.sum(w.xt, count, w.buf) - 1.0f;
-    const bool over = f > 0.0f;        // over budget -> raise the price
-    for (int j = team.first(); j < count; j += team.stride()) {
+    const int iters = ends ? inner + 4 : (e < last ? inner : final_inner);
+#pragma unroll
+    for (int r = 0; r < kSlots; ++r)
+      bracket(ends ? c[r].hi : xa[r], ends ? c[r].lo : xb[r], c[r], &blo[r],
+              &bhi[r]);
+    alloc_slots<MODE>(team.kact, nu, blo, bhi, iters, c, x);
+    for (int i = kSlots; i < team.cnt; ++i) {
+      const int j = team.pos(i);
+      const Cam cj = spill(j);
+      float lo_j, hi_j;
+      if (ends) bracket(cj.hi, cj.lo, cj, &lo_j, &hi_j);
+      else bracket(w.xa[j], w.xb[j], cj, &lo_j, &hi_j);
+      w.xt[j] = alloc_at<MODE>(nu, lo_j, hi_j, iters, cj);
+    }
+    if (e == last) break;
+    const float f = team.sum(x, w.xt, w.buf) - 1.0f;
+    const bool over = e == 0 || (e > 1 && f > 0.0f);  // xa takes x
+#pragma unroll
+    for (int r = 0; r < kSlots; ++r) {
+      xa[r] = over ? x[r] : xa[r];
+      xb[r] = over ? xb[r] : x[r];
+    }
+    for (int i = kSlots; i < team.cnt; ++i) {
+      const int j = team.pos(i);
       if (over) w.xa[j] = w.xt[j];
       else w.xb[j] = w.xt[j];
     }
-    a = over ? mid : a;
-    b = over ? b : mid;
-    const float fa_next = over ? f : 0.5f * fa;   // Illinois halving of
-    const float fb_next = over ? 0.5f * fb : f;   // the retained endpoint
-    fa = fa_next;
-    fb = fb_next;
-  }
-  const float nu = expf(0.5f * (a + b));
-  for (int j = team.first(); j < count; j += team.stride()) {
-    const Cam c = load(j);
-    float blo, bhi;
-    bracket(w.xa[j], w.xb[j], c, &blo, &bhi);
-    w.xt[j] = alloc_at<MODE>(nu, blo, bhi, final_inner_iters, c);
+    if (e == 0) {
+      fa = f;
+    } else if (e == 1) {
+      fb = f;
+    } else {
+      const bool up = f > 0.0f;              // over budget -> raise the price
+      a = up ? mid : a;
+      b = up ? b : mid;
+      const float fa_next = up ? f : 0.5f * fa;   // Illinois halving of
+      const float fb_next = up ? 0.5f * fb : f;   // the retained endpoint
+      fa = fa_next;
+      fb = fb_next;
+    }
   }
 }
 
-// Line 4: normalized bandwidth of one server, written as Hz to out[cam].
-template <class Team>
-__device__ void bandwidth_segment(Team& team, const float* k, const float* p,
-                                  const int* pol, const float* mu, float B,
-                                  const int* seg, int count, Rows w,
-                                  int outer, int inner, int final_inner,
-                                  float* out) {
-  for (int j = team.first(); j < count; j += team.stride()) {
-    const int i = seg[j];
-    w.bound[j] = pol[i] == kLCFSP
+// This thread's cameras in register slots: original index, or 0 where
+// the slot holds none.
+__device__ __forceinline__ void gather(const Team& team, const int* seg,
+                                       int (&idx)[kSlots]) {
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r)
+    idx[r] = r < team.cnt ? seg[team.pos(r)] : 0;
+}
+
+// Line 4: normalized bandwidth of one server, left in x (and w.xt past
+// kSlots) and written as Hz to out[cam].
+__device__ void bandwidth_fill(Team& team, const float* k, const float* p,
+                               const int* pol, const float* mu, float B,
+                               const int* seg, const int (&idx)[kSlots],
+                               Rows w, int outer, int inner, int final_inner,
+                               float* out, float (&x)[kSlots]) {
+  Cam c[kSlots];
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r) {
+    const int i = idx[r];
+    c[r] = r < team.cnt ? Cam{k[i] * B, p[i], mu[i], 1e-9f, 1.0f,
+                              pol[i] == kLCFSP}
+                        : idle_cam();
+  }
+  float lam_star[kSlots];
+  argmin_slots(team.kact, c, lam_star);
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r)
+    if (!c[r].is_l) c[r].hi = fminf(lam_star[r] / fmaxf(c[r].scale, kEps),
+                                    1.0f);
+  for (int i = kSlots; i < team.cnt; ++i) {
+    const int j = team.pos(i);
+    const int cam = seg[j];
+    w.bound[j] = pol[cam] == kLCFSP
                      ? 1.0f
-                     : fminf(argmin_lam_fcfs(mu[i], p[i]) /
-                                 fmaxf(k[i] * B, kEps),
+                     : fminf(argmin_lam_fcfs(mu[cam], p[cam]) /
+                                 fmaxf(k[cam] * B, kEps),
                              1.0f);
   }
-  auto load = [&](int j) {
+  auto spill = [&](int j) {
     const int i = seg[j];
     return Cam{k[i] * B, p[i], mu[i], 1e-9f, w.bound[j], pol[i] == kLCFSP};
   };
-  illinois_waterfill<kModeBandwidth>(team, load, count, w, outer, inner,
-                                     final_inner);
-  for (int j = team.first(); j < count; j += team.stride())
+  illinois_waterfill<kModeBandwidth>(team, c, spill, w, outer, inner,
+                                     final_inner, x);
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r)
+    if (r < team.cnt) out[idx[r]] = x[r] * B;
+  for (int i = kSlots; i < team.cnt; ++i) {
+    const int j = team.pos(i);
     out[seg[j]] = w.xt[j] * B;
+  }
 }
 
 // Line 5: normalized compute of one server with the FCFS stability floors
 // (mu >= margin * lam, scaled down where they alone exceed the budget),
-// written as FLOPS to out[cam]. `lam_of(j)` gives the camera's arrival rate.
-template <class Team, class Lam>
-__device__ void compute_segment(Team& team, const float* inv_xi,
-                                const float* p, const int* pol,
-                                const Lam& lam_of, float C, float margin,
-                                const int* seg, int count, Rows w, int outer,
-                                int inner, int final_inner, float* out) {
-  for (int j = team.first(); j < count; j += team.stride()) {
-    const int i = seg[j];
-    w.bound[j] = pol[i] == kLCFSP
-                     ? 1e-9f
-                     : margin * lam_of(j) / fmaxf(inv_xi[i] * C, kEps);
+// written as FLOPS to out[cam]. lam holds the register cameras' arrival
+// rates, lam_of(j) those past them.
+template <class Lam>
+__device__ void compute_fill(Team& team, const float* inv_xi, const float* p,
+                             const int* pol, const float (&lam)[kSlots],
+                             const Lam& lam_of, float C, float margin,
+                             const int* seg, const int (&idx)[kSlots],
+                             Rows w, int outer, int inner, int final_inner,
+                             float* out) {
+  Cam c[kSlots];
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r) {
+    const int i = idx[r];
+    c[r] = idle_cam();
+    if (r < team.cnt) {
+      const bool is_l = pol[i] == kLCFSP;
+      c[r] = Cam{inv_xi[i] * C, p[i], lam[r],
+                 is_l ? 1e-9f : margin * lam[r] / fmaxf(inv_xi[i] * C, kEps),
+                 1.0f, is_l};
+    }
   }
-  const float floor_tot = team.sum(w.bound, count, w.buf);
+  for (int i = kSlots; i < team.cnt; ++i) {
+    const int j = team.pos(i);
+    const int cam = seg[j];
+    w.bound[j] = pol[cam] == kLCFSP
+                     ? 1e-9f
+                     : margin * lam_of(j) / fmaxf(inv_xi[cam] * C, kEps);
+  }
+  float floors[kSlots];
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r) floors[r] = c[r].lo;
+  const float floor_tot = team.sum(floors, w.bound, w.buf);
   const float fac = fminf(1.0f / fmaxf(floor_tot, kEps), 1.0f);
-  for (int j = team.first(); j < count; j += team.stride())
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r)
+    c[r].lo = fminf(fmaxf(c[r].lo * fac, 1e-9f), 1.0f);
+  for (int i = kSlots; i < team.cnt; ++i) {
+    const int j = team.pos(i);
     w.bound[j] = fminf(fmaxf(w.bound[j] * fac, 1e-9f), 1.0f);
-  auto load = [&](int j) {
+  }
+  auto spill = [&](int j) {
     const int i = seg[j];
     return Cam{inv_xi[i] * C, p[i], lam_of(j), w.bound[j], 1.0f,
                pol[i] == kLCFSP};
   };
-  illinois_waterfill<kModeCompute>(team, load, count, w, outer, inner,
-                                   final_inner);
-  for (int j = team.first(); j < count; j += team.stride())
+  float x[kSlots];
+  illinois_waterfill<kModeCompute>(team, c, spill, w, outer, inner,
+                                   final_inner, x);
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r)
+    if (r < team.cnt) out[idx[r]] = x[r] * C;
+  for (int i = kSlots; i < team.cnt; ++i) {
+    const int j = team.pos(i);
     out[seg[j]] = w.xt[j] * C;
+  }
 }
 
-// One water-fill of server s in `mode` by `team` (waterfill and
-// waterfill_tiled). coef is k = eff/size (bandwidth) or 1/xi (compute);
-// other is mu (bandwidth) or lam (compute).
-template <class Team>
-__device__ void fill_server(Team& team, int s, int mode, const float* coef,
-                            const float* p, const int* pol,
-                            const float* other, const float* budgets,
-                            float margin, const int* order,
-                            const int* starts, const int* counts, int n,
-                            int outer, int inner, int final_inner,
-                            float* scratch, float* out) {
-  const int start = starts[s];
-  const int count = counts[s];
-  const Rows w = rows_of(scratch, n, start);
-  const int* seg = order + start;
-  if (mode == kModeBandwidth) {
-    bandwidth_segment(team, coef, p, pol, other, budgets[s], seg, count, w,
-                      outer, inner, final_inner, out);
-  } else {
-    auto lam_of = [&](int j) { return other[seg[j]]; };
-    compute_segment(team, coef, p, pol, lam_of, budgets[s], margin, seg,
-                    count, w, outer, inner, final_inner, out);
+// One water-fill of every server in `mode` (kernels 2 and 4). coef is
+// k = eff/size (bandwidth) or 1/xi (compute); other is mu (bandwidth) or
+// lam (compute).
+__device__ void fill_servers(int mode, const float* coef, const float* p,
+                             const int* pol, const float* other,
+                             const float* budgets, float margin,
+                             const int* order, const int* starts,
+                             const int* counts, int n, int n_servers,
+                             int group, int sync, int outer, int inner,
+                             int final_inner, float* scratch,
+                             unsigned long long* gslots, float* out) {
+  __shared__ float red[2 * kFillThreads];
+  __shared__ float xslot[2];
+  int parity = 0;
+  for (int s = blockIdx.x / group; s < n_servers; s += gridDim.x / group) {
+    const int start = starts[s];
+    Team team = make_team(s, group, sync, counts[s], red, xslot, gslots,
+                          parity);
+    const Rows w = rows_of(scratch, n, start);
+    const int* seg = order + start;
+    int idx[kSlots];
+    gather(team, seg, idx);
+    if (mode == kModeBandwidth) {
+      float x[kSlots];
+      bandwidth_fill(team, coef, p, pol, other, budgets[s], seg, idx, w,
+                     outer, inner, final_inner, out, x);
+    } else {
+      float lam[kSlots];
+#pragma unroll
+      for (int r = 0; r < kSlots; ++r)
+        lam[r] = r < team.cnt ? other[idx[r]] : 1.0f;
+      auto lam_of = [&](int j) { return other[seg[j]]; };
+      compute_fill(team, coef, p, pol, lam, lam_of, budgets[s], margin, seg,
+                   idx, w, outer, inner, final_inner, out);
+    }
+    parity = team.parity;
   }
+  if (sync == kSyncCluster) cg::this_cluster().sync();
 }
 
 // --------------------------------------------------------------------------
 // 2. waterfill: one water-fill, bandwidth (mode 0) or compute (mode 1).
 //
-// Replaces kernel.py:waterfill. One CTA per server.
+// Replaces kernel.py:waterfill. G CTAs per server (G = 1, a plain launch,
+// in the paper setting).
 // --------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kFillThreads) waterfill_kernel(
@@ -502,22 +846,22 @@ __global__ void __launch_bounds__(kFillThreads) waterfill_kernel(
     const int* __restrict__ pol, const float* __restrict__ other,
     const float* __restrict__ budgets, float margin,
     const int* __restrict__ order, const int* __restrict__ starts,
-    const int* __restrict__ counts, int n, int outer, int inner,
-    int final_inner, float* __restrict__ scratch, float* __restrict__ out) {
-  BlockTeam team;
-  fill_server(team, blockIdx.x, mode, coef, p, pol, other, budgets, margin,
-              order, starts, counts, n, outer, inner, final_inner, scratch,
-              out);
+    const int* __restrict__ counts, int n, int n_servers, int group,
+    int sync, int outer, int inner, int final_inner,
+    float* __restrict__ scratch, unsigned long long* gslots,
+    float* __restrict__ out) {
+  fill_servers(mode, coef, p, pol, other, budgets, margin, order, starts,
+               counts, n, n_servers, group, sync, outer, inner, final_inner,
+               scratch, gslots, out);
 }
 
 // --------------------------------------------------------------------------
 // 3. waterfill_pair: lines 4 and 5 in one launch.
 //
 // Replaces kernel.py:waterfill_pair. The bandwidth water-fill writes b;
-// then, in the same CTA, the arrival rate lam = b * k, the FCFS floors and
-// their per-server rescale, and the compute water-fill. b is read back
-// by the thread that wrote it (the j -> thread map is the same in both
-// phases), after a barrier.
+// then, in the same team, the arrival rate lam = b * k (each thread from
+// its own registers, or for a spilled camera from the b it wrote itself),
+// the FCFS floors and their per-server rescale, and the compute fill.
 // --------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kFillThreads) waterfill_pair_kernel(
@@ -526,61 +870,65 @@ __global__ void __launch_bounds__(kFillThreads) waterfill_pair_kernel(
     const float* __restrict__ inv_xi, const float* __restrict__ budgets_b,
     const float* __restrict__ budgets_c, float margin,
     const int* __restrict__ order, const int* __restrict__ starts,
-    const int* __restrict__ counts, int n, int outer, int inner,
-    int final_inner, float* __restrict__ scratch, float* __restrict__ out_b,
-    float* __restrict__ out_c) {
-  const int s = blockIdx.x;
-  const int start = starts[s];
-  const int count = counts[s];
-  const Rows w = rows_of(scratch, n, start);
-  const int* seg = order + start;
-  BlockTeam team;
-  bandwidth_segment(team, k, p, pol, mu, budgets_b[s], seg, count, w, outer,
-                    inner, final_inner, out_b);
-  __syncthreads();
-  auto lam_of = [&](int j) {
-    const int i = seg[j];
-    return out_b[i] * k[i];
-  };
-  compute_segment(team, inv_xi, p, pol, lam_of, budgets_c[s], margin, seg,
-                  count, w, outer, inner, final_inner, out_c);
+    const int* __restrict__ counts, int n, int n_servers, int group,
+    int sync, int outer, int inner, int final_inner,
+    float* __restrict__ scratch, unsigned long long* gslots,
+    float* __restrict__ out_b, float* __restrict__ out_c) {
+  __shared__ float red[2 * kFillThreads];
+  __shared__ float xslot[2];
+  int parity = 0;
+  for (int s = blockIdx.x / group; s < n_servers; s += gridDim.x / group) {
+    const int start = starts[s];
+    Team team = make_team(s, group, sync, counts[s], red, xslot, gslots,
+                          parity);
+    const Rows w = rows_of(scratch, n, start);
+    const int* seg = order + start;
+    int idx[kSlots];
+    gather(team, seg, idx);
+    const float B = budgets_b[s];
+    float b[kSlots];
+    bandwidth_fill(team, k, p, pol, mu, B, seg, idx, w, outer, inner,
+                   final_inner, out_b, b);
+    float lam[kSlots];
+#pragma unroll
+    for (int r = 0; r < kSlots; ++r)
+      lam[r] = r < team.cnt ? (b[r] * B) * k[idx[r]] : 1.0f;
+    auto lam_of = [&](int j) {
+      const int i = seg[j];
+      return out_b[i] * k[i];
+    };
+    compute_fill(team, inv_xi, p, pol, lam, lam_of, budgets_c[s], margin,
+                 seg, idx, w, outer, inner, final_inner, out_c);
+    parity = team.parity;
+  }
+  if (sync == kSyncCluster) cg::this_cluster().sync();
 }
 
 // --------------------------------------------------------------------------
-// 4. waterfill_tiled: one water-fill with each server's segment split over
-//    a cluster of G CTAs.
+// 4. waterfill_tiled: one water-fill of a fleet the reference tiles.
 //
 // Replaces kernel.py:waterfill_tiled. On the TPU the tiled kernel streams
 // a fleet too large for VMEM through one core tile by tile, with the
 // per-camera brackets in HBM between sweeps. On this card nothing has to
-// be streamed (the brackets already live in the [5, N] global scratch);
-// what a large segment lacks is parallelism: one CTA per server puts the
-// whole virtual server (S = 1) on one SM of 132. So here a server's
-// segment is split over the G CTAs of a thread-block cluster, G a power
-// of two <= 8 chosen on the host from N, S and the tile (about `tile`
-// cameras per CTA), never from the per-server counts on the device. CTA g
-// owns positions j = g (mod G) (ClusterTeam); each dual evaluation's fill
-// sum is one class sum per CTA plus one cluster barrier, and the residue
-// split keeps the sum bitwise equal to segment_sum and to the plain
-// version. Bound as kernel 2: the serial chain of dual evaluations; G CTAs
-// shorten each evaluation's per-camera work G-fold and add a cluster
-// barrier to it.
+// be streamed (registers hold a thread's cameras); what a large segment
+// lacks is parallelism, which the team gives it: MIN's virtual server of
+// 100,000 cameras runs on 128 CTAs. The same routine as kernel 2: the
+// reference's switch between its two kernels (ops.tiled_group) picks the
+// launch counter and the profiler name, not the schedule.
 // --------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kTiledThreads) waterfill_tiled_kernel(
+__global__ void __launch_bounds__(kFillThreads) waterfill_tiled_kernel(
     int mode, const float* __restrict__ coef, const float* __restrict__ p,
     const int* __restrict__ pol, const float* __restrict__ other,
     const float* __restrict__ budgets, float margin,
     const int* __restrict__ order, const int* __restrict__ starts,
-    const int* __restrict__ counts, int n, int group, int outer, int inner,
-    int final_inner, float* __restrict__ scratch, float* __restrict__ out) {
-  __shared__ float slots[2];
-  ClusterTeam team{static_cast<int>(cg::this_cluster().block_rank()), group,
-                   slots, 0};
-  fill_server(team, blockIdx.x / group, mode, coef, p, pol, other, budgets,
-              margin, order, starts, counts, n, outer, inner, final_inner,
-              scratch, out);
-  team.finish();
+    const int* __restrict__ counts, int n, int n_servers, int group,
+    int sync, int outer, int inner, int final_inner,
+    float* __restrict__ scratch, unsigned long long* gslots,
+    float* __restrict__ out) {
+  fill_servers(mode, coef, p, pol, other, budgets, margin, order, starts,
+               counts, n, n_servers, group, sync, outer, inner, final_inner,
+               scratch, gslots, out);
 }
 
 // --------------------------------------------------------------------------
@@ -646,6 +994,62 @@ __global__ void baseline_argmax_kernel(
   r_out[i] = best_flat % n_r;
 }
 
+// Launch a water-fill kernel, `group` CTAs of `threads` per server: a
+// plain launch (group 1) or clusters of `group` CTAs, one per server; or
+// a cooperative launch (every CTA co-resident, as the grid barrier needs)
+// of as many teams as fit, each walking the servers s = team (mod teams).
+template <typename Kernel, typename... Args>
+cudaError_t launch_fill(Kernel kernel, int n_servers, int group,
+                        int threads, int sync, cudaStream_t stream,
+                        Args... args) {
+  const bool pow2 = (group & (group - 1)) == 0 &&
+                    (threads & (threads - 1)) == 0;
+  if (group < 1 || group > kMaxGroup || threads < 32 ||
+      threads > kFillThreads || !pow2 || (group == 1) != (sync == kSyncNone) ||
+      sync < kSyncNone || sync > kSyncGrid ||
+      (sync == kSyncCluster && group > kMaxCluster))
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_servers * group);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  if (sync == kSyncCluster) {
+    if (group > 8) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return err;
+    }
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = group;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  } else if (sync == kSyncGrid) {
+    // Every CTA co-resident: as many teams as fit, each walking servers.
+    int per_sm = 0, sms = 0, dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          threads, 0);
+    if (err != cudaSuccess) return err;
+    const int fit = per_sm * sms / group;
+    const int teams = fit < n_servers ? fit : n_servers;
+    if (teams < 1) return cudaErrorCooperativeLaunchTooLarge;
+    cfg.gridDim = dim3(teams * group);
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -670,57 +1074,48 @@ int slot_config_argmin(const float* b, const float* c, const float* eff,
 int slot_waterfill(int mode, const float* coef, const float* p,
                    const int* pol, const float* other, const float* budgets,
                    float margin, const int* order, const int* starts,
-                   const int* counts, int n, int n_servers, int outer,
-                   int inner, int final_inner, float* scratch, float* out,
+                   const int* counts, int n, int n_servers, int group,
+                   int threads, int sync, int outer, int inner,
+                   int final_inner, float* scratch,
+                   unsigned long long* gslots, float* out,
                    cudaStream_t stream) {
   if (n == 0 || n_servers == 0) return cudaSuccess;
-  waterfill_kernel<<<n_servers, kFillThreads, 0, stream>>>(
-      mode, coef, p, pol, other, budgets, margin, order, starts, counts, n,
-      outer, inner, final_inner, scratch, out);
-  return cudaGetLastError();
+  return launch_fill(waterfill_kernel, n_servers, group, threads, sync,
+                     stream, mode, coef, p, pol, other, budgets, margin,
+                     order, starts, counts, n, n_servers, group, sync, outer,
+                     inner, final_inner, scratch, gslots, out);
 }
 
 int slot_waterfill_pair(const float* k, const float* p, const int* pol,
                         const float* mu, const float* inv_xi,
                         const float* budgets_b, const float* budgets_c,
                         float margin, const int* order, const int* starts,
-                        const int* counts, int n, int n_servers, int outer,
-                        int inner, int final_inner, float* scratch,
-                        float* out_b, float* out_c, cudaStream_t stream) {
+                        const int* counts, int n, int n_servers, int group,
+                        int threads, int sync, int outer, int inner,
+                        int final_inner, float* scratch,
+                        unsigned long long* gslots, float* out_b, float* out_c,
+                        cudaStream_t stream) {
   if (n == 0 || n_servers == 0) return cudaSuccess;
-  waterfill_pair_kernel<<<n_servers, kFillThreads, 0, stream>>>(
-      k, p, pol, mu, inv_xi, budgets_b, budgets_c, margin, order, starts,
-      counts, n, outer, inner, final_inner, scratch, out_b, out_c);
-  return cudaGetLastError();
+  return launch_fill(waterfill_pair_kernel, n_servers, group, threads, sync,
+                     stream, k, p, pol, mu, inv_xi, budgets_b, budgets_c,
+                     margin, order, starts, counts, n, n_servers, group, sync,
+                     outer, inner, final_inner, scratch, gslots, out_b,
+                     out_c);
 }
 
 int slot_waterfill_tiled(int mode, const float* coef, const float* p,
                          const int* pol, const float* other,
                          const float* budgets, float margin, const int* order,
                          const int* starts, const int* counts, int n,
-                         int n_servers, int group, int outer, int inner,
-                         int final_inner, float* scratch, float* out,
-                         cudaStream_t stream) {
+                         int n_servers, int group, int threads, int sync,
+                         int outer, int inner, int final_inner,
+                         float* scratch, unsigned long long* gslots,
+                         float* out, cudaStream_t stream) {
   if (n == 0 || n_servers == 0) return cudaSuccess;
-  if (group < 1 || group > kMaxGroup || (group & (group - 1)) != 0)
-    return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_servers * group);
-  cfg.blockDim = dim3(kTiledThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = group;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, waterfill_tiled_kernel, mode, coef, p, pol, other, budgets,
-      margin, order, starts, counts, n, group, outer, inner, final_inner,
-      scratch, out);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return launch_fill(waterfill_tiled_kernel, n_servers, group, threads, sync,
+                     stream, mode, coef, p, pol, other, budgets, margin,
+                     order, starts, counts, n, n_servers, group, sync, outer,
+                     inner, final_inner, scratch, gslots, out);
 }
 
 int slot_baseline_argmax(const float* b, const float* c, const float* eff,

@@ -18,25 +18,29 @@ SOURCES = (Path(__file__).resolve().parent / "csrc" / "slot_solver.cu",)
 MODE_BANDWIDTH = 0
 MODE_COMPUTE = 1
 BASELINE_MODES = {"dos": 0, "jcab": 1}
-MAX_GROUP = 8        # CTAs per server of waterfill_tiled (a portable cluster)
+MAX_GROUP = 128      # most CTAs per server of a water-fill
+MAX_CLUSTER = 16     # most CTAs of a cluster (above 8 a non-portable one)
+MAX_THREADS = 256    # most threads per water-fill CTA
+SLOTS = 4            # cameras a water-fill thread keeps in registers
+SYNC = {"none": 0, "cluster": 1, "grid": 2}   # how a server's CTAs meet
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # b, c, eff, acc, xi, size, q*, v, n_total, n, n_m, n_r, r, m, pol, stream
     "slot_config_argmin": [_P] * 7 + [_F, _F, _I, _I, _I] + [_P] * 4,
     # mode, coef, p, pol, other, budgets, margin, order, starts, counts,
-    # n, n_servers, outer, inner, final, scratch, out, stream
-    "slot_waterfill": [_I] + [_P] * 5 + [_F] + [_P] * 3 + [_I] * 5 +
-                      [_P] * 3,
+    # n, n_servers, group, threads, sync, outer, inner, final, scratch,
+    # slots, out, stream
+    "slot_waterfill": [_I] + [_P] * 5 + [_F] + [_P] * 3 + [_I] * 8 +
+                      [_P] * 4,
     # k, p, pol, mu, inv_xi, budgets_b, budgets_c, margin, order, starts,
-    # counts, n, n_servers, outer, inner, final, scratch, out_b, out_c,
-    # stream
-    "slot_waterfill_pair": [_P] * 7 + [_F] + [_P] * 3 + [_I] * 5 +
-                           [_P] * 4,
-    # mode, coef, p, pol, other, budgets, margin, order, starts, counts,
-    # n, n_servers, group, outer, inner, final, scratch, out, stream
-    "slot_waterfill_tiled": [_I] + [_P] * 5 + [_F] + [_P] * 3 + [_I] * 6 +
-                            [_P] * 3,
+    # counts, n, n_servers, group, threads, sync, outer, inner, final,
+    # scratch, slots, out_b, out_c, stream
+    "slot_waterfill_pair": [_P] * 7 + [_F] + [_P] * 3 + [_I] * 8 +
+                           [_P] * 5,
+    # as slot_waterfill
+    "slot_waterfill_tiled": [_I] + [_P] * 5 + [_F] + [_P] * 3 + [_I] * 8 +
+                            [_P] * 4,
     # b, c, eff, acc, xi, size, thresh, mode, n, n_m, n_r, m, r, stream
     "slot_baseline_argmax": [_P] * 6 + [_F] + [_I] * 4 + [_P] * 3,
 }
@@ -69,6 +73,10 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _ptr_or_null(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
 def _launch(name: str, *args) -> None:
     lib = _Library.get()
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -87,34 +95,33 @@ def config_argmin(b, c, eff, acc, xi, size, q, v: float, n_total: int,
             _ptr(pol_out))
 
 
+def _plan_args(plan, effort):
+    return (_I(plan.group), _I(plan.threads), _I(SYNC[plan.sync]),
+            *map(_I, effort))
+
+
 def waterfill(mode: int, coef, p, pol, other, budgets, margin: float, order,
-              starts, counts, outer: int, inner: int, final: int, scratch,
-              out) -> None:
-    _launch("slot_waterfill", _I(mode), _ptr(coef), _ptr(p), _ptr(pol),
-            _ptr(other), _ptr(budgets), _F(margin), _ptr(order),
-            _ptr(starts), _ptr(counts), _I(coef.shape[0]),
-            _I(counts.shape[0]), _I(outer), _I(inner), _I(final),
-            _ptr(scratch), _ptr(out))
+              starts, counts, plan, effort, scratch, slots, out,
+              tiled: bool = False) -> None:
+    """One water-fill, ``waterfill_kernel`` or (``tiled``)
+    ``waterfill_tiled_kernel``, on ``plan``'s CTAs; ``slots`` is the grid
+    exchange's zeroed int64 ``[S, 2 + G]`` or ``None``."""
+    _launch("slot_waterfill_tiled" if tiled else "slot_waterfill",
+            _I(mode), _ptr(coef), _ptr(p), _ptr(pol), _ptr(other),
+            _ptr(budgets), _F(margin), _ptr(order), _ptr(starts),
+            _ptr(counts), _I(coef.shape[0]), _I(counts.shape[0]),
+            *_plan_args(plan, effort), _ptr(scratch), _ptr_or_null(slots),
+            _ptr(out))
 
 
 def waterfill_pair(k, p, pol, mu, inv_xi, budgets_b, budgets_c,
-                   margin: float, order, starts, counts, outer: int,
-                   inner: int, final: int, scratch, out_b, out_c) -> None:
+                   margin: float, order, starts, counts, plan, effort,
+                   scratch, slots, out_b, out_c) -> None:
     _launch("slot_waterfill_pair", _ptr(k), _ptr(p), _ptr(pol), _ptr(mu),
             _ptr(inv_xi), _ptr(budgets_b), _ptr(budgets_c), _F(margin),
             _ptr(order), _ptr(starts), _ptr(counts), _I(k.shape[0]),
-            _I(counts.shape[0]), _I(outer), _I(inner), _I(final),
-            _ptr(scratch), _ptr(out_b), _ptr(out_c))
-
-
-def waterfill_tiled(mode: int, coef, p, pol, other, budgets, margin: float,
-                    order, starts, counts, group: int, outer: int,
-                    inner: int, final: int, scratch, out) -> None:
-    _launch("slot_waterfill_tiled", _I(mode), _ptr(coef), _ptr(p),
-            _ptr(pol), _ptr(other), _ptr(budgets), _F(margin), _ptr(order),
-            _ptr(starts), _ptr(counts), _I(coef.shape[0]),
-            _I(counts.shape[0]), _I(group), _I(outer), _I(inner), _I(final),
-            _ptr(scratch), _ptr(out))
+            _I(counts.shape[0]), *_plan_args(plan, effort), _ptr(scratch),
+            _ptr_or_null(slots), _ptr(out_b), _ptr(out_c))
 
 
 def baseline_argmax(b, c, eff, acc, xi, size, threshold: float, mode: str,

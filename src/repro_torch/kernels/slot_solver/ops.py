@@ -7,9 +7,9 @@ to the plain version. ``launches`` counts kernel launches per kernel (the
 plain version never counts).
 
 ``ServerLayout`` sorts cameras stably by server into contiguous per-server
-segments; the water-fill kernels run one CTA per segment (the tiled one a
-cluster of CTAs per segment), given the sorted camera order and each
-server's ``start``/``counts``. The layout
+segments; the water-fill kernels spread each segment over a team of G
+CTAs (:func:`fill_plan`), given the sorted camera order and each server's
+``start``/``counts``. The layout
 also keeps the JAX package's lane-padded flat view and ``[S, C]`` row view
 (``repro.kernels.slot_solver.ops.ServerLayout``), so the two can be
 compared field by field.
@@ -17,6 +17,7 @@ compared field by field.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -24,6 +25,13 @@ from . import kernel, ref
 from ...core import allocate
 
 _LANE = 128          # the reference's padding width (its TPU lane width)
+H100_SMS = 132       # SMs of an H100 SXM, tiled_group's default
+# Largest G whose CTAs meet as a cluster (16: a non-portable one); above
+# it, through global memory under a cooperative launch. At G = 16 the
+# cluster took 9% less than the grid where the sums set the time (a
+# waterfill_pair of 10,000 cameras) and 3% more where the bisections do
+# (100,000 cameras): PERF.md, section 6, PR 18.
+CLUSTER_UP_TO = 16
 
 # Kernel launches per kernel name since the last ``reset_launches()``.
 launches = {"config_argmin": 0, "waterfill": 0, "waterfill_pair": 0,
@@ -203,24 +211,88 @@ def _check_fill(name, vectors, pol, budgets, n_servers, layout):
                          f"{n_servers}")
 
 
-def tiled_group(n_cameras: int, n_servers: int, tile_n: int | None
-                ) -> int | None:
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+@dataclasses.dataclass(frozen=True)
+class FillPlan:
+    """How a water-fill launch spreads each server: ``group`` CTAs of
+    ``threads`` threads (both powers of two), which meet through ``sync``:
+    ``"none"`` (one CTA, a plain launch), ``"cluster"`` or ``"grid"``."""
+    group: int
+    threads: int
+    sync: str
+
+
+def fill_plan(n_cameras: int, n_servers: int, n_sms: int, *,
+              group: int | None = None, threads: int | None = None,
+              sync: str | None = None) -> FillPlan:
+    """The water-fill kernels' team, from the sizes alone (never the
+    per-server counts on the device): G, the power of two that gives a
+    mean segment's cameras one thread each in CTAs of ``kernel.MAX_THREADS``
+    (G = 1 where it fits one CTA), at most the largest with S * G <=
+    ``n_sms`` (one wave of the card) and ``kernel.MAX_GROUP``; T, the power
+    of two in [32, MAX_THREADS] that holds a mean segment's share of a CTA
+    at about one camera a thread. ``group``, ``threads`` and ``sync`` pin
+    their part of the plan."""
+    s = max(n_servers, 1)
+    mean = -(-n_cameras // s)
+    if group is None:
+        group = 1
+        while (group * kernel.MAX_THREADS < mean and 2 * group * s <= n_sms
+               and group < kernel.MAX_GROUP):
+            group *= 2
+    if not (1 <= group <= kernel.MAX_GROUP) or group & (group - 1):
+        raise ValueError(f"water-fill: group={group} is not a power of two "
+                         f"in [1, {kernel.MAX_GROUP}]")
+    if threads is None:
+        threads = min(max(_pow2_ceil(-(-mean // group)), 32),
+                      kernel.MAX_THREADS)
+    if not (32 <= threads <= kernel.MAX_THREADS) or threads & (threads - 1):
+        raise ValueError(f"water-fill: threads={threads} is not a power of "
+                         f"two in [32, {kernel.MAX_THREADS}]")
+    if sync is None:
+        sync = ("none" if group == 1 else
+                "cluster" if group <= CLUSTER_UP_TO else "grid")
+    if (sync not in kernel.SYNC or (sync == "none") != (group == 1)
+            or (sync == "cluster" and group > kernel.MAX_CLUSTER)):
+        raise ValueError(f"water-fill: sync={sync!r} does not fit "
+                         f"group={group}")
+    return FillPlan(group, threads, sync)
+
+
+def tiled_group(n_cameras: int, n_servers: int, tile_n: int | None,
+                n_sms: int = H100_SMS) -> int | None:
     """CTAs per server of the tiled water-fill, or None for the untiled
     kernel. As in the reference, ``tile_n`` is rounded up to the 128-wide
     padding and the fleet is tiled when its padded width exceeds one tile;
-    then each server gets the power of two G <= ``kernel.MAX_GROUP`` that
-    puts about one tile of a mean-sized segment on each CTA. G depends on
-    the sizes alone, never on the per-server counts on the device."""
+    then G is :func:`fill_plan`'s, from the sizes alone."""
     if tile_n is None:
         return None
     tile = max(_LANE, -(-int(tile_n) // _LANE) * _LANE)
     if max(_LANE, -(-n_cameras // _LANE) * _LANE) <= tile:
         return None
-    want = -(-n_cameras // (max(n_servers, 1) * tile))
-    group = 1
-    while group < min(want, kernel.MAX_GROUP):
-        group *= 2
-    return group
+    return fill_plan(n_cameras, n_servers, n_sms).group
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_on(dev: torch.device, n: int, n_servers: int, **pins) -> FillPlan:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return fill_plan(n, n_servers, _sm_count(index), **pins)
+
+
+def _grid_slots(plan: FillPlan, n_servers: int, dev):
+    """The grid exchange's words, zeroed: per server an arrival count, the
+    total and G words of partials. None for other plans."""
+    if plan.sync != "grid":
+        return None
+    return torch.zeros(n_servers * (2 + plan.group), dtype=torch.int64,
+                       device=dev)
 
 
 _FILL_MODES = {"bandwidth": kernel.MODE_BANDWIDTH,
@@ -228,29 +300,25 @@ _FILL_MODES = {"bandwidth": kernel.MODE_BANDWIDTH,
 
 
 def _fill(mode, coef, p, pol, other, budgets, margin, server_id, n_servers,
-          effort, layout, group):
+          effort, layout, tiled, pins):
     """Check and launch one water-fill on CUDA tensors: the ``waterfill``
-    kernel, or ``waterfill_tiled`` with ``group`` CTAs per server."""
-    name = "waterfill" if group is None else "waterfill_tiled"
-    if group is not None and (group < 1 or group > kernel.MAX_GROUP
-                              or group & (group - 1)):
-        raise ValueError(f"waterfill_tiled: group={group} is not a power "
-                         f"of two in [1, {kernel.MAX_GROUP}]")
+    kernel, or ``waterfill_tiled``; ``pins`` fix parts of the plan."""
+    name = "waterfill_tiled" if tiled else "waterfill"
+    n = coef.shape[0]
+    plan = _plan_on(coef.device, n, n_servers, **pins)
     if layout is None:
         layout = server_layout(server_id, n_servers)
     vecs = (("k", "mu") if mode == "bandwidth" else ("inv_xi", "lam"))
     _check_fill(f"{name}({mode})",
                 ((vecs[0], coef), ("p", p), (vecs[1], other)), pol,
                 (("budgets", budgets),), n_servers, layout)
-    n = coef.shape[0]
     out = torch.empty_like(coef)
     scratch = torch.empty((5, n), dtype=torch.float32, device=coef.device)
-    args = (_FILL_MODES[mode], coef, p, pol, other, budgets, float(margin),
-            layout.camera_order, layout.start, layout.counts)
-    if group is None:
-        kernel.waterfill(*args, *effort, scratch, out)
-    else:
-        kernel.waterfill_tiled(*args, group, *effort, scratch, out)
+    kernel.waterfill(_FILL_MODES[mode], coef, p, pol, other, budgets,
+                     float(margin), layout.camera_order, layout.start,
+                     layout.counts, plan, effort, scratch,
+                     _grid_slots(plan, n_servers, coef.device), out,
+                     tiled=tiled)
     launches[name] += 1
     return out
 
@@ -259,13 +327,16 @@ def waterfill_bandwidth(k, p, pol, mu, server_id, budgets, n_servers: int,
                         outer_iters: int = 16, inner_iters: int = 6,
                         final_inner_iters: int = 20, *,
                         layout: ServerLayout | None = None,
-                        tile_n: int | None = None, group: int | None = None):
+                        tile_n: int | None = None, group: int | None = None,
+                        threads: int | None = None, sync: str | None = None):
     """Bandwidth b[n] (Hz) per server budget; the signature of
     ``allocate.waterfill_bandwidth`` plus an optional prebuilt layout and
     ``tile_n``, which launches the ``waterfill_tiled`` kernel where
-    :func:`tiled_group` says so. ``group`` pins the tiled kernel's CTAs per
-    server (a power of two <= ``kernel.MAX_GROUP``) instead. On the CPU
-    both only name a launch: the plain version is the same function."""
+    :func:`tiled_group` says so. ``group`` launches the tiled kernel with
+    that many CTAs per server (a power of two <= ``kernel.MAX_GROUP``)
+    instead; ``threads`` and ``sync`` pin the rest of :func:`fill_plan`.
+    On the CPU all of them only name a launch: the plain version is the
+    same function."""
     if not _on_cuda(k):
         return allocate.waterfill_bandwidth(
             k, p, pol, mu, server_id, budgets, n_servers,
@@ -273,8 +344,9 @@ def waterfill_bandwidth(k, p, pol, mu, server_id, budgets, n_servers: int,
             final_inner_iters=final_inner_iters)
     return _fill("bandwidth", k, p, pol, mu, budgets, 0.0, server_id,
                  n_servers, (outer_iters, inner_iters, final_inner_iters),
-                 layout, group if group is not None
-                 else tiled_group(k.shape[0], n_servers, tile_n))
+                 layout, group is not None or
+                 tiled_group(k.shape[0], n_servers, tile_n) is not None,
+                 dict(group=group, threads=threads, sync=sync))
 
 
 def waterfill_compute(inv_xi, p, pol, lam, server_id, budgets,
@@ -282,10 +354,12 @@ def waterfill_compute(inv_xi, p, pol, lam, server_id, budgets,
                       outer_iters: int = 16, inner_iters: int = 6,
                       final_inner_iters: int = 20, *,
                       layout: ServerLayout | None = None,
-                      tile_n: int | None = None, group: int | None = None):
+                      tile_n: int | None = None, group: int | None = None,
+                      threads: int | None = None, sync: str | None = None):
     """Computation c[n] (FLOPS) per server budget; the signature of
     ``allocate.waterfill_compute`` plus an optional prebuilt layout,
-    ``tile_n`` and ``group`` (as in :func:`waterfill_bandwidth`)."""
+    ``tile_n``, ``group``, ``threads`` and ``sync`` (as in
+    :func:`waterfill_bandwidth`)."""
     if not _on_cuda(inv_xi):
         return allocate.waterfill_compute(
             inv_xi, p, pol, lam, server_id, budgets, n_servers,
@@ -294,36 +368,44 @@ def waterfill_compute(inv_xi, p, pol, lam, server_id, budgets,
     return _fill("compute", inv_xi, p, pol, lam, budgets, stability_margin,
                  server_id, n_servers,
                  (outer_iters, inner_iters, final_inner_iters), layout,
-                 group if group is not None
-                 else tiled_group(inv_xi.shape[0], n_servers, tile_n))
+                 group is not None or
+                 tiled_group(inv_xi.shape[0], n_servers, tile_n) is not None,
+                 dict(group=group, threads=threads, sync=sync))
 
 
 def waterfill_pair(k, p, pol, mu, inv_xi, server_id, budgets_b, budgets_c,
                    n_servers: int, stability_margin: float = 1.05,
                    outer_iters: int = 16, inner_iters: int = 6,
                    final_inner_iters: int = 20, *,
-                   layout: ServerLayout | None = None):
+                   layout: ServerLayout | None = None,
+                   group: int | None = None, threads: int | None = None,
+                   sync: str | None = None):
     """Both water-fills of a BCD pass (lines 4 and 5) in one launch:
     ``waterfill_bandwidth`` then ``waterfill_compute`` at ``lam = b * k``.
-    Returns ``(b, c)`` in Hz / FLOPS."""
+    Returns ``(b, c)`` in Hz / FLOPS. ``group``, ``threads`` and ``sync``
+    pin parts of :func:`fill_plan`."""
     if not _on_cuda(k):
         return allocate.waterfill_pair(
             k, p, pol, mu, inv_xi, server_id, budgets_b, budgets_c,
             n_servers, stability_margin=stability_margin,
             outer_iters=outer_iters, inner_iters=inner_iters,
             final_inner_iters=final_inner_iters)
+    n = k.shape[0]
+    plan = _plan_on(k.device, n, n_servers, group=group, threads=threads,
+                    sync=sync)
     if layout is None:
         layout = server_layout(server_id, n_servers)
     _check_fill("waterfill_pair",
                 (("k", k), ("p", p), ("mu", mu), ("inv_xi", inv_xi)), pol,
                 (("budgets_b", budgets_b), ("budgets_c", budgets_c)),
                 n_servers, layout)
-    n = k.shape[0]
     out = torch.empty((2, n), dtype=torch.float32, device=k.device)
     scratch = torch.empty((5, n), dtype=torch.float32, device=k.device)
     kernel.waterfill_pair(k, p, pol, mu, inv_xi, budgets_b, budgets_c,
                           stability_margin, layout.camera_order, layout.start,
-                          layout.counts, outer_iters, inner_iters,
-                          final_inner_iters, scratch, out[0], out[1])
+                          layout.counts, plan,
+                          (outer_iters, inner_iters, final_inner_iters),
+                          scratch, _grid_slots(plan, n_servers, k.device),
+                          out[0], out[1])
     launches["waterfill_pair"] += 1
     return out[0], out[1]

@@ -182,25 +182,82 @@ def test_gpu_baseline_argmax_bitwise(cuda, n, mode, threshold):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("group", [2, 8])
+# (G, how the G CTAs of a server meet): every barrier kind built at G.
+TEAMS = [(1, "none"), (2, "cluster"), (2, "grid"), (8, "cluster"),
+         (8, "grid"), (16, "cluster"), (16, "grid"), (128, "grid")]
+
+
+@pytest.mark.parametrize("group,sync", TEAMS)
 @pytest.mark.parametrize("case", sorted(FILL_CASES))
-def test_gpu_waterfill_tiled_matches_plain(cuda, case, group):
+def test_gpu_waterfill_tiled_matches_plain(cuda, case, group, sync):
     """The tiled kernel adds its fill sums by residue class in the plain
-    version's tree order, so it agrees bitwise, whatever the group."""
+    version's tree order, so it agrees bitwise, whatever the team: empty
+    servers, CTAs with no camera and segments shorter than G * T
+    included."""
     t = _fill_setup(cuda, **FILL_CASES[case])
     s = t["s"]
     args_b = (t["k"], t["p"], t["pol"], t["mu"], t["sid"], t["bb"], s)
     ops.reset_launches()
-    b_k = ops.waterfill_bandwidth(*args_b, group=group)
+    b_k = ops.waterfill_bandwidth(*args_b, group=group, sync=sync)
     b_p = allocate.waterfill_bandwidth(*args_b)
     args_c = (t["inv_xi"], t["p"], t["pol"], b_p * t["k"], t["sid"],
               t["bc"], s)
-    c_k = ops.waterfill_compute(*args_c, group=group)
+    c_k = ops.waterfill_compute(*args_c, group=group, sync=sync)
     c_p = allocate.waterfill_compute(*args_c)
     torch.cuda.synchronize()
     assert ops.launches["waterfill_tiled"] == 2
     assert torch.equal(b_k, b_p)
     assert torch.equal(c_k, c_p)
+
+
+@pytest.mark.parametrize("group,sync", TEAMS)
+@pytest.mark.parametrize("case", sorted(FILL_CASES))
+def test_gpu_waterfill_pair_teams_match_plain(cuda, case, group, sync):
+    """waterfill_pair on G CTAs a server: still one launch, bitwise."""
+    t = _fill_setup(cuda, **FILL_CASES[case])
+    args = (t["k"], t["p"], t["pol"], t["mu"], t["inv_xi"], t["sid"],
+            t["bb"], t["bc"], t["s"])
+    ops.reset_launches()
+    b_k, c_k = ops.waterfill_pair(*args, group=group, sync=sync)
+    b_p, c_p = allocate.waterfill_pair(*args)
+    torch.cuda.synchronize()
+    assert ops.launches == {"config_argmin": 0, "waterfill": 0,
+                            "waterfill_pair": 1, "waterfill_tiled": 0,
+                            "baseline_argmax": 0}
+    assert torch.equal(b_k, b_p)
+    assert torch.equal(c_k, c_p)
+
+
+@pytest.mark.parametrize("n,s,pins", [
+    (100_000, 1, {}),                    # MIN's virtual server: G = 128
+    (10_000, 1, {}),                     # LBCD's virtual server
+    (10_000, 32, {}),                    # LBCD's servers: G = 4
+    (10_000, 32, dict(group=16, sync="cluster")),
+    (10_000, 1, dict(group=2, threads=64)),      # 78 cameras a thread:
+    (3_000, 200, {}),                            # spilled past the slots
+])
+def test_gpu_waterfills_at_scale_match_plain(cuda, n, s, pins):
+    """The main path's shapes at the host rule's plan (and pinned ones),
+    tiled and pair kernels, bitwise; the counters count one launch per
+    call."""
+    t = _fill_setup(cuda, n, s, seed=n + s, budget_lo=2e7 * n / s / 4,
+                    budget_hi=5e7 * n / s / 4)
+    plan = ops.fill_plan(n, s, torch.cuda.get_device_properties(
+        cuda).multi_processor_count, **pins)
+    args_b = (t["k"], t["p"], t["pol"], t["mu"], t["sid"], t["bb"], s)
+    args_pair = (t["k"], t["p"], t["pol"], t["mu"], t["inv_xi"], t["sid"],
+                 t["bb"], t["bc"], s)
+    ops.reset_launches()
+    b_k = ops.waterfill_bandwidth(*args_b, group=plan.group,
+                                  threads=plan.threads, sync=plan.sync)
+    pb_k, pc_k = ops.waterfill_pair(*args_pair, **pins)
+    torch.cuda.synchronize()
+    assert ops.launches["waterfill_tiled"] == 1
+    assert ops.launches["waterfill_pair"] == 1
+    assert torch.equal(b_k, allocate.waterfill_bandwidth(*args_b))
+    pb_p, pc_p = allocate.waterfill_pair(*args_pair)
+    assert torch.equal(pb_k, pb_p)
+    assert torch.equal(pc_k, pc_p)
 
 
 def test_gpu_tile_n_selects_the_tiled_kernel(cuda):
@@ -228,9 +285,13 @@ def test_gpu_new_wrappers_refuse_bad_inputs(cuda):
                             threshold=0.5)
     t = _fill_setup(cuda, n=12, s=3)
     args_b = (t["k"], t["p"], t["pol"], t["mu"], t["sid"], t["bb"], 3)
-    for group in (0, 3, 16):
+    for group in (0, 3, 256):
         with pytest.raises(ValueError, match="power of two"):
             ops.waterfill_bandwidth(*args_b, group=group)
+    with pytest.raises(ValueError, match="does not fit"):
+        ops.waterfill_pair(t["k"], t["p"], t["pol"], t["mu"], t["inv_xi"],
+                           t["sid"], t["bb"], t["bc"], 3, group=32,
+                           sync="cluster")
     with pytest.raises(TypeError, match="dtype"):
         ops.waterfill_bandwidth(t["k"], t["p"], t["pol"].float(),
                                 *args_b[3:], group=2)

@@ -347,11 +347,11 @@ def test_residue_class_split_equals_tree_sum_hypothesis():
 
 
 @pytest.mark.parametrize("n,s,tile,group", [
-    (100_000, 1, 16384, 8),      # MIN's virtual server at auto's tile
+    (100_000, 1, 16384, 128),    # MIN's virtual server at auto's tile
     (10_000, 32, 256, 2),        # LBCD with tile=256: ~312 per server
-    (100_000, 32, 128, 8),       # capped at one portable cluster
+    (100_000, 32, 128, 4),       # one wave: 32 x 4 CTAs <= 132 SMs
     (300, 5, 128, 1),            # tiled, but a mean segment fits one CTA
-    (1001, 7, 128, 2),
+    (1001, 7, 128, 1),
     (128, 1, 128, None),         # the fleet fits in one tile: untiled
     (300, 5, None, None),
 ])
@@ -363,6 +363,184 @@ def test_tiled_group_follows_the_reference_switch(n, s, tile, group):
         cap = j_ss.server_layout(jnp.zeros(n, jnp.int32), s).flat_order.shape[0]
         rounded = max(128, -(-tile // 128) * 128)
         assert (group is not None) == (cap > rounded)
+
+
+# ---------------------------------------------------------------------------
+# The water-fill team's fill sum (csrc Team::sum), step by step
+# ---------------------------------------------------------------------------
+
+def _shfl_down(v, h):
+    """__shfl_down_sync over one warp: lane l reads lane l + h, or keeps
+    its own value where l + h is past the warp."""
+    return np.concatenate([v[h:], v[32 - h:]])
+
+
+def _team_sum(x, group, threads, slots=t_kernel.SLOTS):
+    """The kernels' fill sum over a segment ``x`` as the team takes it:
+    thread t of CTA g owns class c = g + G t, positions c + Q i (Q = G T);
+    (1) each thread folds its class by the halving tree of width w = P/Q
+    (P = 2^k >= count), positions past ``slots`` through its scratch row
+    first, the rest in registers; (2) each CTA folds its T class sums, the
+    levels h >= 32 from one shared stage (lane l folds t = l + 32 k over
+    k), the levels below by shuffles; (3) every warp folds the G CTA
+    partials, lane l reading CTA l + 32 k, then by shuffles. Each level is
+    one float32 addition per pair, as in the kernel."""
+    x = np.asarray(x, np.float32)
+    count, q = x.size, group * threads
+    p = 1
+    while p < count:
+        p *= 2
+    w = p // q if p > q else 1
+    cls = np.arange(q)
+    pos = cls[None, :] + q * np.arange(max(w, slots))[:, None]
+    live = pos < count
+    vals = np.where(live, x[np.minimum(pos, max(count - 1, 0))]
+                    if count else 0, np.float32(0)).astype(np.float32)
+    # (1) the class trees: positions past the register slots fold through
+    # the scratch row (tmp) first, adding into the slots at each level.
+    reg, tmp = vals[:slots].copy(), vals.copy()
+    h = w // 2
+    while h >= slots:
+        src = vals if h == w // 2 else tmp
+        reg = reg + src[h:h + slots]
+        tmp[slots:h] = src[slots:h] + src[slots + h:2 * h]
+        h //= 2
+    h = slots // 2
+    while h >= 1:
+        if h < w:
+            reg[:h] = reg[:h] + reg[h:2 * h]
+        h //= 2
+    cls_sum = reg[0].reshape(threads, group)      # [t, g]: class g + G t
+    # (2) the CTA trees, one per g.
+    parts = []
+    for g in range(group):
+        s = cls_sum[:, g]
+        if threads > 32:
+            u = s.reshape(threads // 32, 32)       # u[k, lane] = t = l + 32k
+            k = threads // 64
+            while k >= 1:
+                u[:k] = u[:k] + u[k:2 * k]
+                k //= 2
+            s = u[0]
+        for hh in (16, 8, 4, 2, 1):
+            s = s + _shfl_down(s, hh)
+        parts.append(s[0])
+    # (3) the width-G tree, as one warp takes it.
+    if group == 1:
+        return parts[0]
+    ng = group // 32 if group > 32 else 1
+    lanes = np.arange(32)
+    u = np.stack([np.where(lanes + 32 * k < group,
+                           np.asarray(parts + [np.float32(0)] * 128,
+                                      np.float32)[lanes + 32 * k],
+                           np.float32(0)) for k in range(ng)])
+    k = ng // 2
+    while k >= 1:
+        u[:k] = u[:k] + u[k:2 * k]
+        k //= 2
+    s = u[0]
+    for hh in (16, 8, 4, 2, 1):
+        if hh < group:
+            s = s + _shfl_down(s, hh)
+    return s[0]
+
+
+TEAMS = [(1, 256), (4, 256), (16, 512), (128, 256)]
+TEAM_COUNTS = [0, 1, 2, 3, 7, 63, 64, 65, 1001, 4097, 10_000, 100_000]
+
+
+def _assert_team_sum_bitwise(count, group, threads, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.random(count) * 10.0 ** rng.integers(-3, 3, count)).astype(
+        np.float32)
+    want = t_alloc.tree_segment_sum(
+        _t(x), t_alloc.segment_tree(_t(np.zeros(count, np.int32)), 1))[0]
+    got = _team_sum(x, group, threads)
+    assert np.float32(want.item()) == got, (count, group, threads, seed)
+    if count <= 4097:        # the list-based model is slow beyond that
+        assert got == _kernel_segment_sum(x)
+    # The residue identity the team rests on: group G * T.
+    if count <= 10_000:
+        assert got == _residue_class_sum(x, group * threads)
+
+
+@pytest.mark.parametrize("group,threads", TEAMS)
+@pytest.mark.parametrize("count", TEAM_COUNTS)
+def test_team_sum_equals_tree_sum(count, group, threads):
+    """The team's fill sum (class trees in registers and scratch, the CTA
+    tree by one shared stage and shuffles, the width-G tree) is bitwise
+    the plain version's tree sum, at every (G, T) and count."""
+    _assert_team_sum_bitwise(count, group, threads,
+                             seed=count * 11 + group + threads)
+
+
+def test_team_sum_spills_past_the_register_slots():
+    """Segments larger than G * T * SLOTS fold their extra positions
+    through the scratch row first; the sum stays bitwise."""
+    for count, group, threads in ((300, 1, 32), (4097, 2, 64),
+                                  (100_000, 4, 256)):
+        assert count > group * threads * t_kernel.SLOTS
+        _assert_team_sum_bitwise(count, group, threads, seed=count)
+
+
+def test_team_sum_equals_tree_sum_hypothesis():
+    pytest.importorskip("hypothesis")
+    from hypothesis import given, settings, strategies as st
+
+    @settings(max_examples=60, deadline=None, database=None)
+    @given(st.integers(0, 5000), st.sampled_from(TEAMS + [(2, 32), (8, 64)]),
+           st.integers(0, 2**31 - 1))
+    def inner(count, team, seed):
+        _assert_team_sum_bitwise(count, *team, seed)
+    inner()
+
+
+@pytest.mark.parametrize("n_sms", [132, 114])
+def test_fill_plan_from_sizes_alone(n_sms):
+    """The host rule: powers of two, S * G within the SMs, G = 1 where a
+    mean segment fits one CTA (the paper setting), a thread a camera up to
+    one wave of the card (128 CTAs at N=100,000, S=1); the same plan for
+    the same sizes."""
+    for n, s in ((30, 3), (1, 1), (300, 5), (1001, 7), (10_000, 32),
+                 (100_000, 32), (10_000, 1), (100_000, 1), (3000, 200),
+                 (100_000, 7)):
+        plan = t_ops.fill_plan(n, s, n_sms)
+        assert plan == t_ops.fill_plan(n, s, n_sms)
+        g, th = plan.group, plan.threads
+        assert g & (g - 1) == 0 and th & (th - 1) == 0
+        assert 32 <= th <= t_kernel.MAX_THREADS
+        assert g == 1 or s * g <= n_sms
+        assert plan.sync == ("none" if g == 1 else "cluster"
+                             if g <= t_ops.CLUSTER_UP_TO else "grid")
+        mean = -(-n // s)
+        if mean <= t_kernel.MAX_THREADS:
+            assert g == 1 and th >= mean
+        elif g * t_kernel.MAX_THREADS < mean:
+            assert 2 * s * g > n_sms          # as wide as one wave allows
+        else:                                 # no wider than one a thread
+            assert g == 1 or (g // 2) * t_kernel.MAX_THREADS < mean
+    assert t_ops.fill_plan(30, 3, n_sms) == t_ops.FillPlan(1, 32, "none")
+    assert t_ops.fill_plan(100_000, 1, n_sms).group == (
+        128 if n_sms >= 128 else 64)
+    assert t_ops.fill_plan(10_000, 1, n_sms) == t_ops.FillPlan(64, 256,
+                                                               "grid")
+    assert t_ops.fill_plan(10_000, 32, n_sms).group == 2
+    # At the main path's shapes on an H100 SXM every camera has a register
+    # slot (on fewer SMs the largest segments spill: slower, as exact).
+    for n, s in ((100_000, 1), (10_000, 1), (10_000, 32), (100_000, 32)):
+        plan = t_ops.fill_plan(n, s, n_sms)
+        fits = plan.group * plan.threads * t_kernel.SLOTS >= n / s
+        assert fits or n_sms < t_ops.H100_SMS
+    # Pins: group beyond 8 is allowed, bad values raise.
+    assert t_ops.fill_plan(30, 3, n_sms, group=16).sync == "cluster"
+    assert t_ops.fill_plan(30, 3, n_sms, group=32).sync == "grid"
+    assert t_ops.fill_plan(30, 3, n_sms, group=16,
+                           sync="grid").sync == "grid"
+    for kw in (dict(group=3), dict(group=256), dict(threads=48),
+               dict(threads=512), dict(group=32, sync="cluster"),
+               dict(group=1, sync="grid"), dict(group=2, sync="none")):
+        with pytest.raises(ValueError):
+            t_ops.fill_plan(100, 1, n_sms, **kw)
 
 
 @pytest.mark.parametrize("n,s,tile", [(37, 3, 128), (130, 2, 128),
@@ -599,3 +777,8 @@ def test_cuda_source_has_the_three_kernels():
         assert name in t_kernel._ARGTYPES
     assert "__expf" not in src and "__fdividef" not in src
     assert f"kMaxGroup = {t_kernel.MAX_GROUP};" in src
+    assert f"kMaxCluster = {t_kernel.MAX_CLUSTER};" in src
+    assert f"kFillThreads = {t_kernel.MAX_THREADS};" in src
+    assert f"kSlots = {t_kernel.SLOTS};" in src
+    for name, value in t_kernel.SYNC.items():
+        assert f"kSync{name.capitalize()} = {value};" in src

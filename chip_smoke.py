@@ -12,7 +12,12 @@ Phases, each of which raises on failure (exit code non-zero):
   2. kernels  - each CUDA kernel against its plain PyTorch version on the
                 card at the main paths' shapes and at edge cases, with
                 CUDA-event and profiler times: config_argmin and
-                baseline_argmax index-bitwise, waterfill, waterfill_pair
+                baseline_argmax index-bitwise (on planted exact ties too:
+                ref.tied_scan_inputs), timed with the L2 warm and after a
+                128 MB read, with the lanes the library launches and an
+                issue floor from the SASS of their entry loops
+                (cuobjdump), config_argmin also at N=30; waterfill,
+                waterfill_pair
                 and waterfill_tiled bitwise (N=30, N=10,000 at S=1 and
                 S=32, N=100,000 at S=1 and S=32, edge cases, teams of 2,
                 16 and 128 CTAs), each
@@ -264,6 +269,124 @@ def fill_ops(pol, effort: dict, modes) -> float:
     return ops
 
 
+# Hopper issues one warp instruction per clock in each of an SM's four
+# partitions; a partition's special-function unit takes 8 clocks per warp
+# MUFU instruction (16 results per clock per SM).
+ISSUE_PER_SM = 4
+MUFU_CLOCKS = 8
+L2_FLUSH_BYTES = 128 << 20       # read between launches: > the 50 MB L2
+_FLUSH = {}
+
+
+def l2_flushed(fn, dev):
+    """``fn`` after a read of L2_FLUSH_BYTES, so it finds its inputs out of
+    the L2, as the first launch of a slot finds a new slot's table. A read,
+    not a write: a write would leave the L2 full of dirty lines, whose
+    write-back (~40 MB) the timed kernel would then pay. The read is its
+    own kernel: device_ms of ``fn``'s kernel leaves it out."""
+    import torch
+    if dev not in _FLUSH:
+        _FLUSH[dev] = (torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                                  device=dev),
+                       torch.empty((), dtype=torch.float32, device=dev))
+
+    def call():
+        buf, out = _FLUSH[dev]
+        torch.sum(buf, 0, out=out)
+        return fn()
+    return call
+
+
+def sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0])
+
+
+def sass_entry_loops(lib_path, kernel):
+    """The per-entry loops of ``kernel`` in the built library's SASS
+    (``cuobjdump -sass``), smallest first: each backward branch whose body
+    holds a MUFU and stores nothing (the scans' entry loops, one entry an
+    iteration: ``#pragma unroll 1``), as {"instructions": those on the
+    fast path (a division's slow-path call, which its branch skips, left
+    out), "mufu": MUFU instructions, "static": all}. None where the
+    toolkit has no cuobjdump."""
+    import shutil
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        tool = shutil.which("cuobjdump")
+        if tool is None:
+            return None
+    dump = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    return sass_loops(dump, kernel)
+
+
+def sass_loops(dump, kernel):
+    """sass_entry_loops on the text of a ``cuobjdump -sass`` dump."""
+    funcs = [f for f in re.split(r"\n\s*Function : ", dump)[1:]
+             if kernel in f.split("\n", 1)[0]]
+    if not funcs:
+        return []
+    body = funcs[0]
+    ops, where, labels, pending = [], {}, {}, []
+    for line in body.splitlines()[1:]:
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            labels.update((name, len(ops)) for name in pending)
+            pending = []
+            where[int(m.group(1), 16)] = len(ops)
+            ops.append(m.group(2))
+
+    def opcode(ins):
+        return re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
+
+    def target(ins):
+        m = re.search(r"\bBRA\b[^`(0-9]*`?\(?(\.L_x_\d+|0x[0-9a-f]+)", ins)
+        if not m:
+            return None
+        t = m.group(1)
+        return labels.get(t) if t.startswith(".") else where.get(int(t, 16))
+
+    loops = []
+    for end, ins in enumerate(ops):
+        start = target(ins)
+        if start is None or start > end:
+            continue
+        skipped = set()
+        for i in range(start, end):
+            to = target(ops[i])
+            if (ops[i].startswith("@") and to is not None and i < to <= end
+                    and any(opcode(x).startswith("CALL")
+                            for x in ops[i + 1:to])):
+                skipped.update(range(i + 1, to))
+        live = [opcode(ops[i]) for i in range(start, end + 1)
+                if i not in skipped]
+        mufu = sum(op.startswith("MUFU") for op in live)
+        if mufu and not any(op.startswith("ST") for op in live):
+            loops.append(dict(instructions=len(live), mufu=mufu,
+                              static=end - start + 1))
+    return sorted(loops, key=lambda x: x["instructions"])
+
+
+def issue_floor_ms(n, n_mr, lanes, loop, sms, clock_mhz):
+    """The least time the card takes to issue a scan's entry loop: each
+    warp of 32 / ``lanes`` live cameras runs ceil(n_mr / lanes) iterations
+    of ``loop`` (sass_entry_loops), each taking the larger of its
+    instructions (one a clock per partition) and its MUFUs'
+    special-function clocks."""
+    warps = -(-n // (32 // lanes))
+    iters = warps * -(-n_mr // lanes)
+    per_iter = max(loop["instructions"], MUFU_CLOCKS * loop["mufu"])
+    return iters * per_iter / (ISSUE_PER_SM * sms) / (clock_mhz * 1e3)
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -379,6 +502,9 @@ def check_kernels(d, label, timing: bool):
         ms=cuda_ms(lambda: ops.config_argmin(*cfg_args)),
         device_ms=device_ms(lambda: ops.config_argmin(*cfg_args),
                             "config_argmin_kernel"),
+        cold_device_ms=device_ms(l2_flushed(
+            lambda: ops.config_argmin(*cfg_args), d["b"].device),
+            "config_argmin_kernel"),
         plain_ms=cuda_ms(lambda: ref.config_argmin_ref(*cfg_args)),
         bytes=4 * (3 * n + n * m_r + m_r + d["acc"].shape[2] + 1 + 3 * n),
         ops=n * m_r * OPS_CONFIG_ITEM)
@@ -401,6 +527,8 @@ def check_kernels(d, label, timing: bool):
         dev = ("not measured" if r["device_ms"] is None
                else f"{r['device_ms']:.4f} ms")
         team = f", team {r['team']}" if "team" in r else ""
+        if "cold_device_ms" in r:
+            team += f", {r['cold_device_ms']} ms on the device L2 flushed"
         log(f"  {label} {name}: {r['ms']:.4f} ms per wrapper call (CUDA "
             f"events), {dev} on the device (profiler), {r['plain_ms']:.4f} "
             f"ms plain, bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
@@ -533,6 +661,8 @@ def check_baseline(d, label, mode, threshold, timing: bool):
 
     out.update(
         ms=cuda_ms(kern), device_ms=device_ms(kern, "baseline_argmax_kernel"),
+        cold_device_ms=device_ms(l2_flushed(kern, d["b"].device),
+                                 "baseline_argmax_kernel"),
         plain_ms=cuda_ms(lambda: ref.baseline_argmax_ref(
             *args, mode=mode, threshold=threshold)),
         bytes=4 * (3 * n + n * m_r + m_r + d["acc"].shape[2] + 2 * n),
@@ -541,9 +671,76 @@ def check_baseline(d, label, mode, threshold, timing: bool):
     dev = ("not measured" if out["device_ms"] is None
            else f"{out['device_ms']:.4f} ms")
     log(f"  {label} baseline_argmax {mode}: {out['ms']:.4f} ms per wrapper "
-        f"call, {dev} on the device, {out['plain_ms']:.4f} ms plain, bound "
+        f"call, {dev} on the device (L2 warm; {out['cold_device_ms']} ms "
+        f"flushed), {out['plain_ms']:.4f} ms plain, bound "
         f"{out['bound_ms']:.6f} ms ({out['bound_by']})")
     return out
+
+
+def check_planted_ties(dev):
+    """Both scans index-bitwise against their plain versions on inputs
+    with exact ties planted (ref.tied_scan_inputs: duplicated models and
+    resolutions, b = 0 rows, +-0), 40 and 37 cameras, at config_argmin's
+    two (q, V) and baseline_argmax's tie-making thresholds."""
+    import torch
+    from repro_torch.kernels.slot_solver import ops, ref
+    for n, seed in ((40, 0), (37, 1)):
+        inputs = ref.tied_scan_inputs(n, seed)
+        t = [torch.as_tensor(x, device=dev) for x in inputs]
+        for q, v in ((1.3, 10.0), (50.0, 10.0)):
+            q_t = torch.tensor(q, device=dev)
+            got = ops.config_argmin(*t, q_t, v, n)
+            want = ref.config_argmin_ref(*t, q_t, v, n)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"config_argmin planted ties N={n} "
+                                     f"q={q}: indices differ")
+        cap = ref.tied_jcab_cap(*(inputs[k] for k in (0, 1, 3, 4, 5)))
+        for mode, thr in (("dos", 0.0), ("dos", 1.0), ("jcab", 1e-6),
+                          ("jcab", cap), ("jcab", 0.5)):
+            got = ops.baseline_argmax(*t, mode=mode, threshold=thr)
+            want = ref.baseline_argmax_ref(*t, mode=mode, threshold=thr)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"baseline_argmax planted ties N={n} "
+                                     f"{mode} {thr}: indices differ")
+    torch.cuda.synchronize()
+    log("  planted ties (N=40, 37): config_argmin and baseline_argmax "
+        "index-bitwise equal to the plain versions")
+
+
+def scan_floors(lib_path, kernel, cfg, dos, jcab, dev):
+    """The two scans' issue floors at their timed shapes (config_argmin
+    N=10,000; baseline_argmax N=100,000), from the SASS of the built
+    library, into their results, and logged with the entry loops."""
+    import torch
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_mhz()
+    m_r = 9 * 6                        # the paper pool: M x R
+    for name, results, n in (("config_argmin", (cfg,), 10_000),
+                             ("baseline_argmax", (dos, jcab), 100_000)):
+        lanes = kernel.launched_lanes(n)
+        if lanes != kernel.scan_lanes(n, sms):
+            raise AssertionError(f"{name}: the library launches {lanes} "
+                                 f"lanes at N={n}, kernel.scan_lanes "
+                                 f"{kernel.scan_lanes(n, sms)}")
+        loops = sass_entry_loops(lib_path, f"{name}_kernelILi{lanes}E")
+        for r in results:
+            r["lanes"] = lanes
+        if not loops:
+            log(f"  {name}: no SASS entry loop found (cuobjdump: "
+                f"{loops is not None}); issue floor not measured")
+            continue
+        # config_argmin has one entry loop; baseline_argmax one per mode,
+        # DOS's the smaller (JCAB also folds the latencies).
+        for r, loop in zip(results, loops[-len(results):]):
+            r["sass_loop"] = loop
+            r["issue_floor_ms"] = issue_floor_ms(n, m_r, lanes, loop, sms,
+                                                 clock)
+        log(f"  {name} entry loops at {lanes} lanes (SASS, one entry "
+            "each): " + ", ".join(
+                f"{x['instructions']} instructions on the fast path "
+                f"({x['static']} static), {x['mufu']} MUFU" for x in loops)
+            + f"; issue floor at N={n}, {sms} SMs at {clock:g} MHz: "
+            + ", ".join(f"{r['issue_floor_ms']:.6f} ms" for r in results))
 
 
 # Attention kernels. Shapes: tests/test_kernels.py's sweeps, then
@@ -1744,6 +1941,9 @@ def main() -> int:
     for mode, thr in (("dos", 1.0), ("jcab", 0.5), ("jcab", 1e-6)):
         check_baseline(edge_cases["ragged N=1001 S=7"], "ragged N=1001",
                        mode, thr, timing=False)
+    check_planted_ties(dev)
+    scan_floors(lib_paths["slot_solver"], kernel, big["config_argmin"], dos,
+                jcab, dev)
     attn = check_attention(dev)
     mlstm = check_mlstm(dev)
     scan = check_scan(dev)
@@ -1926,6 +2126,8 @@ def main() -> int:
     errs.update(waterfill_tiled=max(tiled_virt["max_abs_err"],
                                     tiled_32["max_abs_err"]),
                 baseline_argmax=max(dos["max_abs_err"], jcab["max_abs_err"]))
+    timed["config_argmin"]["n30_device_ms"] = small["config_argmin"][
+        "device_ms"]
     kernels = []
     for name in main_path:
         r = timed[name]
@@ -1934,7 +2136,9 @@ def main() -> int:
             launches=counts[name], max_abs_err=errs[name], ms=r["ms"],
             device_ms=r["device_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
-            **({"team": r["team"]} if "team" in r else {})))
+            **{k: r[k] for k in ("team", "lanes", "cold_device_ms",
+                                 "issue_floor_ms", "sass_loop",
+                                 "n30_device_ms") if k in r}))
     # The LM kernels: launches from the engine rung of the model that runs
     # them, phase 4 (a), 5 (a) or 6 (a).
     lm_kernels = {

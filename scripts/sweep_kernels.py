@@ -2,7 +2,8 @@
 """Sweep the tile constants of CUDA kernels of the port on one GPU.
 
     python3 scripts/sweep_kernels.py [--out chiprun_out/sweep.json]
-        [--only flash_attention|selective_scan|waterfill] [--tree DIR]
+        [--only flash_attention|selective_scan|waterfill|end_to_end|argmin]
+        [--tree DIR]
 
 For each variant it rewrites the constants in a copy of the kernel's
 source (under the gitignored ``src/repro_torch/_build/sweep/``), builds
@@ -29,11 +30,20 @@ version at the sweep's shapes and times it with CUDA events:
   end_to_end      - one profiled MIN slot at N=100,000 on S=32 (device
                     time by kernel), LBCD's per-slot split at N=10,000 on
                     S=32 (virtual solve, first-fit, per-server solve; 2
-                    slots), and the launch-bound paper cell's slots/s (LBCD
-                    fused and ``:nofuse``, energy-aware LBCD; 25 slots).
+                    slots), the launch-bound paper cell's slots/s (LBCD
+                    fused and ``:nofuse``, energy-aware LBCD; 25 slots),
+                    and the slots/s of LBCD and DOS at N=10,000 and MIN
+                    and JCAB at N=100,000 (2-4 slots).
+  argmin          - config_argmin (N=30, 1,000, 10,000) and
+                    baseline_argmax (DOS and JCAB at N=100,000) with the
+                    lane rules of ARGMIN_VARIANTS, each held
+                    index-bitwise
+                    to the plain version (planted ties and a ragged N
+                    too), timed with the L2 warm and flushed, with its
+                    registers and SASS entry loops.
 ``--tree DIR`` times the default plans of another checkout's water-fills
-instead (a parent commit unpacked with ``git archive``), for a comparison
-on one card in one call.
+(or, with ``--only argmin``, its scans) instead (a parent commit unpacked
+with ``git archive``), for a comparison on one card in one call.
 
 It prints one line per variant (times, registers and spills from ptxas)
 and the fastest at the longest shape, and writes all of it as JSON. The
@@ -119,6 +129,22 @@ FILL_TEAMS = {
     "waterfill N=30 S=3": [(None, 32, None), (None, 64, None),
                            (None, 256, None)],
 }
+# The two scans' lanes per camera beside the shipped rule (csrc/
+# slot_solver.cu: kScan*, kernel.scan_lanes): each fixed lane count, and
+# the rule at half and twice the lanes per SM. Measured too and gaining
+# nothing (PERF.md, section 6): rows staged in shared memory, 256-thread
+# CTAs, a grid capped at one wave, entry loops unrolled 2 or 4 times.
+ARGMIN_VARIANTS = ([{"ScanMinLanes": lanes, "ScanMaxLanes": lanes}
+                    for lanes in (2, 4, 8, 16, 32)]
+                   + [{"ScanLanesPerSm": n} for n in (256, 1024)])
+# (label, kind, cameras, servers, seed, threshold): chip_smoke's inputs.
+ARGMIN_SHAPES = [("config N=30", "config", 30, 3, 0, None),
+                 ("config N=1000", "config", 1_000, 10, 2, None),
+                 ("config N=10000", "config", 10_000, 32, 1, None),
+                 ("config N=100000", "config", 100_000, 32, 8, None),
+                 ("dos N=10000", "dos", 10_000, 32, 10, 1.0),
+                 ("dos N=100000", "dos", 100_000, 32, 10, 1.0),
+                 ("jcab N=100000", "jcab", 100_000, 32, 10, 0.5)]
 LOOP = dict(outer_iters=10, inner_iters=3, final_inner_iters=5)
 # More inner steps (each FCFS chain 2 * 6 + 10 * 6 = 72 steps longer) and
 # more outer steps (10 evaluations more, each a fill sum and 3 steps).
@@ -317,6 +343,103 @@ def sweep_scan(dev, kernel, ops, ref, _build):
     return rows, failed
 
 
+def argmin_source(kernel, tag, consts):
+    return variant_source(kernel.SOURCES[0], tag, [
+        (rf"constexpr int k{name} = \d+;", f"constexpr int k{name} = {value};")
+        for name, value in consts.items()])
+
+
+def sweep_argmin(dev, kernel, ops, ref, _build, tree):
+    """config_argmin and baseline_argmax at ARGMIN_SHAPES: the checkout's
+    own build first, then (unless ``tree``) each ARGMIN_VARIANTS copy; each
+    held index-bitwise to the plain version there, on planted ties
+    (``ref.tied_scan_inputs``, where this checkout has them) and at a
+    ragged N, timed with the L2 warm and flushed (device ms by the
+    profiler, wrapper ms by CUDA events), with ptxas registers and spills
+    and the SASS entry loops."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    inputs = {}
+    for label, kind, n, s, seed, thr in ARGMIN_SHAPES:
+        d = chip_smoke.kernel_inputs(n, s, seed, dev)
+        args = (d["b"], d["c"], d["acc"], d["xi"], d["size"], d["eff"])
+        if kind == "config":
+            q = torch.tensor(1.3, device=dev)
+            inputs[label] = (
+                "config_argmin_kernel",
+                lambda a=args, q=q, n=n: ops.config_argmin(*a, q, 10.0, n),
+                ref.config_argmin_ref(*args, q, 10.0, n))
+        else:
+            inputs[label] = (
+                "baseline_argmax_kernel",
+                lambda a=args, k=kind, t=thr: ops.baseline_argmax(
+                    *a, mode=k, threshold=t),
+                ref.baseline_argmax_ref(*args, mode=kind, threshold=thr))
+    checks = []
+    ragged = chip_smoke.kernel_inputs(1001, 7, 7, dev)
+    ragged = (ragged["b"], ragged["c"], ragged["acc"], ragged["xi"],
+              ragged["size"], ragged["eff"])
+    tied = ([tuple(torch.as_tensor(x, device=dev)
+                   for x in ref.tied_scan_inputs(n, seed))
+             for n, seed in ((40, 0), (37, 1))]
+            if hasattr(ref, "tied_scan_inputs") else [])
+    for args in [ragged] + tied:
+        n = args[0].shape[0]
+        for q, v in ((1.3, 10.0), (50.0, 10.0)):
+            q = torch.tensor(q, device=dev)
+            checks.append((lambda a=args, q=q, v=v, n=n: ops.config_argmin(
+                *a, q, v, n), ref.config_argmin_ref(*args, q, v, n)))
+        for mode, thr in (("dos", 0.0), ("dos", 1.0), ("jcab", 1e-6),
+                          ("jcab", 0.5)):
+            checks.append((lambda a=args, m=mode, t=thr: ops.baseline_argmax(
+                *a, mode=m, threshold=t), ref.baseline_argmax_ref(
+                *args, mode=mode, threshold=thr)))
+
+    def measure(tag, consts, lib):
+        row = dict(tag=tag, tree=tree, consts=consts, usage={
+            k: _build.ptxas_usage(lib.with_suffix(".log"), k)
+            for k in ("config_argmin_kernel", "baseline_argmax_kernel")})
+        row["sass"] = {f"{k} L={lanes}": chip_smoke.sass_entry_loops(
+            lib, f"{k}_kernelILi{lanes}E") for k in ("config_argmin",
+                                                    "baseline_argmax")
+            for lanes in (2, 4, 8, 16, 32)} if not consts and not tree else {}
+        for call, want in checks:
+            if not all(torch.equal(a, b) for a, b in zip(call(), want)):
+                raise AssertionError(f"{tag}: a check differs from the "
+                                     "plain version")
+        for label, (name, call, want) in inputs.items():
+            if not all(torch.equal(a, b) for a, b in zip(call(), want)):
+                raise AssertionError(f"{tag} {label}: indices differ from "
+                                     "the plain version")
+            row[label] = dict(
+                ms=cuda_ms(call),
+                device_ms=chip_smoke.device_ms(call, name),
+                cold_device_ms=chip_smoke.device_ms(
+                    chip_smoke.l2_flushed(call, dev), name))
+        torch.cuda.synchronize()
+        regs = "; ".join(f"{name.split('_')[0]} {u.get('registers')} "
+                         f"registers {u.get('spill_stores', 0)} B spills"
+                         for name, usage in row["usage"].items()
+                         for u in usage.values())
+        sass = "; ".join(f"{k} " + ", ".join(
+            f"{x['instructions']} instr {x['mufu']} MUFU" for x in v)
+            for k, v in row["sass"].items() if v)
+        print(f"argmin {tag}: " + ", ".join(
+            f"{label} {row[label]['device_ms']} / {row[label]['cold_device_ms']}"
+            f" ms device warm / flushed ({row[label]['ms']:.4f} wrapper)"
+            for label in inputs) + f"; {regs}; {sass}", flush=True)
+        return row
+
+    variants = {"default": ({}, kernel.SOURCES[0])}
+    if not tree:
+        for consts in ARGMIN_VARIANTS:
+            tag = "argmin_" + "_".join(f"{k}{v}" for k, v in consts.items())
+            variants[tag] = (consts, argmin_source(kernel, tag, consts))
+    libs = build_all("slot_solver", variants, _build, _build.NVCC_FLAGS)
+    return run_variants(kernel, variants, libs, measure)
+
+
 def sweep_waterfill(dev, kernel, ops, _build, tree):
     """Every team of FILL_TEAMS (the host rule's plan first) at each of
     FILL_SHAPES; only the default plans where the wrappers take no pins
@@ -454,9 +577,26 @@ def fill_end_to_end(dev, chip_smoke, tree):
         rates[label] = 25 / chip_smoke.drive(make, 25)[1]
     print(f"paper cell N=30 S=3 T=25 ({tree}), slots/s: " + ", ".join(
         f"{k} {v:.3f}" for k, v in rates.items()), flush=True)
+    # chip_smoke's phase-3 cells at scale, fewer slots.
+    at_scale = {
+        "LBCD N=10000 T=2": (lambda: lbcd.LBCDController(
+            profiles.EdgeSystem(**system(10_000, 32, 2)), v=10.0, p_min=0.7,
+            device=dev), 2),
+        "DOS N=10000 T=2": (lambda: baselines.make(
+            "DOS", profiles.EdgeSystem(**system(10_000, 32, 2)),
+            device=dev), 2)}
+    for name, t in (("MIN", 2), ("JCAB", 4)):
+        at_scale[f"{name} N=100000 T={t}"] = (
+            lambda name=name, t=t: baselines.make(
+                name, profiles.EdgeSystem(**system(100_000, 32, t)),
+                device=dev), t)
+    scale_rates = {label: t / chip_smoke.drive(make, t)[1]
+                   for label, (make, t) in at_scale.items()}
+    print(f"cells at scale ({tree}), slots/s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in scale_rates.items()), flush=True)
     return dict(shape="end to end", tree=tree, min_slot_wall_s=wall,
                 min_slot_device_ms=busy, lbcd_split_s=split,
-                paper_slots_per_s=rates)
+                paper_slots_per_s=rates, scale_slots_per_s=scale_rates)
 
 
 def main() -> int:
@@ -464,14 +604,15 @@ def main() -> int:
     parser.add_argument("--out", default="chiprun_out/sweep.json")
     parser.add_argument("--only", choices=("flash_attention",
                                            "selective_scan", "waterfill",
-                                           "end_to_end"),
+                                           "end_to_end", "argmin"),
                         help="sweep one kernel, or only time end to end")
-    parser.add_argument("--tree", help="time the water-fills of this "
-                        "checkout (--only waterfill unless end_to_end)")
+    parser.add_argument("--tree", help="time the water-fills (or, with "
+                        "--only argmin, the scans) of this checkout "
+                        "(--only waterfill unless end_to_end or argmin)")
     args = parser.parse_args()
     if args.tree:
         sys.path.insert(0, str(Path(args.tree).resolve() / "src"))
-        if args.only != "end_to_end":
+        if args.only not in ("end_to_end", "argmin"):
             args.only = "waterfill"
     import torch
     if not torch.cuda.is_available():
@@ -507,8 +648,14 @@ def main() -> int:
         sys.path.insert(0, str(ROOT))
         import chip_smoke
         wf_rows.append(fill_end_to_end(dev, chip_smoke, tree))
+    am_rows, am_failed = [], []
+    if args.only in (None, "argmin"):
+        from repro_torch.kernels.slot_solver import ref as sl_ref
+        am_rows, am_failed = sweep_argmin(dev, sl_kernel, sl_ops, sl_ref,
+                                          _build, args.tree)
     result = dict(card=smi, flash_attention=fa_rows, selective_scan=ss_rows,
-                  waterfill=wf_rows, failed=fa_failed + ss_failed + wf_failed)
+                  waterfill=wf_rows, argmin=am_rows,
+                  failed=fa_failed + ss_failed + wf_failed + am_failed)
     out = ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))

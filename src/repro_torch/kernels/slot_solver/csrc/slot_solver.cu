@@ -28,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -38,7 +40,7 @@ constexpr float kLogNuHi = 34.0f;
 constexpr int kLCFSP = 1;
 constexpr int kModeBandwidth = 0;
 constexpr int kModeCompute = 1;
-constexpr int kConfigThreads = 128;
+constexpr int kConfigThreads = 128;   // threads per config_argmin CTA
 constexpr int kFillThreads = 256;     // most threads per water-fill CTA
 constexpr int kSlots = 4;             // cameras a thread keeps in registers
 constexpr int kMaxGroup = 128;        // most CTAs per server
@@ -46,7 +48,14 @@ constexpr int kMaxCluster = 16;       // most CTAs per cluster (> 8: non-portabl
 constexpr int kSyncNone = 0;          // G = 1: a plain launch
 constexpr int kSyncCluster = 1;       // partials through distributed smem
 constexpr int kSyncGrid = 2;          // partials through global memory
-constexpr int kBaselineThreads = 128;
+constexpr int kBaselineThreads = 128;  // threads per baseline_argmax CTA
+// Lanes per camera of the two scans (scan_lanes): the fewest, a power of
+// two from kScanMinLanes to kScanMaxLanes, whose n * L lanes cover
+// kScanLanesPerSm lanes of every SM.
+constexpr int kScanMinLanes = 2;
+constexpr int kScanMaxLanes = 32;
+constexpr int kScanLanesPerSm = 512;
+constexpr int kNoIndex = 0x7fffffff;   // the fold's identity: no entry
 constexpr int kModeDos = 0;
 constexpr int kModeJcab = 1;
 
@@ -116,59 +125,174 @@ __device__ __forceinline__ float argmin_lam_fcfs(float mu, float p) {
 }
 
 // --------------------------------------------------------------------------
-// 1. config_argmin (Algorithm 1 line 3).
+// Folds of (value, flat index) pairs, shared by kernels 1 and 5.
 //
-// Replaces kernel.py:config_argmin. Bound on this card: bytes (the
-// [N, M, R] accuracy table is the only large operand and is read once;
-// about 45 floating-point operations per (camera, model, resolution) stay
-// far below the FP32 rate). Design: one thread per camera over a 1-D grid
-// with a masked ragged edge; the M x R x 2 scores are folded in registers
-// into (best value, best flat index), so the [N, M, R, 2] score tensor is
-// never written. The fold breaks ties exactly as the flat argmin does:
-// FCFS unless LCFSP is strictly lower, the first resolution of a model's
-// minimum, strict < across models.
+// The two scans pick, per camera, the first flat index of the least (or
+// greatest) score, as torch.argmin / argmax of the flat row do. Both
+// kernels order the pairs by value, then by index: (v, f) comes before
+// (w, g) iff v < w, or v == w and f < g (v > w for a maximum). On NaN-free
+// values this is a strict total order: values compare as floats, so +0
+// and -0 are equal and equal infinities are equal, and the index decides
+// them. Its least element is the smallest index among the entries of
+// least value, i.e. the flat first-index argmin, and the least element of
+// a set does not depend on how the set is grouped or ordered. So each
+// lane may fold its own entries, and the lanes' results may then be
+// folded in any order (a butterfly of shuffles, ref.*_lanes_ref models
+// its steps), and the result is the flat argmin of the whole row. A
+// lane meets its entries in increasing index, so within a lane the order
+// needs only the strict value compare, started from (+-inf, the lane's
+// first index): a later entry of equal value never precedes, and a first
+// entry of value +-inf is what the start already holds. A row whose
+// values are all +inf (all -inf for a maximum) gives flat 0, as the
+// sequential scan's (best = +-inf, flat = 0) start does: every entry ties
+// and index 0 is the least. A lane with no entry holds the identity
+// (+-inf, kNoIndex), which every real entry precedes. NaN scores are
+// outside this contract: a NaN compares false both ways, so here it
+// never wins, while torch.argmin / argmax pick it (ROADMAP.md section 3).
 // --------------------------------------------------------------------------
 
-__global__ void config_argmin_kernel(
+__device__ __forceinline__ bool precedes_min(float v, int f, float w, int g) {
+  return v < w || (v == w && f < g);
+}
+
+__device__ __forceinline__ bool precedes_max(float v, int f, float w, int g) {
+  return v > w || (v == w && f < g);
+}
+
+// Fold the (value, index) pairs of a team of kLanes consecutive lanes of
+// a warp: step k takes the partner lane ^ 2^k (1, 2, 4, ...). Every lane
+// of the warp must call it; each ends with its team's least pair.
+template <int kLanes, bool kMax>
+__device__ __forceinline__ void team_fold(float& val, int& flat) {
+#pragma unroll
+  for (int off = 1; off < kLanes; off <<= 1) {
+    const float v = __shfl_xor_sync(0xffffffffu, val, off);
+    const int f = __shfl_xor_sync(0xffffffffu, flat, off);
+    if (kMax ? precedes_max(v, f, val, flat) : precedes_min(v, f, val, flat)) {
+      val = v;
+      flat = f;
+    }
+  }
+}
+
+// x mod d for the lane numbers of a prologue every thread runs (x <= 32):
+// a few subtractions, not an integer division.
+__device__ __forceinline__ int small_mod(int x, int d) {
+  while (x >= d) x -= d;
+  return x;
+}
+
+// One scan's CTA: xi [M*R] and size [R] staged in shared memory once,
+// beside each camera's per-resolution values [R] (lam, or
+// 1/max(lam, 1e-9)). A team of kLanes lanes takes a camera, a CTA a
+// block of cameras.
+template <int kLanes>
+struct ScanCta {
+  int lane;            // lane within the camera's team
+  int local;           // the team's camera within the CTA's block
+  int cams;            // cameras per block
+  int r0;              // resolution of the lane's first entry, lane mod R
+  int step_r;          // kLanes mod R: resolution step between entries
+  const float* xi_s;   // [M*R]
+  const float* size_s;  // [R]
+  float* per_r;        // this team's [R]
+
+  __device__ __forceinline__ ScanCta(const float* __restrict__ xi,
+                                     const float* __restrict__ size,
+                                     int n_mr, int n_r, float* smem) {
+    float* xs = smem;
+    float* ss = xs + n_mr;
+    for (int k = threadIdx.x; k < n_mr; k += blockDim.x) xs[k] = xi[k];
+    for (int k = threadIdx.x; k < n_r; k += blockDim.x) ss[k] = size[k];
+    lane = threadIdx.x % kLanes;
+    local = threadIdx.x / kLanes;
+    cams = blockDim.x / kLanes;
+    r0 = small_mod(lane, n_r);
+    step_r = small_mod(kLanes, n_r);
+    xi_s = xs;
+    size_s = ss;
+    per_r = ss + n_r + local * n_r;
+    __syncthreads();
+  }
+};
+
+// Floats of dynamic shared memory of a CTA of `cams` cameras.
+int scan_smem_floats(int cams, int n_mr, int n_r) {
+  return n_mr + n_r + cams * n_r;
+}
+
+// --------------------------------------------------------------------------
+// 1. config_argmin (Algorithm 1 line 3).
+//
+// Replaces kernel.py:config_argmin. Bound on this card: instruction
+// issue. The [N, M, R] accuracy table (the only large operand) is read
+// once, but each (camera, model, resolution) entry costs nine IEEE
+// divisions (mu, the FCFS queue term, 1/p, /lam_s, 1/mu, the LCFSP /lam
+// and 1/(p*mu), two /n_total), each a MUFU.RCP and its refinement: about
+// 145 instructions an entry. Design: a team of L = scan_lanes(N) lanes
+// per camera (more lanes for fewer cameras, so a small fleet still has
+// warps to hide the divisions' latency, fewer for a large one, so fewer
+// instructions go to the lanes' folds and to padding), lane l taking the
+// entries j = l, l + L, ... in flat (m, r) order; a warp holds 32 / L
+// consecutive cameras, whose rows are one contiguous span, so its loads
+// cover it without gaps. xi and size sit in shared memory once per CTA;
+// lam = b*eff/size[r] is computed once per (camera, r), the same float as
+// before. Each entry's two scores are the same IEEE expressions in the
+// same association as the plain version, and the pair is decided as
+// before: LCFSP only if strictly lower (the pair's own first-index rule).
+// Each lane folds its entries into (best value, best flat index) by the
+// strict compare (the total order above, within a lane), then log2(L)
+// butterfly shuffles fold the team, so the [N, M, R, 2] score tensor is
+// never written and the result is the flat first-index argmin.
+// --------------------------------------------------------------------------
+
+template <int kLanes>
+__global__ void __launch_bounds__(kConfigThreads) config_argmin_kernel(
     const float* __restrict__ b, const float* __restrict__ c,
     const float* __restrict__ eff, const float* __restrict__ acc,
     const float* __restrict__ xi, const float* __restrict__ size,
     const float* __restrict__ q_ptr, float v, float n_total, int n, int n_m,
     int n_r, int* __restrict__ r_out, int* __restrict__ m_out,
     int* __restrict__ pol_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  extern __shared__ float smem[];
+  const int n_mr = n_m * n_r;
+  const ScanCta<kLanes> t(xi, size, n_mr, n_r, smem);
   const float q = *q_ptr;
-  const float be = b[i] * eff[i];
-  const float ci = c[i];
-  const float* acc_i = acc + static_cast<long long>(i) * n_m * n_r;
+  const int cam = blockIdx.x * t.cams + t.local;
+  const bool live = cam < n;
+  const float be = live ? b[cam] * eff[cam] : 0.0f;
+  const float ci = live ? c[cam] : 0.0f;
+  for (int r = t.lane; r < n_r; r += kLanes) t.per_r[r] = be / t.size_s[r];
+  __syncwarp();
   float best_val = INFINITY;
-  int best_flat = 0;
-  for (int m = 0; m < n_m; ++m) {
-    float loc_val = 0.0f;
-    int loc_flat = 0;
-    for (int r = 0; r < n_r; ++r) {
-      const float lam = be / size[r];
-      const float mu = ci / xi[m * n_r + r];
-      const float a = acc_i[m * n_r + r];
+  int best_flat = t.lane < n_mr ? 2 * t.lane : kNoIndex;
+  if (live) {
+    const float* row = acc + static_cast<long long>(cam) * n_mr;
+    int r = t.r0;
+#pragma unroll 1
+    for (int j = t.lane; j < n_mr; j += kLanes) {
+      const float lam = t.per_r[r];
+      const float mu = ci / t.xi_s[j];
+      const float a = row[j];
       const float p = fmaxf(a, 1e-3f);
       const float s_f = (v * aopi_fcfs(lam, mu, p) - q * a) / n_total;
       const float s_l = (v * aopi_lcfsp(lam, mu, p) - q * a) / n_total;
       const bool l_wins = s_l < s_f;
       const float val = l_wins ? s_l : s_f;
-      if (r == 0 || val < loc_val) {
-        loc_val = val;
-        loc_flat = m * (n_r * 2) + r * 2 + (l_wins ? 1 : 0);
+      if (val < best_val) {
+        best_val = val;
+        best_flat = 2 * j + (l_wins ? 1 : 0);
       }
-    }
-    if (loc_val < best_val) {
-      best_val = loc_val;
-      best_flat = loc_flat;
+      r += t.step_r;
+      if (r >= n_r) r -= n_r;
     }
   }
-  m_out[i] = best_flat / (n_r * 2);
-  r_out[i] = (best_flat / 2) % n_r;
-  pol_out[i] = best_flat % 2;
+  team_fold<kLanes, false>(best_val, best_flat);
+  if (live && t.lane == 0) {
+    m_out[cam] = best_flat / (n_r * 2);
+    r_out[cam] = (best_flat / 2) % n_r;
+    pol_out[cam] = best_flat % 2;
+  }
 }
 
 // --------------------------------------------------------------------------
@@ -938,60 +1062,150 @@ __global__ void __launch_bounds__(kFillThreads) waterfill_tiled_kernel(
 // latency = 1/max(lam, 1e-9) + 1/max(mu, 1e-9) with lam = b*eff/size[r],
 // mu = c/xi[m, r]; DOS (mode 0) takes the argmax of acc - w * latency,
 // JCAB (mode 1) the argmax of acc among configs with latency <= cap, or,
-// where none qualifies, the argmin of latency. Bound on this card: bytes
-// (the [N, M, R] accuracy table is read once; about 10 operations per
-// entry). Design: one thread per camera, as config_argmin; the scores are
-// folded in registers into (best value, best flat index), first r within
-// a model and strict > across models, the order of a flat m-major argmax,
-// and JCAB's fallback in a second fold with strict <.
+// where none qualifies, the argmin of latency. Bound on this card:
+// instruction issue, then bytes (the [N, M, R] accuracy table is read
+// once; two IEEE divisions and the folds, about 45 instructions an entry,
+// take longer to issue than the table takes to read). Design:
+// config_argmin's: a team of scan_lanes(N) lanes per camera over the flat
+// (m, r) entries, xi and size in shared memory, 1/max(lam, 1e-9) once per
+// (camera, r), the same float as before. Each lane folds its entries
+// into (best value, best flat index) by the total order (the larger
+// value, then the smaller index; within a lane the strict compare), JCAB
+// also into (latency, index) by the smaller latency; the butterfly folds
+// the team. JCAB falls back to the least-latency index where the best
+// value is -inf: no entry met the cap (all -inf tie at flat 0, as in the
+// flat argmax, and the fallback replaces it).
 // --------------------------------------------------------------------------
 
-__global__ void baseline_argmax_kernel(
+template <int kMode, int kLanes>
+__device__ __forceinline__ int baseline_scan(
+    const ScanCta<kLanes>& t, const float* __restrict__ row,
+    bool live, float ci, float thresh, int n_mr, int n_r) {
+  const int first = t.lane < n_mr ? t.lane : kNoIndex;
+  float best_val = -INFINITY;
+  int best_flat = first;
+  float lat_best = INFINITY;
+  int lat_flat = first;
+  if (live) {
+    int r = t.r0;
+#pragma unroll 1
+    for (int j = t.lane; j < n_mr; j += kLanes) {
+      const float mu = ci / t.xi_s[j];
+      const float lat = t.per_r[r] + 1.0f / fmaxf(mu, 1e-9f);
+      const float a = row[j];
+      const float val = kMode == kModeDos ? a - thresh * lat
+                                          : (lat <= thresh ? a : -INFINITY);
+      if (val > best_val) {
+        best_val = val;
+        best_flat = j;
+      }
+      if (kMode == kModeJcab && lat < lat_best) {
+        lat_best = lat;
+        lat_flat = j;
+      }
+      r += t.step_r;
+      if (r >= n_r) r -= n_r;
+    }
+  }
+  team_fold<kLanes, true>(best_val, best_flat);
+  if (kMode == kModeJcab) {
+    team_fold<kLanes, false>(lat_best, lat_flat);
+    if (best_val == -INFINITY) best_flat = lat_flat;
+  }
+  return best_flat;
+}
+
+template <int kLanes>
+__global__ void __launch_bounds__(kBaselineThreads) baseline_argmax_kernel(
     const float* __restrict__ b, const float* __restrict__ c,
     const float* __restrict__ eff, const float* __restrict__ acc,
     const float* __restrict__ xi, const float* __restrict__ size,
     float thresh, int mode, int n, int n_m, int n_r, int* __restrict__ m_out,
     int* __restrict__ r_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float be = b[i] * eff[i];
-  const float ci = c[i];
-  const float* acc_i = acc + static_cast<long long>(i) * n_m * n_r;
-  float best_val = -INFINITY;
-  int best_flat = 0;
-  float lat_best = INFINITY;
-  int lat_flat = 0;
-  for (int m = 0; m < n_m; ++m) {
-    float row_val = 0.0f, row_lat = 0.0f;
-    int row_r = 0, lat_r = 0;
-    for (int r = 0; r < n_r; ++r) {
-      const float lam = be / size[r];
-      const float mu = ci / xi[m * n_r + r];
-      const float lat = 1.0f / fmaxf(lam, 1e-9f) + 1.0f / fmaxf(mu, 1e-9f);
-      const float a = acc_i[m * n_r + r];
-      const float val = mode == kModeDos ? a - thresh * lat
-                                         : (lat <= thresh ? a : -INFINITY);
-      if (r == 0 || val > row_val) {
-        row_val = val;
-        row_r = r;
-      }
-      if (r == 0 || lat < row_lat) {
-        row_lat = lat;
-        lat_r = r;
-      }
-    }
-    if (row_val > best_val) {
-      best_val = row_val;
-      best_flat = m * n_r + row_r;
-    }
-    if (row_lat < lat_best) {
-      lat_best = row_lat;
-      lat_flat = m * n_r + lat_r;
-    }
+  extern __shared__ float smem[];
+  const int n_mr = n_m * n_r;
+  const ScanCta<kLanes> t(xi, size, n_mr, n_r, smem);
+  const int cam = blockIdx.x * t.cams + t.local;
+  const bool live = cam < n;
+  const float be = live ? b[cam] * eff[cam] : 0.0f;
+  const float ci = live ? c[cam] : 0.0f;
+  for (int r = t.lane; r < n_r; r += kLanes)
+    t.per_r[r] = 1.0f / fmaxf(be / t.size_s[r], 1e-9f);
+  __syncwarp();
+  const float* row = acc + static_cast<long long>(cam) * n_mr;
+  const int best =
+      mode == kModeDos
+          ? baseline_scan<kModeDos>(t, row, live, ci, thresh, n_mr, n_r)
+          : baseline_scan<kModeJcab>(t, row, live, ci, thresh, n_mr, n_r);
+  if (live && t.lane == 0) {
+    m_out[cam] = best / n_r;
+    r_out[cam] = best % n_r;
   }
-  if (mode == kModeJcab && best_val == -INFINITY) best_flat = lat_flat;
-  m_out[i] = best_flat / n_r;
-  r_out[i] = best_flat % n_r;
+}
+
+// Lanes per camera of a scan of n cameras on this device (kScanMinLanes
+// to kScanMaxLanes); 0 where the device query fails.
+int scan_lanes(int n) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  int lanes = kScanMinLanes;
+  while (lanes < kScanMaxLanes &&
+         static_cast<long long>(n) * lanes <
+             static_cast<long long>(kScanLanesPerSm) * sms)
+    lanes *= 2;
+  return lanes;
+}
+
+// Launch one scan instantiation: a team of kLanes lanes per camera, a CTA
+// of kThreads threads per block of kThreads / kLanes cameras.
+template <int kThreads, int kLanes, typename Kernel, typename... Args>
+cudaError_t launch_scan(Kernel kernel, int n, int n_m, int n_r,
+                        cudaStream_t stream, Args... args) {
+  static_assert(kLanes >= 1 && kLanes <= 32 && (kLanes & (kLanes - 1)) == 0,
+                "a team is a power-of-two share of a warp");
+  static_assert(kThreads % 32 == 0, "whole warps");
+  constexpr int kCams = kThreads / kLanes;
+  const size_t bytes = sizeof(float) * scan_smem_floats(kCams, n_m * n_r, n_r);
+  if (n_m < 1 || n_r < 1 || bytes > 48 * 1024) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + kCams - 1) / kCams);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Launch kernel_at(integral_constant<int, L>) at L = scan_lanes(n), in
+// CTAs of kThreads threads.
+template <int kThreads, typename KernelAt, typename... Args>
+cudaError_t launch_scan_at(KernelAt kernel_at, int n, int n_m, int n_r,
+                           cudaStream_t stream, Args... args) {
+  using std::integral_constant;
+  switch (scan_lanes(n)) {
+    case 2:
+      return launch_scan<kThreads, 2>(kernel_at(integral_constant<int, 2>()),
+                                      n, n_m, n_r, stream, args...);
+    case 4:
+      return launch_scan<kThreads, 4>(kernel_at(integral_constant<int, 4>()),
+                                      n, n_m, n_r, stream, args...);
+    case 8:
+      return launch_scan<kThreads, 8>(kernel_at(integral_constant<int, 8>()),
+                                      n, n_m, n_r, stream, args...);
+    case 16:
+      return launch_scan<kThreads, 16>(
+          kernel_at(integral_constant<int, 16>()), n, n_m, n_r, stream,
+          args...);
+    case 32:
+      return launch_scan<kThreads, 32>(
+          kernel_at(integral_constant<int, 32>()), n, n_m, n_r, stream,
+          args...);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // Launch a water-fill kernel, `group` CTAs of `threads` per server: a
@@ -1064,11 +1278,10 @@ int slot_config_argmin(const float* b, const float* c, const float* eff,
                        int n_r, int* r_out, int* m_out, int* pol_out,
                        cudaStream_t stream) {
   if (n == 0) return cudaSuccess;
-  const int blocks = (n + kConfigThreads - 1) / kConfigThreads;
-  config_argmin_kernel<<<blocks, kConfigThreads, 0, stream>>>(
-      b, c, eff, acc, xi, size, q, v, n_total, n, n_m, n_r, r_out, m_out,
-      pol_out);
-  return cudaGetLastError();
+  return launch_scan_at<kConfigThreads>(
+      [](auto lanes) { return config_argmin_kernel<decltype(lanes)::value>; },
+      n, n_m, n_r, stream, b, c, eff, acc, xi, size, q, v, n_total, n, n_m,
+      n_r, r_out, m_out, pol_out);
 }
 
 int slot_waterfill(int mode, const float* coef, const float* p,
@@ -1118,15 +1331,17 @@ int slot_waterfill_tiled(int mode, const float* coef, const float* p,
                      inner, final_inner, scratch, gslots, out);
 }
 
+int slot_scan_lanes(int n) { return scan_lanes(n); }
+
 int slot_baseline_argmax(const float* b, const float* c, const float* eff,
                          const float* acc, const float* xi, const float* size,
                          float thresh, int mode, int n, int n_m, int n_r,
                          int* m_out, int* r_out, cudaStream_t stream) {
   if (n == 0) return cudaSuccess;
-  const int blocks = (n + kBaselineThreads - 1) / kBaselineThreads;
-  baseline_argmax_kernel<<<blocks, kBaselineThreads, 0, stream>>>(
-      b, c, eff, acc, xi, size, thresh, mode, n, n_m, n_r, m_out, r_out);
-  return cudaGetLastError();
+  return launch_scan_at<kBaselineThreads>(
+      [](auto lanes) { return baseline_argmax_kernel<decltype(lanes)::value>; },
+      n, n_m, n_r, stream, b, c, eff, acc, xi, size, thresh, mode, n, n_m,
+      n_r, m_out, r_out);
 }
 
 }  // extern "C"

@@ -23,6 +23,10 @@ MAX_CLUSTER = 16     # most CTAs of a cluster (above 8 a non-portable one)
 MAX_THREADS = 256    # most threads per water-fill CTA
 SLOTS = 4            # cameras a water-fill thread keeps in registers
 SYNC = {"none": 0, "cluster": 1, "grid": 2}   # how a server's CTAs meet
+CONFIG_THREADS = 128    # threads per CTA of config_argmin_kernel
+BASELINE_THREADS = 128  # threads per CTA of baseline_argmax_kernel
+# The two scans' lanes per camera (``scan_lanes``).
+SCAN_MIN_LANES, SCAN_MAX_LANES, SCAN_LANES_PER_SM = 2, 32, 512
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
@@ -46,6 +50,19 @@ _ARGTYPES = {
 }
 
 
+def scan_lanes(n: int, n_sms: int) -> int:
+    """Lanes per camera of config_argmin_kernel and baseline_argmax_kernel
+    for ``n`` cameras on a card of ``n_sms`` SMs, as the library picks
+    them: the fewest, a power of two from SCAN_MIN_LANES to
+    SCAN_MAX_LANES, whose n * L lanes cover SCAN_LANES_PER_SM lanes of
+    every SM (32 up to 2,000 cameras on an H100, 8 at 10,000, 2 at
+    100,000)."""
+    lanes = SCAN_MIN_LANES
+    while lanes < SCAN_MAX_LANES and n * lanes < SCAN_LANES_PER_SM * n_sms:
+        lanes *= 2
+    return lanes
+
+
 class _Library:
     """The built shared library, loaded once per process at first use."""
     lib: ctypes.CDLL | None = None
@@ -60,6 +77,8 @@ class _Library:
                 fn.restype = ctypes.c_int
             lib.slot_error_string.argtypes = [ctypes.c_int]
             lib.slot_error_string.restype = ctypes.c_char_p
+            lib.slot_scan_lanes.argtypes = [ctypes.c_int]
+            lib.slot_scan_lanes.restype = ctypes.c_int
             cls.lib = lib
         return cls.lib
 
@@ -67,6 +86,12 @@ class _Library:
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the library."""
     return _Library.get()
+
+
+def launched_lanes(n: int) -> int:
+    """The lanes per camera the built library launches the two scans with
+    for ``n`` cameras on the current device (``scan_lanes`` on the card)."""
+    return _Library.get().slot_scan_lanes(n)
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:

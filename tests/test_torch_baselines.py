@@ -79,12 +79,88 @@ def test_baseline_argmax_ref_matches_reference(mode, threshold):
         assert t_ops.launches["baseline_argmax"] == 0
 
 
+# Every lane count the kernel launches (kernel.scan_lanes), and 1 (the
+# sequential scan).
+LANES = [1, 2, 4, 8, 16, 32]
+# Thresholds on tied_scan_inputs: DOS at weight 0 (the scores are the
+# accuracies, maxima duplicated) and 1 (b = 0 rows tie at ~ -1e9), JCAB
+# with no config under the cap (the fallback), under the cap that exactly
+# the tied least-latency pair meets ("pair"), and at 0.5.
+TIED_SCANS = [("dos", 0.0), ("dos", 1.0), ("jcab", 1e-6), ("jcab", "pair"),
+              ("jcab", 0.5)]
+
+
+@pytest.mark.parametrize("mode,threshold", TIED_SCANS)
+@pytest.mark.parametrize("n,seed", [(40, 0), (37, 1)])
+def test_baseline_argmax_planted_ties_bitwise(n, seed, mode, threshold):
+    """On inputs with exact ties (``tied_scan_inputs``), the reference's
+    jnp scan and its Pallas kernel (interpret mode), the port's plain
+    version and its lane twins at every L pick the same indices bitwise
+    (no near-tie allowance: the tied values are the same floats)."""
+    inputs = t_ref.tied_scan_inputs(n, seed)
+    cap = t_ref.tied_jcab_cap(*(inputs[k] for k in (0, 1, 3, 4, 5)))
+    threshold = cap if threshold == "pair" else threshold
+    port = t_ref.baseline_argmax_ref(*map(torch.as_tensor, inputs),
+                                     mode=mode, threshold=threshold)
+    flat = port[0].numpy() * 6 + port[1].numpy()
+    if mode == "jcab" and threshold <= cap:
+        # Only the tied pair (flat 6 and 18) meets the cap, or nothing
+        # does: the fallback's least latency is the same pair; b = 0 rows
+        # tie everywhere and give flat 0.
+        assert (flat[3::4] == 0).all() and (np.delete(
+            flat, np.arange(3, n, 4)) == 6).all(), flat
+    if mode == "dos" and threshold == 0.0:
+        assert flat[1] == 0            # all +-0, -0.0 first
+        assert (flat[::3] == 8).all()  # four tied maxima, the first wins
+    j_in = tuple(map(jnp.asarray, inputs))
+    others = {
+        "jnp ref": j_ss.baseline_argmax_ref(*j_in, mode=mode,
+                                            threshold=threshold),
+        "pallas": j_ss.baseline_argmax(*j_in, mode=mode, threshold=threshold,
+                                       backend="pallas", block_n=16)}
+    for lanes in LANES:
+        others[f"lanes={lanes}"] = t_ref.baseline_argmax_lanes_ref(
+            *map(torch.as_tensor, inputs), mode=mode, threshold=threshold,
+            lanes=lanes)
+    for label, other in others.items():
+        for name, a, o in zip(("m", "r"), port, other):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(o),
+                                          err_msg=f"{label} {name}")
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("mode,threshold",
+                         [("dos", 0.3), ("dos", 3.0), ("jcab", 0.5),
+                          ("jcab", 1e-6)])
+def test_baseline_argmax_lanes_ref_equals_plain(mode, threshold, lanes):
+    """The kernel's order (lanes, then a butterfly) picks the plain
+    version's indices bitwise on random and paper-pool inputs."""
+    tab = j_prof.EdgeSystem(n_cameras=300, n_servers=3, n_slots=2,
+                            seed=1).horizon(1)
+    rng = np.random.default_rng(1)
+    paper = (rng.uniform(0.3, 3.0, 300).astype(np.float32) * 3e6,
+             rng.uniform(0.3, 3.0, 300).astype(np.float32) * 5e12,
+             np.array(tab.acc[0]), np.array(tab.xi), np.array(tab.size),
+             np.array(tab.eff))
+    for inputs in (_config_inputs(64, seed=2), paper):
+        args = tuple(map(torch.as_tensor, inputs))
+        got = t_ref.baseline_argmax_lanes_ref(*args, mode=mode,
+                                              threshold=threshold,
+                                              lanes=lanes)
+        want = t_ref.baseline_argmax_ref(*args, mode=mode,
+                                         threshold=threshold)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_baseline_argmax_rejects_unknown_mode():
     inputs = tuple(map(torch.as_tensor, _config_inputs(4)))
     with pytest.raises(ValueError, match="unknown baseline scan mode"):
         t_ops.baseline_argmax(*inputs, mode="min", threshold=1.0)
     with pytest.raises(ValueError, match="unknown baseline scan mode"):
         t_ref.baseline_argmax_ref(*inputs, mode="min", threshold=1.0)
+    with pytest.raises(ValueError, match="unknown baseline scan mode"):
+        t_ref.baseline_argmax_lanes_ref(*inputs, mode="min", threshold=1.0,
+                                        lanes=8)
 
 
 # ---------------------------------------------------------------------------

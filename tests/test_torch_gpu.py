@@ -81,7 +81,12 @@ FILL_CASES = {
 }
 
 
-@pytest.mark.parametrize("n", [30, 1001, 10_000])
+# Cameras at which the scans launch each lane count on an H100
+# (kernel.scan_lanes: 32 up to 2,000, 16, 8, 4, 2), ragged ones included.
+SCAN_SIZES = [1, 30, 37, 1001, 5_000, 10_000, 20_001, 100_000]
+
+
+@pytest.mark.parametrize("n", SCAN_SIZES)
 def test_gpu_config_argmin_bitwise(cuda, n):
     args = _paper_config_inputs(n, 3, 0, cuda)
     q = torch.tensor(1.3, device=cuda)
@@ -92,6 +97,55 @@ def test_gpu_config_argmin_bitwise(cuda, n):
     assert ops.launches["config_argmin"] == 1
     for a, b in zip(out, plain):
         assert torch.equal(a, b)
+
+
+def test_gpu_scan_lanes_follow_the_host_rule(cuda):
+    """The library picks the lanes kernel.scan_lanes gives for the card's
+    SM count, for both scans."""
+    from repro_torch.kernels.slot_solver import kernel
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n in SCAN_SIZES + [2_000, 2_200, 10 ** 6]:
+        assert kernel.launched_lanes(n) == kernel.scan_lanes(n, sms), n
+
+
+def _tied(n, seed, dev):
+    return tuple(torch.as_tensor(x, device=dev)
+                 for x in ref.tied_scan_inputs(n, seed))
+
+
+@pytest.mark.parametrize("q,v", [(1.3, 10.0), (50.0, 10.0)])
+@pytest.mark.parametrize("n,seed", [(40, 0), (37, 1)])
+def test_gpu_config_argmin_planted_ties(cuda, n, seed, q, v):
+    """Index-bitwise on exact ties (duplicated models and resolutions,
+    b = 0 rows of +inf scores): the first flat index wins, as in the
+    plain version's torch.argmin."""
+    args = _tied(n, seed, cuda)
+    q = torch.tensor(q, device=cuda)
+    out = ops.config_argmin(*args, q, v, n)
+    plain = ref.config_argmin_ref(*args, q, v, n)
+    torch.cuda.synchronize()
+    for a, b in zip(out, plain):
+        assert torch.equal(a, b)
+
+
+def test_gpu_config_argmin_nan_follows_the_lane_twin(cuda):
+    """NaN scores (V = 0 times an unstable FCFS AoPI) are outside the
+    kernels' contract: the kernel's total order never picks a NaN, as its
+    lane twin does not, while torch.argmin does (ROADMAP.md section 3)."""
+    b, c, eff = (torch.full((2,), x, device=cuda) for x in (1e7, 1e12, 5.0))
+    size = torch.tensor([1e4, 1e6], device=cuda)
+    xi = torch.tensor([[1e8, 1e8], [1e11, 1e11]], device=cuda)
+    acc = torch.tensor([[[0.5, 0.6], [0.9, 0.8]], [[0.5, 0.6], [0.7, 0.8]]],
+                       device=cuda)
+    q = torch.tensor(1.3, device=cuda)
+    args = (b, c, acc, xi, size, eff, q, 0.0, 2)
+    out = ops.config_argmin(*args)
+    twin = ref.config_argmin_lanes_ref(*args, lanes=8)
+    plain = ref.config_argmin_ref(*args)
+    torch.cuda.synchronize()
+    flat = [int(m[0]) * 4 + int(r[0]) * 2 + int(p[0])
+            for r, m, p in (out, twin, plain)]
+    assert flat == [2, 2, 4]
 
 
 @pytest.mark.parametrize("case", sorted(FILL_CASES))
@@ -167,7 +221,7 @@ BASELINE_SCANS = [("dos", 1.0), ("dos", 0.3), ("jcab", 0.5), ("jcab", 1e-6)]
 
 
 @pytest.mark.parametrize("mode,threshold", BASELINE_SCANS)
-@pytest.mark.parametrize("n", [29, 1001, 100_000])
+@pytest.mark.parametrize("n", [29] + SCAN_SIZES)
 def test_gpu_baseline_argmax_bitwise(cuda, n, mode, threshold):
     """Index-bitwise against the plain version, including JCAB's
     all-infeasible fallback (cap 1e-6)."""
@@ -179,6 +233,25 @@ def test_gpu_baseline_argmax_bitwise(cuda, n, mode, threshold):
     assert ops.launches["baseline_argmax"] == 1
     for a, b in zip(out, plain):
         assert a.dtype == torch.int32
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode,threshold",
+                         [("dos", 0.0), ("dos", 1.0), ("jcab", 1e-6),
+                          ("jcab", "pair"), ("jcab", 0.5)])
+@pytest.mark.parametrize("n,seed", [(40, 0), (37, 1)])
+def test_gpu_baseline_argmax_planted_ties(cuda, n, seed, mode, threshold):
+    """Index-bitwise on exact ties: DOS at weight 0 (duplicated maxima,
+    +-0), b = 0 rows, JCAB's fallback and a cap that only the tied
+    least-latency pair meets."""
+    inputs = ref.tied_scan_inputs(n, seed)
+    if threshold == "pair":
+        threshold = ref.tied_jcab_cap(*(inputs[k] for k in (0, 1, 3, 4, 5)))
+    args = _tied(n, seed, cuda)
+    out = ops.baseline_argmax(*args, mode=mode, threshold=threshold)
+    plain = ref.baseline_argmax_ref(*args, mode=mode, threshold=threshold)
+    torch.cuda.synchronize()
+    for a, b in zip(out, plain):
         assert torch.equal(a, b)
 
 

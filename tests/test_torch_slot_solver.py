@@ -12,6 +12,8 @@ if not hasattr(jax.experimental, "enable_x64"):
     # Removed from newer jax; repro.core.queues still imports it.
     jax.experimental.enable_x64 = jax.enable_x64
 
+import re  # noqa: E402
+
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
@@ -150,6 +152,124 @@ def test_config_argmin_ref_matches_reference(kind, n, seed):
     for a, b in zip(out, port):
         assert torch.equal(a, b)
     assert t_ops.launches["config_argmin"] == 0
+
+
+# Every lane count the kernels launch (kernel.scan_lanes), and 1 (one
+# lane walks the whole row: the sequential scan).
+LANES = [1, 2, 4, 8, 16, 32]
+
+
+def _flat_config(idx, n_r):
+    r, m, pol = (np.asarray(x) for x in idx)
+    return m * n_r * 2 + r * 2 + pol
+
+
+@pytest.mark.parametrize("q,v", [(1.3, 10.0), (50.0, 10.0)])
+@pytest.mark.parametrize("n,seed", [(40, 0), (37, 1)])
+def test_config_argmin_planted_ties_bitwise(n, seed, q, v):
+    """On inputs with exact ties (``tied_scan_inputs``: duplicated models
+    and resolutions, b = 0 rows of +inf scores, +-0 accuracies), the
+    reference's jnp scan and its Pallas kernel (interpret mode), the
+    port's plain version and its lane twins at every L pick the same
+    indices bitwise: the tied values are the same floats, so no near-tie
+    allowance."""
+    inputs = t_ref.tied_scan_inputs(n, seed)
+    q = np.float32(q)
+    port = t_ref.config_argmin_ref(*map(_t, inputs), _t(q), v, n)
+    # The ties decide: at least a third of the cameras' winning scores
+    # are shared with another entry (every entry, where b = 0).
+    scores = _score_table(*inputs, q, v, n)
+    win = scores[np.arange(n), _flat_config(port, 6)]
+    tied = (scores == win[:, None]).sum(axis=1)
+    assert (tied > 1).sum() >= n // 3, tied
+    assert (tied[3::4] == scores.shape[1]).all()
+    j_in = tuple(map(jnp.asarray, inputs))
+    others = {
+        "jnp ref": j_ss.config_argmin_ref(*j_in, jnp.float32(q), v, n),
+        "pallas": j_ss.config_argmin(*j_in, jnp.float32(q), v, n,
+                                     backend="pallas", block_n=16)}
+    for lanes in LANES:
+        others[f"lanes={lanes}"] = t_ref.config_argmin_lanes_ref(
+            *map(_t, inputs), _t(q), v, n, lanes=lanes)
+    for label, other in others.items():
+        for name, a, o in zip(("r", "m", "pol"), port, other):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(o),
+                                          err_msg=f"{label} {name}")
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("kind,n,seed", [("random", 64, 2),
+                                         ("paper", 1000, 2)])
+def test_config_argmin_lanes_ref_equals_plain(kind, n, seed, lanes):
+    """The kernel's order (lanes, then a butterfly) picks the plain
+    version's indices bitwise on the existing inputs."""
+    inputs = (_config_inputs(n, seed=seed) if kind == "random"
+              else _paper_config_inputs(n, seed))
+    args = (*map(_t, inputs), _t(np.float32(1.3)), 10.0, n)
+    for a, b in zip(t_ref.config_argmin_lanes_ref(*args, lanes=lanes),
+                    t_ref.config_argmin_ref(*args)):
+        assert torch.equal(a, b)
+
+
+def test_config_argmin_lanes_ref_rejects_bad_lanes():
+    args = (*map(_t, _config_inputs(4)), _t(np.float32(1.3)), 10.0, 4)
+    for lanes in (0, 3, 64):
+        with pytest.raises(ValueError, match="power of two"):
+            t_ref.config_argmin_lanes_ref(*args, lanes=lanes)
+
+
+@pytest.mark.parametrize("n_sms", [132, 114, 1])
+def test_scan_lanes_from_the_size_alone(n_sms):
+    """A power of two within the bounds, falling as the fleet grows, and
+    the fewest lanes whose n * L covers SCAN_LANES_PER_SM of every SM."""
+    sizes = [1, 30, 1000, 2000, 5000, 10_000, 20_000, 100_000, 10 ** 6]
+    lanes = [t_kernel.scan_lanes(n, n_sms) for n in sizes]
+    assert lanes == sorted(lanes, reverse=True)
+    target = t_kernel.SCAN_LANES_PER_SM * n_sms
+    for n, l in zip(sizes, lanes):
+        assert t_kernel.SCAN_MIN_LANES <= l <= t_kernel.SCAN_MAX_LANES
+        assert l & (l - 1) == 0
+        assert n * l >= target or l == t_kernel.SCAN_MAX_LANES
+        assert n * (l // 2) < target or l == t_kernel.SCAN_MIN_LANES
+    if n_sms == 132:       # the main paths' sizes on an H100
+        assert lanes[:8] == [32, 32, 32, 32, 16, 8, 4, 2]
+
+
+def _nan_config_inputs():
+    """One camera, M = R = 2, whose model-1 entries are unstable under
+    FCFS (lam >= mu: AoPI +inf), so V = 0 makes their FCFS scores 0 * inf
+    = NaN; the pair keeps FCFS (NaN < x is false), so flats 4 and 6 are
+    NaN. The least finite pair value is flat 2."""
+    b, c, eff = (np.full(2, x, np.float32) for x in (1e7, 1e12, 5.0))
+    size = np.float32([1e4, 1e6])
+    xi = np.float32([[1e8, 1e8], [1e11, 1e11]])
+    acc = np.float32([[[0.5, 0.6], [0.9, 0.8]], [[0.5, 0.6], [0.7, 0.8]]])
+    return b, c, acc, xi, size, eff
+
+
+def test_config_argmin_nan_scores_split_the_sides():
+    """A known disagreement (ROADMAP.md section 3), pinned: on a NaN score
+    torch.argmin and jnp.argmin pick the first NaN (flat 4), while the
+    Pallas kernel's fold and the CUDA kernels' total order (the lane
+    twins) never pick a NaN (flat 2). No path calls config_argmin with
+    V = 0; NaN scores are outside the kernels' contract."""
+    inputs = _nan_config_inputs()
+    q = np.float32(1.3)
+    scores = _score_table(*inputs, q, 0.0, 2)
+    assert np.isnan(scores[:, [4, 6]]).all()
+    assert not np.isnan(scores[:, [0, 1, 2, 3, 5, 7]]).any()
+    port = t_ref.config_argmin_ref(*map(_t, inputs), _t(q), 0.0, 2)
+    j_in = tuple(map(jnp.asarray, inputs))
+    want = {"port": (port, 4),
+            "jnp ref": (j_ss.config_argmin_ref(*j_in, jnp.float32(q), 0.0,
+                                               2), 4),
+            "pallas": (j_ss.config_argmin(*j_in, jnp.float32(q), 0.0, 2,
+                                          backend="pallas", block_n=16), 2)}
+    for lanes in LANES:
+        want[f"lanes={lanes}"] = (t_ref.config_argmin_lanes_ref(
+            *map(_t, inputs), _t(q), 0.0, 2, lanes=lanes), 2)
+    for label, (idx, flat) in want.items():
+        assert (_flat_config(idx, 2) == flat).all(), label
 
 
 # ---------------------------------------------------------------------------
@@ -742,6 +862,46 @@ def test_unported_options_raise():
 # Build
 # ---------------------------------------------------------------------------
 
+# A cuobjdump -sass excerpt in the two branch-target spellings: an entry
+# loop (0x0100-0x01c0) with a division whose slow-path call its branch
+# skips, a loop that stores (a prologue's) and one without a MUFU.
+SASS = """
+\t\tFunction : _ZN4anon20config_argmin_kernelILi8EEvPKf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   MUFU.RCP R2, R3 ;
+        /*0020*/                   STS [R4], R2 ;
+        /*0030*/              @!P0 BRA 0x10 ;
+        /*0100*/                   LDS R5, [R6] ;
+        /*0110*/                   MUFU.RCP R7, R5 ;
+        /*0120*/                   FCHK P1, R8, R5 ;
+        /*0130*/              @!P1 BRA 0x160 ;
+        /*0140*/                   MOV R9, 0x160 ;
+        /*0150*/                   CALL.REL.NOINC 0x300 ;
+        /*0160*/                   BSYNC B3 ;
+        /*0170*/                   FADD R10, R7, R7 ;
+        /*0180*/              @!P2 BRA 0x100 ;
+.L_x_1:
+        /*0190*/                   IADD3 R11, R11, 0x1, RZ ;
+        /*01a0*/              @!P3 BRA `(.L_x_1) ;
+        /*01b0*/                   EXIT ;
+\t\tFunction : _ZN4anon22baseline_argmax_kernelILi2EEvPKf
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_entry_loops_count_the_fast_path():
+    """chip_smoke's issue floor reads the scans' entry loops from the SASS:
+    the loop holding a MUFU and no store, its slow-path call left out."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    assert chip_smoke.sass_loops(SASS, "config_argmin_kernelILi8E") == [
+        dict(instructions=7, mufu=1, static=9)]
+    assert chip_smoke.sass_loops(SASS, "config_argmin_kernelILi4E") == []
+    assert chip_smoke.sass_loops(SASS, "baseline_argmax_kernelILi2E") == []
+
+
 def test_build_command_targets_hopper_without_fma(tmp_path):
     cmd = _build.build_command(t_kernel.SOURCES, tmp_path / "lib.so",
                                nvcc="nvcc")
@@ -776,9 +936,18 @@ def test_cuda_source_has_the_three_kernels():
         assert f"int {name}(" in src
         assert name in t_kernel._ARGTYPES
     assert "__expf" not in src and "__fdividef" not in src
+    # One entry an iteration: the issue floor reads the loops' SASS so.
+    assert src.count("#pragma unroll 1\n") == 2
     assert f"kMaxGroup = {t_kernel.MAX_GROUP};" in src
     assert f"kMaxCluster = {t_kernel.MAX_CLUSTER};" in src
     assert f"kFillThreads = {t_kernel.MAX_THREADS};" in src
     assert f"kSlots = {t_kernel.SLOTS};" in src
     for name, value in t_kernel.SYNC.items():
         assert f"kSync{name.capitalize()} = {value};" in src
+    assert f"kConfigThreads = {t_kernel.CONFIG_THREADS};" in src
+    assert f"kBaselineThreads = {t_kernel.BASELINE_THREADS};" in src
+    for name in ("MinLanes", "MaxLanes", "LanesPerSm"):
+        value = getattr(t_kernel, "SCAN_" + re.sub(r"(?<!^)([A-Z])", r"_\1",
+                                                   name).upper())
+        assert f"kScan{name} = {value};" in src
+    assert "int slot_scan_lanes(" in src

@@ -61,9 +61,11 @@ Phases, each of which raises on failure (exit code non-zero):
                 "auto:tile=256" (T=2), the paper setting (N=30, S=3, T=25)
                 with ":nofuse", MIN (T=2) and JCAB (T=4) at N=100,000 on
                 S=32, DOS at N=10,000 (T=2), EnergyAwareLBCD in the paper
-                setting with the energy queue z > 0; MIN, DOS and JCAB must
-                equal the plain run, LBCD and energy meet the rollout
-                contract; every kernel's launch counter must be > 0. One
+                setting with the energy queue z > 0 (its plain run held
+                over the first 3 slots); MIN, DOS and JCAB must equal the
+                plain run, LBCD and energy meet the rollout contract; every
+                kernel's launch counter must be > 0. The plain runs replay
+                CUDA graphs of the plain solve (bcd.replay_graph). One
                 slot each of MIN and JCAB at N=100,000 is profiled (device
                 time by kernel, device busy share);
   4. LM serving - qwen2.5-3b at full width and depth (36 layers, f32
@@ -109,6 +111,33 @@ Phases, each of which raises on failure (exit code non-zero):
                 their gate gaps. Also measured: the share of an admit spent
                 in the 7 scans and in the 4 MoE layers, and of a tick in
                 the Mamba decode steps and the MoE layers.
+  7. scenario sweep - repro_torch.scenarios.suite() at its own size (11
+                scenarios, N=30, S=3, T=200) swept by LBCD, MIN, DOS and
+                JCAB (solver_backend="auto") with obs streaming to a
+                temporary run directory, each policy with the launch
+                counters zeroed just before and read just after: seconds
+                and scenario-slots/s, launches by kernel (each kernel of
+                the policy's path must launch, and obs.dispatch.count must
+                equal the launches), the scenarios that took the masked
+                path (camera_churn, camera_churn_heavy: plain solves for
+                LBCD and MIN, replayed as CUDA graphs); finite series and
+                no failed policy; four sweep.policy spans and one
+                sweep.aopi histogram per (policy, family); the robustness
+                table; bcd.solve_slot ranges in a profiled LBCD slot; the
+                four obs artefacts read back by repro_torch.obs.report;
+                the graph replay of the plain solve against the eager
+                plain solve, exactly, on LBCD's and MIN's solves of
+                camera_churn, camera_churn_heavy and steady_ar1 at the
+                suite's size (the sweep's parity cannot see it: both of
+                its sweeps replay the same graphs for the masked solves);
+                the suite cut to 10 slots, kernel series equal to the
+                plain (solver_backend="torch") series exactly; the LBCD
+                sweep of the scenarios that run on the kernels, cut to 10
+                slots, in 8 pairs with obs off and on (order alternating):
+                medians, quartiles and the median on/off ratio; the cost
+                of one obs span and one dispatch count timed alone
+                (20,000 calls each), and their share of a kernel LBCD
+                slot.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit``, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -1353,7 +1382,10 @@ def profile_slot(fn, label, watch=()):
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0.0))
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+        # An obs span's range (record_function) also shows on the device
+        # timeline as a user annotation: not a kernel.
+        if (us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
             rows.append((us / 1e3, evt.count, evt.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
@@ -1367,6 +1399,312 @@ def profile_slot(fn, label, watch=()):
         log(f"    {name} (all passes): {ms:.3f} ms, "
             f"{100 * ms / max(busy, 1e-9):.1f}% of the device time")
     return wall, busy
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the scenario sweep
+# ---------------------------------------------------------------------------
+
+# The kernels each policy's path launches in a sweep at the suite's size
+# (N=30, S=3): Algorithm 1's scan and fused pair for LBCD and MIN, the
+# configuration scan for DOS and JCAB.
+SWEEP_KERNELS = {"lbcd": ("config_argmin", "waterfill_pair"),
+                 "min": ("config_argmin", "waterfill_pair"),
+                 "dos": ("baseline_argmax",), "jcab": ("baseline_argmax",)}
+# The parity sweep's cut horizon: the plain path replays CUDA graphs of
+# ~50,000 launches a solve at N=30 (~0.14 s an LBCD slot on the card), so
+# the plain sweep of all 11 scenarios is held to 10 slots (~25 s).
+PARITY_SLOTS = 10
+# The graph replay of the plain solve against the eager plain solve: LBCD's
+# solves of these scenarios (and MIN's under a mask) at the suite's size,
+# every GRAPH_STRIDE-th of GRAPH_SLOTS slots from the first slot with a dead
+# camera (from slot 0 without a mask); eager, a solve takes ~0.65 s.
+GRAPH_CHECK = ("camera_churn", "camera_churn_heavy", "steady_ar1")
+GRAPH_SLOTS, GRAPH_STRIDE = 16, 4
+# The obs on/off comparison: LBCD over the scenarios that run on the
+# kernels, cut to OBS_SLOTS slots, in OBS_PAIRS pairs of runs with obs off
+# and on, the order alternating (host clocks drift 10-50% within a call,
+# so a few runs in one order cannot resolve a cost of a few percent).
+OBS_SLOTS, OBS_PAIRS = 10, 8
+# Calls timed for the cost of one obs span and one dispatch count.
+SPAN_CALLS = 20_000
+
+
+def dispatch_counts(obs):
+    """obs.dispatch.count summed over its series, per kernel entry."""
+    out = {}
+    for m in obs.registry().collect("obs.dispatch.count"):
+        out[m.labels["entry"]] = out.get(m.labels["entry"], 0) + m.value
+    return out
+
+
+def timed_sweep(scenarios, suite, dev, **kw):
+    """``scenarios.sweep(suite, **kw)`` between synchronisations; returns
+    the result and its host seconds."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = scenarios.sweep(suite, device=dev, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def check_series(label, res):
+    """No policy failed, and every series is finite."""
+    import numpy as np
+    if res.errors:
+        raise AssertionError(f"{label}: policies failed: {res.errors}")
+    for p in res.policies:
+        for f in ("aopi", "acc", "q"):
+            if not np.isfinite(getattr(res, f)[p]).all():
+                raise AssertionError(f"{label}: {p} {f} not finite")
+
+
+def graph_vs_eager(dev, scenarios, suite):
+    """The solves the sweep replays as CUDA graphs, each held against the
+    eager plain solve (``bcd._solve``) on the same inputs with
+    ``torch.equal``: per GRAPH_CHECK scenario, an LBCD rollout on the plain
+    path, then at every GRAPH_STRIDE-th slot its virtual-server and
+    per-server solves from the rollout's own q and assignment, and MIN's
+    solve where the scenario carries a mask. Returns the solves checked."""
+    import torch
+    from repro_torch.core import bcd, lbcd, profiles
+
+    t0 = time.perf_counter()
+    checked = 0
+    for name in GRAPH_CHECK:
+        full = scenarios.runner.scenario(suite.tables,
+                                         suite.names.index(name))
+        start = 0
+        if full.active is not None:
+            start = int(torch.nonzero((full.active <= 0).any(dim=1))[0])
+        tab = full.window(start, start + GRAPH_SLOTS)
+        res = lbcd.rollout(tab, 10.0, 0.7, solver_backend="torch",
+                           device=dev)
+        n, n_srv = tab.n_cameras, tab.n_servers
+        effs = profiles.eff_sequence(tab)
+        virt_id = torch.zeros(n, dtype=torch.int32, device=dev)
+        zero = torch.zeros((), device=dev)
+        kw = dict(V=10.0, n_iters=4, solver_effort="fast",
+                  spec=bcd.resolve_spec("torch", dev, n))
+        for t in range(0, GRAPH_SLOTS, GRAPH_STRIDE):
+            act = None if tab.active is None else tab.active[t]
+            q = zero if t == 0 else res.q[t - 1]
+            bb, bc = tab.budgets_b[t], tab.budgets_c[t]
+            pooled = (virt_id, bb.sum().reshape(1), bc.sum().reshape(1), 1)
+            solves = [("virtual", q) + pooled,
+                      ("per-server", q, res.assign[t], bb, bc, n_srv)]
+            if act is not None:
+                solves.append(("MIN", zero) + pooled)
+            for label, q_s, sid, b_s, c_s, s_count in solves:
+                args = (tab.acc[t], tab.xi, tab.size, effs[t], sid, b_s, c_s,
+                        q_s)
+                got = bcd.solve_slot(*args, 10.0, n_servers=s_count,
+                                     active=act, solver_backend="torch")
+                want = bcd._solve(*args, act, n_servers=s_count, **kw)
+                for f in dataclasses.fields(bcd.SlotDecision):
+                    if not torch.equal(getattr(got, f.name),
+                                       getattr(want, f.name)):
+                        raise AssertionError(
+                            f"{name} slot {start + t} {label} solve: the "
+                            f"graph's {f.name} differs from the eager "
+                            "plain solve")
+                if label == "per-server" and not torch.equal(
+                        got.aopi, res.decision.aopi[t]):
+                    raise AssertionError(
+                        f"{name} slot {start + t}: the inputs rebuilt here "
+                        "are not the rollout's")
+                checked += 1
+    log(f"  graph replay vs eager plain solve: {checked} solves of "
+        f"{', '.join(GRAPH_CHECK)} (N={suite.specs[0].n_cameras}, slots "
+        f"{GRAPH_STRIDE} apart from the first with a dead camera) equal "
+        f"exactly; {time.perf_counter() - t0:.1f} s")
+    return checked
+
+
+def sweep_phase(dev):
+    """The full suite at its own size through every policy on the kernels,
+    obs streaming to a temporary run directory; the graph replays of the
+    plain solve against the eager plain solve; the same suite cut to
+    PARITY_SLOTS slots against the plain path; LBCD once more with obs
+    off. Returns the launches per sweep by kernel and the timings."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import faults, obs, scenarios  # noqa: F401
+    from repro_torch.core import lbcd
+    from repro_torch.kernels.slot_solver import ops
+    from repro_torch.obs import report as obs_report
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    obs.reset()
+    obs.configure(enabled=True, run_dir=run_dir)
+    suite = scenarios.suite(device=dev)
+    spec = suite.specs[0]
+    n_k, n_t = suite.n_scenarios, spec.n_slots
+    log(f"  suite: {n_k} scenarios ({', '.join(suite.names)}), "
+        f"N={spec.n_cameras}, S={spec.n_servers}, T={n_t} (ScenarioSpec "
+        f"defaults), obs streaming to a temporary run directory")
+    # The masked solves replay CUDA graphs of the plain version, captured
+    # at their first call: capture them here (one slot of LBCD on the
+    # churned scenario), outside the timed sweeps.
+    churned = scenarios.runner.scenario(
+        suite.tables, suite.names.index("camera_churn")).window(0, 1)
+    t0 = time.perf_counter()
+    lbcd.rollout(churned, 10.0, 0.7, device=dev)
+    torch.cuda.synchronize()
+    log(f"  masked-solve graphs captured: {time.perf_counter() - t0:.2f} s")
+    sweep_launches = {name: 0 for name in ops.launches}
+    per_policy = {}
+    results = {}
+    for policy in scenarios.POLICIES:
+        ops.reset_launches()
+        before = dispatch_counts(obs)
+        res, sec = timed_sweep(scenarios, suite, dev, policies=(policy,))
+        counts = dict(ops.launches)
+        check_series(f"sweep {policy}", res)
+        missing = [k for k in SWEEP_KERNELS[policy] if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"sweep {policy}: {missing} never "
+                                 f"launched: {counts}")
+        after = dispatch_counts(obs)
+        for name, count in counts.items():
+            seen = after.get(name, 0) - before.get(name, 0)
+            if seen != count:
+                raise AssertionError(
+                    f"sweep {policy}: obs.dispatch.count {seen} for {name}, "
+                    f"launched {count}")
+        for name, count in counts.items():
+            sweep_launches[name] += count
+        how = ("the masked plain path (Algorithm 1 on the plain versions)"
+               if policy in ("lbcd", "min") else
+               "the masked path (baseline_argmax, the mask after the scan)")
+        log(f"  sweep {policy}: {sec:.2f} s, {n_k * n_t / sec:.3f} "
+            f"scenario-slots/s, launches {counts} (equal to "
+            f"obs.dispatch.count); {how}: {res.masked}; mean AoPI "
+            f"{float(np.mean(res.aopi[policy])):.5f} s")
+        per_policy[policy] = sec
+        results[policy] = res
+    spans = [e for e in obs.events() if e["name"] == "sweep.policy"]
+    if len(spans) != len(scenarios.POLICIES):
+        raise AssertionError(f"{len(spans)} sweep.policy spans, expected "
+                             f"{len(scenarios.POLICIES)}")
+    fams = sorted(set(suite.families))
+    hists = {(m.labels["policy"], m.labels["family"]): m.count
+             for m in obs.registry().collect("sweep.aopi")}
+    want = {(p, f): n_t * suite.families.count(f)
+            for p in scenarios.POLICIES for f in fams}
+    if hists != want:
+        raise AssertionError(f"sweep.aopi histograms {hists}, expected "
+                             f"{want}")
+    log(f"  obs: {len(spans)} sweep.policy spans, {len(hists)} sweep.aopi "
+        f"histograms (policy x family), launches per sweep "
+        f"{sweep_launches}")
+    print(scenarios.robustness(results["lbcd"]), flush=True)
+
+    # One LBCD slot of a scenario under the profiler: the solves' ranges.
+    steady = suite.names.index("steady_ar1")
+    one = scenarios.runner.scenario(suite.tables, steady).window(0, 1)
+    lbcd.rollout(one, 10.0, 0.7, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lbcd.rollout(one, 10.0, 0.7, device=dev)
+        torch.cuda.synchronize()
+    ranges = [e for e in prof.events() if e.name == "bcd.solve_slot"]
+    kinds = sorted({str(e.device_type) for e in ranges})
+    if not ranges:
+        raise AssertionError("no bcd.solve_slot range in the profile")
+    log(f"  profiled LBCD slot of {suite.names[steady]}: {len(ranges)} "
+        f"bcd.solve_slot ranges ({', '.join(kinds)})")
+
+    obs.flush()
+    paths = obs.write_artifacts()
+    for label, path in sorted(paths.items()):
+        if not Path(path).is_file():
+            raise AssertionError(f"obs artefact {label} missing: {path}")
+    report = obs_report.build_report(obs_report.load_events(run_dir),
+                                     obs_report.load_metrics(run_dir))
+    if "solve_slot[cuda]" not in report or "kernel entry" not in report:
+        raise AssertionError(f"obs report incomplete:\n{report}")
+    log("  obs artefacts: " + ", ".join(
+        f"{Path(p).name} {Path(p).stat().st_size} B"
+        for p in sorted(paths.values())) + "; repro_torch.obs.report:")
+    for line in report.splitlines():
+        log(f"    {line}")
+    obs.configure(run_dir="")
+    shutil.rmtree(run_dir)
+
+    # The graphs the sweeps replay, against the eager plain solve.
+    graph_vs_eager(dev, scenarios, suite)
+
+    # Parity: the same suite cut to PARITY_SLOTS slots, kernels against the
+    # plain path, exactly.
+    cut = scenarios.suite(device=dev, n_slots=PARITY_SLOTS)
+    res_k, sec_k = timed_sweep(scenarios, cut, dev)
+    res_p, sec_p = timed_sweep(scenarios, cut, dev, solver_backend="torch")
+    check_series("parity kernels", res_k)
+    check_series("parity plain", res_p)
+    for p in scenarios.POLICIES:
+        for f in ("aopi", "acc", "q"):
+            if not np.array_equal(getattr(res_k, f)[p], getattr(res_p, f)[p]):
+                raise AssertionError(f"parity: {p} {f} differs between the "
+                                     "kernel and plain sweeps")
+    log(f"  parity at T={PARITY_SLOTS} (every scenario, every policy): "
+        f"kernel series equal to the plain series exactly; kernels "
+        f"{sec_k:.2f} s, plain {sec_p:.2f} s")
+
+    # Obs overhead: the LBCD kernel sweep again, with obs off and on in
+    # alternating pairs.
+    kernel_only = [n for n in suite.names if n not in results["lbcd"].masked]
+    cut = scenarios.suite(kernel_only, device=dev, n_slots=OBS_SLOTS)
+    timed_sweep(scenarios, cut, dev, policies=("lbcd",))      # warm-up
+    pairs = []
+    for i in range(OBS_PAIRS):
+        sec = {}
+        for enabled in ((False, True) if i % 2 == 0 else (True, False)):
+            obs.configure(enabled=enabled)
+            res_o, sec[enabled] = timed_sweep(scenarios, cut, dev,
+                                              policies=("lbcd",))
+            check_series(f"sweep lbcd obs {enabled}", res_o)
+        pairs.append((sec[False], sec[True]))
+    obs.configure(enabled=True)
+    offs = [off for off, _ in pairs]
+    ons = [on for _, on in pairs]
+    ratios = [on / off for off, on in pairs]
+    ratio = statistics.median(ratios)
+    q1, _, q3 = statistics.quantiles(offs, n=4)
+    log(f"  obs overhead: LBCD sweep of the {len(kernel_only)} kernel "
+        f"scenarios at T={OBS_SLOTS}, {OBS_PAIRS} off/on pairs in "
+        f"alternating order: off median {statistics.median(offs):.3f} s "
+        f"(quartiles {q1:.3f}-{q3:.3f}), on median "
+        f"{statistics.median(ons):.3f} s; on slower in "
+        f"{sum(r > 1 for r in ratios)}/{OBS_PAIRS} pairs; on/off median "
+        f"{ratio:.4f} (pairs {min(ratios):.4f}-{max(ratios):.4f})")
+    # What obs adds to a slot, timed alone: two solve spans and a count
+    # per launch (18 a kernel LBCD slot at N=30, S=3).
+    t0 = time.perf_counter()
+    for _ in range(SPAN_CALLS):
+        with obs.span("obs.span_cost", solver_backend="cuda", n_cameras=30):
+            pass
+    span_us = (time.perf_counter() - t0) / SPAN_CALLS * 1e6
+    t0 = time.perf_counter()
+    for _ in range(SPAN_CALLS):
+        obs.count_dispatch("obs_cost")
+    count_us = (time.perf_counter() - t0) / SPAN_CALLS * 1e6
+    per_slot = 2 * span_us + 18 * count_us
+    slot_us = statistics.median(offs) / (len(kernel_only) * OBS_SLOTS) * 1e6
+    log(f"  obs cost timed alone: a span {span_us:.2f} us, a dispatch "
+        f"count {count_us:.2f} us; a kernel LBCD slot's obs work "
+        f"{per_slot:.1f} us of its {slot_us:.0f} us "
+        f"({100 * per_slot / slot_us:.3f}%); phase 7 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=sweep_launches, seconds=per_policy,
+                obs_ratio=ratio, span_us=span_us, count_us=count_us)
 
 
 # ---------------------------------------------------------------------------
@@ -1891,7 +2229,8 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    log("== phase 2: kernels vs plain versions on the card")
+    log(f"== phase 2 (at {time.perf_counter() - t_start:.0f} s): kernels "
+        "vs plain versions on the card")
     small = check_kernels(kernel_inputs(30, 3, 0, dev), "N=30 S=3",
                           timing=True)
     big = check_kernels(kernel_inputs(10_000, 32, 1, dev), "N=10000 S=32",
@@ -1948,7 +2287,7 @@ def main() -> int:
     mlstm = check_mlstm(dev)
     scan = check_scan(dev)
 
-    log("== phase 3: end to end")
+    log(f"== phase 3 (at {time.perf_counter() - t_start:.0f} s): end to end")
 
     def system(n, s, n_slots):
         """The paper's per-camera share of bandwidth and compute."""
@@ -2081,20 +2420,35 @@ def main() -> int:
         fn()                                   # warm-up
         profile_slot(fn, label)
 
-    log("== phase 4: LM serving (qwen2.5-3b, full width and depth)")
+    bcd.release_graphs()                 # the plain solves' memory pools
+    torch.cuda.empty_cache()
+    log(f"== phase 4 (at {time.perf_counter() - t_start:.0f} s): LM serving "
+        "(qwen2.5-3b, full width and depth)")
     lm = serve_lm(dev, "qwen2.5-3b")
     torch.cuda.empty_cache()
 
-    log("== phase 5: xLSTM serving (xlstm-1.3b, full width and depth)")
+    log(f"== phase 5 (at {time.perf_counter() - t_start:.0f} s): xLSTM "
+        "serving (xlstm-1.3b, full width and depth)")
     xl = serve_lm(dev, "xlstm-1.3b")
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("== phase 6: hybrid serving (jamba-1.5-large-398b, full width, "
+    log(f"== phase 6 (at {time.perf_counter() - t_start:.0f} s): hybrid "
+        "serving (jamba-1.5-large-398b, full width, "
         f"cut {JAMBA_CUT}); {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         "still allocated")
     jamba = serve_lm(dev, "jamba-1.5-large-398b", cut=JAMBA_CUT)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== phase 7 (at {time.perf_counter() - t_start:.0f} s): scenario "
+        "sweep (the full suite, all four policies)")
+    sweep = sweep_phase(dev)
+
+    for module in ("repro_torch.obs", "repro_torch.obs.report",
+                   "repro_torch.faults", "repro_torch.scenarios"):
+        if module not in sys.modules:
+            raise AssertionError(f"{module} was not imported")
     if "jax" in sys.modules or any(m.split(".")[0] == "repro"
                                    for m in sys.modules):
         raise AssertionError("chip_smoke imported jax or repro")
@@ -2136,6 +2490,7 @@ def main() -> int:
             launches=counts[name], max_abs_err=errs[name], ms=r["ms"],
             device_ms=r["device_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            sweep_launches=sweep["launches"][name],
             **{k: r[k] for k in ("team", "lanes", "cold_device_ms",
                                  "issue_floor_ms", "sass_loop",
                                  "n30_device_ms") if k in r}))

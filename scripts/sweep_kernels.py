@@ -31,7 +31,9 @@ version at the sweep's shapes and times it with CUDA events:
                     time by kernel), LBCD's per-slot split at N=10,000 on
                     S=32 (virtual solve, first-fit, per-server solve; 2
                     slots), the launch-bound paper cell's slots/s (LBCD
-                    fused and ``:nofuse``, energy-aware LBCD; 25 slots),
+                    fused and ``:nofuse``, energy-aware LBCD; 25 slots;
+                    on a tree with obs also OBS_PAIRS pairs of each with
+                    obs off and on, the order alternating),
                     and the slots/s of LBCD and DOS at N=10,000 and MIN
                     and JCAB at N=100,000 (2-4 slots).
   argmin          - config_argmin (N=30, 1,000, 10,000) and
@@ -150,6 +152,9 @@ LOOP = dict(outer_iters=10, inner_iters=3, final_inner_iters=5)
 # more outer steps (10 evaluations more, each a fill sum and 3 steps).
 MORE_INNER = dict(outer_iters=10, inner_iters=9, final_inner_iters=5)
 MORE_OUTER = dict(outer_iters=20, inner_iters=3, final_inner_iters=5)
+# Pairs of paper-cell runs with obs off and on (order alternating), in
+# end_to_end on a tree that has obs.
+OBS_PAIRS = 8
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -577,6 +582,7 @@ def fill_end_to_end(dev, chip_smoke, tree):
         rates[label] = 25 / chip_smoke.drive(make, 25)[1]
     print(f"paper cell N=30 S=3 T=25 ({tree}), slots/s: " + ", ".join(
         f"{k} {v:.3f}" for k, v in rates.items()), flush=True)
+    obs_pairs = paper_obs_pairs(chip_smoke, cells, tree)
     # chip_smoke's phase-3 cells at scale, fewer slots.
     at_scale = {
         "LBCD N=10000 T=2": (lambda: lbcd.LBCDController(
@@ -596,7 +602,39 @@ def fill_end_to_end(dev, chip_smoke, tree):
         f"{k} {v:.3f}" for k, v in scale_rates.items()), flush=True)
     return dict(shape="end to end", tree=tree, min_slot_wall_s=wall,
                 min_slot_device_ms=busy, lbcd_split_s=split,
-                paper_slots_per_s=rates, scale_slots_per_s=scale_rates)
+                paper_slots_per_s=rates, scale_slots_per_s=scale_rates,
+                obs_pairs=obs_pairs)
+
+
+def paper_obs_pairs(chip_smoke, cells, tree):
+    """OBS_PAIRS pairs of each paper cell with obs off and on in one
+    process, the order alternating, so host drift between processes
+    drops out; None on a tree without obs."""
+    import statistics
+    try:
+        from repro_torch import obs
+    except ImportError:
+        return None
+    rates = {label: {False: [], True: []} for label in cells}
+    for i in range(OBS_PAIRS):
+        for enabled in ((False, True) if i % 2 == 0 else (True, False)):
+            obs.configure(enabled=enabled)
+            for label, make in cells.items():
+                rates[label][enabled].append(
+                    25 / chip_smoke.drive(make, 25)[1])
+    obs.configure(enabled=True)
+    out = {}
+    for label, r in rates.items():
+        ratios = [on / off for off, on in zip(r[False], r[True])]
+        q1, _, q3 = statistics.quantiles(r[False], n=4)
+        out[label] = dict(off=r[False], on=r[True])
+        print(f"obs pairs ({tree}), {label}: off median "
+              f"{statistics.median(r[False]):.3f} slots/s (quartiles "
+              f"{q1:.3f}-{q3:.3f}), on median "
+              f"{statistics.median(r[True]):.3f}; on slower in "
+              f"{sum(x < 1 for x in ratios)}/{OBS_PAIRS} pairs; on/off "
+              f"median {statistics.median(ratios):.4f}", flush=True)
+    return out
 
 
 def main() -> int:

@@ -12,6 +12,11 @@ dual is found by an Illinois search on its logarithm; each camera's
 allocation by a closed form (LCFSP) or a bracketed bisection (FCFS). All in
 normalized per-server units (x = allocation / budget).
 
+Each takes an optional ``active`` fleet-churn mask (1 live, 0 churned
+out), as the reference's do: a dead camera's box collapses to [0, 0], so
+it gets exactly zero and its share of the budget water-fills to the live
+cameras. No kernel takes the mask; a masked fill always runs here.
+
 These functions are the plain versions that the CUDA water-fill kernels of
 ``repro_torch.kernels.slot_solver`` are held against: the loops are Python
 loops of whole-fleet tensor operations, and the per-server fill sums are
@@ -158,13 +163,23 @@ def _waterfill(h_fn, closed_form, lo, hi, server_id, tree: SegmentTree,
     return alloc_at(0.5 * (a + b), blo, bhi, final_inner_iters)
 
 
+def _masked_box(lo, hi, active):
+    """The reference's churn mask on a fill's box: [0, 0] where dead."""
+    if active is None:
+        return lo, hi
+    live = active > 0
+    return (torch.where(live, lo, torch.zeros_like(lo)),
+            torch.where(live, hi, torch.zeros_like(hi)))
+
+
 def waterfill_bandwidth(k, p, pol, mu, server_id, budgets, n_servers: int,
                         outer_iters: int = 16, inner_iters: int = 6,
-                        final_inner_iters: int = 20):
+                        final_inner_iters: int = 20, active=None):
     """Allocate bandwidth b[n] (Hz) per server budget.
 
     ``k`` is eff/size (lam per Hz), ``mu`` the fixed computation rate,
-    ``server_id`` int[n] in [0, n_servers), ``budgets`` Hz per server.
+    ``server_id`` int[n] in [0, n_servers), ``budgets`` Hz per server,
+    ``active`` the optional churn mask (dead cameras get exactly 0).
     """
     B = budgets[server_id.long()]
     lam_scale = k * B
@@ -173,7 +188,7 @@ def waterfill_bandwidth(k, p, pol, mu, server_id, budgets, n_servers: int,
     hi = torch.where(pol == aopi.LCFSP, torch.ones_like(lam_scale),
                      torch.clamp_max(lam_star / torch.clamp_min(
                          lam_scale, _EPS), 1.0))
-    lo = torch.full_like(hi, 1e-9)
+    lo, hi = _masked_box(torch.full_like(hi, 1e-9), hi, active)
 
     def h_fn(u):
         return _h_bandwidth(u, lam_scale, mu, p, pol)
@@ -194,9 +209,10 @@ def waterfill_bandwidth(k, p, pol, mu, server_id, budgets, n_servers: int,
 def waterfill_compute(inv_xi, p, pol, lam, server_id, budgets,
                       n_servers: int, stability_margin: float = 1.05,
                       outer_iters: int = 16, inner_iters: int = 6,
-                      final_inner_iters: int = 20):
+                      final_inner_iters: int = 20, active=None):
     """Allocate computation c[n] (FLOPS) per server budget; ``inv_xi`` is
-    1/xi (mu per FLOPS), ``lam`` the fixed transmission rate."""
+    1/xi (mu per FLOPS), ``lam`` the fixed transmission rate, ``active``
+    the optional churn mask (dead cameras get exactly 0 and no floor)."""
     sid = server_id.long()
     C = budgets[sid]
     mu_scale = inv_xi * C
@@ -207,11 +223,14 @@ def waterfill_compute(inv_xi, p, pol, lam, server_id, budgets,
                         stability_margin * lam / torch.clamp_min(mu_scale,
                                                                  _EPS),
                         torch.full_like(lam, 1e-9))
+    if active is not None:
+        floor = torch.where(active > 0, floor, torch.zeros_like(floor))
     scale = torch.clamp_max(
         1.0 / torch.clamp_min(tree_segment_sum(floor, tree), _EPS), 1.0)
     floor = floor * scale[sid]
-    lo = clip(floor, torch.full_like(floor, 1e-9), torch.ones_like(floor))
-    hi = torch.ones_like(lo)
+    lo, hi = _masked_box(
+        clip(floor, torch.full_like(floor, 1e-9), torch.ones_like(floor)),
+        torch.ones_like(floor), active)
 
     def h_fn(v):
         return _h_compute(v, mu_scale, lam, p, pol)
@@ -230,12 +249,12 @@ def waterfill_compute(inv_xi, p, pol, lam, server_id, budgets,
 def waterfill_pair(k, p, pol, mu, inv_xi, server_id, budgets_b, budgets_c,
                    n_servers: int, stability_margin: float = 1.05,
                    outer_iters: int = 16, inner_iters: int = 6,
-                   final_inner_iters: int = 20):
+                   final_inner_iters: int = 20, active=None):
     """Lines 4 and 5 of Algorithm 1: the bandwidth water-fill, then the
     FCFS stability floors and the compute water-fill at ``lam = b * k``.
     Returns ``(b, c)`` in Hz / FLOPS."""
     kw = dict(outer_iters=outer_iters, inner_iters=inner_iters,
-              final_inner_iters=final_inner_iters)
+              final_inner_iters=final_inner_iters, active=active)
     b = waterfill_bandwidth(k, p, pol, mu, server_id, budgets_b, n_servers,
                             **kw)
     c = waterfill_compute(inv_xi, p, pol, b * k, server_id, budgets_c,

@@ -20,7 +20,12 @@ round trip between slots (DOS's first-fit is ``first_fit_torch``). Their
 configuration scans launch the ``baseline_argmax`` kernel on the card and
 take its plain version on the CPU. Per-server float sums are pairwise
 trees (``allocate.tree_segment_sum``), so a run is deterministic on the
-card and a ``cuda`` run equals a ``torch`` run. ``MINController``,
+card and a ``cuda`` run equals a ``torch`` run. A horizon with a
+fleet-churn mask (``tables.active``) runs as the reference's does: MIN's
+solves masked, on the plain path (``"cuda"`` refuses the mask); DOS and
+JCAB scan every camera with ``baseline_argmax``, kernel included, and apply
+the mask after the scan (zero weights and shares for dead cameras, sums
+guarded at 1e-30, first-fit over the weighted shares). ``MINController``,
 ``DOSController`` and ``JCABController`` wrap them: ``run`` rolls a whole
 horizon, ``step`` one slot of host profiles, both on the controller's
 device.
@@ -43,14 +48,26 @@ from ..kernels.slot_solver import ops, ref
 # Device rollouts (a Python loop over slots)
 # ---------------------------------------------------------------------------
 
-def _eval_decision(acc_t, xi, size, eff, r_idx, m_idx, b, c):
+def _eval_decision(acc_t, xi, size, eff, r_idx, m_idx, b, c, active=None):
     """Theorem-3 policy and closed-form AoPI of a fixed configuration and
-    allocation, as a ``bcd.SlotDecision`` (score = mean AoPI)."""
+    allocation, as a ``bcd.SlotDecision`` (score = mean AoPI). Under a
+    churn mask (0/1 floats) dead cameras give exactly 0 and the score is
+    the live mean."""
     n = acc_t.shape[0]
     r, m = r_idx.long(), m_idx.long()
     lam = b * eff / size[r]
     mu = c / xi[m, r]
     p = acc_t[torch.arange(n, device=acc_t.device), m, r]
+    if active is not None:
+        lam = lam * active
+        mu = mu * active
+        pol = aopi.optimal_policy(torch.clamp_min(lam, 1e-9),
+                                  torch.clamp_min(mu, 1e-9), p)
+        a = aopi.aopi_masked(lam, mu, p, pol, active=active)
+        n_live = torch.clamp_min(torch.sum(active), 1.0)
+        return bcd.SlotDecision(r_idx, m_idx, pol, b * active, c * active,
+                                lam, mu, p * active, a,
+                                torch.sum(a) / n_live)
     pol = aopi.optimal_policy(lam, mu, p)
     lam_e = torch.clamp_min(lam, 1e-9)
     mu_e = torch.clamp_min(mu, 1e-9)
@@ -70,11 +87,17 @@ def _result(decs, assigns) -> RolloutResult:
 
 def _prepare(tables: HorizonTables, device):
     dev = resolve_device(device)
-    tables = tables.to(dev)
-    if tables.active is not None:
-        raise NotImplementedError("the fleet-churn mask (active) is not yet "
-                                  "ported")
-    return tables, dev
+    return tables.to(dev), dev
+
+
+def _live(tables: HorizonTables, t: int, dtype):
+    """Slot ``t``'s churn mask as 0/1 floats, or None without a mask."""
+    if tables.active is None:
+        return None
+    return (tables.active[t] > 0).to(dtype)
+
+
+_EPS = 1e-30    # the reference's guard on masked sums (all-dead servers)
 
 
 def rollout_min(tables: HorizonTables, v=10.0, n_bcd_iters: int = 4,
@@ -83,7 +106,8 @@ def rollout_min(tables: HorizonTables, v=10.0, n_bcd_iters: int = 4,
                 device=DEFAULT_DEVICE) -> RolloutResult:
     """MIN over the whole horizon: Algorithm 1 on one pooled virtual
     server, q = 0. At ``AUTO_TILE_MIN_CAMERAS`` cameras and more, ``auto``
-    runs the virtual server's water-fills on the tiled kernel."""
+    runs the virtual server's water-fills on the tiled kernel. A masked
+    horizon's solves run on the plain path."""
     tables, dev = _prepare(tables, device)
     n = tables.n_cameras
     virt_id = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -96,7 +120,9 @@ def rollout_min(tables: HorizonTables, v=10.0, n_bcd_iters: int = 4,
                              tables.budgets_c[t].sum().reshape(1), q, v,
                              n_servers=1, n_iters=n_bcd_iters, method=method,
                              solver_effort=solver_effort,
-                             solver_backend=solver_backend)
+                             solver_backend=solver_backend,
+                             active=None if tables.active is None
+                             else tables.active[t])
         decs.append(dec)
         assigns.append(virt_id)
     return _result(decs, assigns)
@@ -140,14 +166,28 @@ def rollout_dos(tables: HorizonTables, weight=1.0,
         # Latency-minimizing allocation: b ~ sqrt(size/eff), c ~ sqrt(xi).
         w_b = torch.sqrt(size[r_idx.long()] / eff_t)
         w_c = torch.sqrt(xi[m_idx.long(), r_idx.long()])
-        assign = binpack.first_fit_torch(w_b / w_b.sum() * sum_b,
-                                         w_c / w_c.sum() * sum_c, bb, bc)
+        act = _live(tables, t, w_b.dtype)
+        if act is None:
+            tot_b, tot_c = w_b.sum(), w_c.sum()
+        else:
+            # Dead cameras weigh 0, so their shares flow to the survivors;
+            # the guards keep an all-dead server at 0/eps = 0, not NaN.
+            w_b, w_c = w_b * act, w_c * act
+            tot_b = torch.clamp_min(w_b.sum(), _EPS)
+            tot_c = torch.clamp_min(w_c.sum(), _EPS)
+        assign = binpack.first_fit_torch(w_b / tot_b * sum_b,
+                                         w_c / tot_c * sum_c, bb, bc)
         tree = segment_tree(assign, s)
         a = assign.long()
-        b = bb[a] * w_b / tree_segment_sum(w_b, tree)[a]
-        c = bc[a] * w_c / tree_segment_sum(w_c, tree)[a]
+        den_b = tree_segment_sum(w_b, tree)
+        den_c = tree_segment_sum(w_c, tree)
+        if act is not None:
+            den_b = torch.clamp_min(den_b, _EPS)
+            den_c = torch.clamp_min(den_c, _EPS)
+        b = bb[a] * w_b / den_b[a]
+        c = bc[a] * w_c / den_c[a]
         decs.append(_eval_decision(acc_t, xi, size, eff_t, r_idx, m_idx, b,
-                                   c))
+                                   c, active=act))
         assigns.append(assign)
     return _result(decs, assigns)
 
@@ -173,8 +213,16 @@ def rollout_jcab(tables: HorizonTables, latency_cap=0.5, n_rounds: int = 3,
     for t in range(tables.n_slots):
         acc_t, eff_t = tables.acc[t], effs[t]
         bb, bc = tables.budgets_b[t], tables.budgets_c[t]
-        b = bb[a] * share
-        c = bc[a] * share
+        act = _live(tables, t, bb.dtype)
+        if act is None:
+            share_t = share
+        else:
+            # The round-robin assignment stays; a server splits its
+            # budget over its live members.
+            counts_t = segment_sum(act, a, s)
+            share_t = act * (1.0 / torch.clamp_min(counts_t, 1.0))[a]
+        b = bb[a] * share_t
+        c = bc[a] * share_t
         m_idx = r_idx = torch.zeros(n, dtype=torch.int32, device=dev)
         for _ in range(n_rounds):
             m_idx, r_idx = scan(b, c, acc_t, xi, size, eff_t, mode="jcab",
@@ -183,10 +231,17 @@ def rollout_jcab(tables: HorizonTables, latency_cap=0.5, n_rounds: int = 3,
             # ~ xi (per [48]).
             size_n = size[r_idx.long()]
             xi_n = xi[m_idx.long(), r_idx.long()]
-            b = bb[a] * size_n / tree_segment_sum(size_n, tree)[a]
-            c = bc[a] * xi_n / tree_segment_sum(xi_n, tree)[a]
+            if act is not None:
+                size_n, xi_n = size_n * act, xi_n * act
+            den_b = tree_segment_sum(size_n, tree)
+            den_c = tree_segment_sum(xi_n, tree)
+            if act is not None:
+                den_b = torch.clamp_min(den_b, _EPS)
+                den_c = torch.clamp_min(den_c, _EPS)
+            b = bb[a] * size_n / den_b[a]
+            c = bc[a] * xi_n / den_c[a]
         decs.append(_eval_decision(acc_t, xi, size, eff_t, r_idx, m_idx, b,
-                                   c))
+                                   c, active=act))
         assigns.append(assign)
     return _result(decs, assigns)
 

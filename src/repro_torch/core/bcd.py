@@ -20,8 +20,21 @@ Three blocks, iterated ``n_iters`` times (paper §V-B):
 
 The ``tile=<n>`` knob and the fleet-size policy that sets it are the
 reference's (``resolve_spec``). Not yet ported: the paper's interior-point
-method (``method="interior"``) and the fleet-churn mask (``active``); each
-raises ``NotImplementedError``.
+method (``method="interior"``), which raises ``NotImplementedError``.
+
+A fleet-churn mask (``active``) is taken by no kernel, in this package or
+the reference, so a masked solve runs the plain versions: silently under
+``"auto"``, as in the reference; an explicit ``"cuda"`` with a mask raises
+``ValueError``, so that no caller believes a kernel ran.
+
+On the card a plain solve (``"torch"``, or any masked solve) is ~50,000
+launches of a few microseconds of work each, so it runs as a CUDA graph,
+captured at the first call with its shapes and knobs and replayed per call
+(the same kernels on the same inputs, bitwise the eager run).
+
+Each call opens the ``bcd.solve_slot`` obs span, labelled by the backend
+that runs. The port is eager, so every call is concrete: the reference's
+``bcd.solve_slot.traces`` counter (bumped for traced calls) never moves.
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ import numpy as np
 import torch
 
 from . import allocate, aopi
+from .. import obs
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels.slot_solver import ops, ref
 
@@ -138,15 +152,17 @@ class SlotDecision:
                               for f in dataclasses.fields(SlotDecision)))
 
 
-def _pair_fns(spec, server_id, budgets_b, budgets_c, n_servers):
+def _pair_fns(spec, server_id, budgets_b, budgets_c, n_servers,
+              active=None):
     """``make_pair(iteration budgets) -> pair(k, p, pol, mu, inv_xi)``
-    returning ``(b, c)`` for the resolved backend."""
+    returning ``(b, c)`` for the resolved backend (a churn mask only on
+    ``torch``)."""
     if spec.backend == "torch":
         def make_pair(kw):
             def pair(k, p, pol, mu, inv_xi):
                 return allocate.waterfill_pair(
                     k, p, pol, mu, inv_xi, server_id, budgets_b, budgets_c,
-                    n_servers, **kw)
+                    n_servers, active=active, **kw)
             return pair
         return make_pair
     layout = ops.server_layout(server_id, n_servers)
@@ -192,22 +208,108 @@ def solve_slot(acc, xi, size, eff, server_id, budgets_b, budgets_c, q, V,
         high-iteration effort.
       solver_backend: ``"auto" | "cuda" | "torch"`` with ``:nofuse`` and
         ``:tile=<n>`` (see :func:`resolve_spec`).
-      active: fleet-churn mask; not yet ported (must be ``None``).
+      active: optional [N] fleet-churn mask (1 = live). Dead cameras get
+        exactly zero bandwidth and compute (their share goes to the live
+        cameras of their server) and drop out of the score's means, as in
+        the reference. A masked solve runs the plain versions (see the
+        module docstring); ``"cuda"`` with a mask raises ``ValueError``.
     """
-    if active is not None:
-        raise NotImplementedError("the fleet-churn mask (active) is not yet "
-                                  "ported")
     n = acc.shape[0]
-    spec = resolve_spec(solver_backend, acc.device, n, method=method)
+    if active is not None:
+        if parse_backend(solver_backend).backend == "cuda":
+            raise ValueError(
+                "solver_backend='cuda' with a fleet-churn mask (active): no "
+                "slot-solver kernel takes the mask; 'auto' or 'torch' run "
+                "a masked solve on the plain path")
+        spec = resolve_spec("torch", acc.device, n, method=method)
+    else:
+        spec = resolve_spec(solver_backend, acc.device, n, method=method)
+    args = (acc, xi, size, eff, server_id, budgets_b, budgets_c, q, active)
+    kw = dict(V=V, n_servers=n_servers, n_iters=n_iters,
+              solver_effort=solver_effort, spec=spec)
+    if not obs.enabled():
+        return _dispatch(args, kw)
+    label = spec.backend if spec.tile_n is None else f"{spec.backend}:tiled"
+    with obs.span("bcd.solve_slot", solver_backend=label, n_cameras=int(n)):
+        return _dispatch(args, kw)
+
+
+def _dispatch(args, kw) -> SlotDecision:
+    """Eager, except a plain solve on the card: a replayed CUDA graph."""
+    acc, q = args[0], args[7]
+    if kw["spec"].backend != "torch" or acc.device.type != "cuda":
+        return _solve(*args, **kw)
+    q = torch.as_tensor(q, dtype=torch.float32, device=acc.device)
+    active = args[8]
+    tensors = args[:7] + (q,) + (() if active is None else (active,))
+    kw = dict(kw, V=float(kw["V"]))
+
+    def fn(*t):
+        return _solve(*t[:8], t[8] if len(t) > 8 else None, **kw)
+
+    key = (tuple((t.shape, t.dtype) for t in tensors), acc.device,
+           kw["V"], kw["n_servers"], kw["n_iters"],
+           kw["solver_effort"])
+    return replay_graph(key, fn, tensors)
+
+
+# Captured graphs by key; each holds its own memory pool until
+# release_graphs().
+_GRAPHS: dict = {}
+
+
+def release_graphs() -> None:
+    """Drop every captured graph and its memory pool."""
+    _GRAPHS.clear()
+
+
+def replay_graph(key, fn, tensors) -> SlotDecision:
+    """``fn(*tensors)`` through a CUDA graph cached under ``key``: captured
+    at the first call (after one eager warm-up run on a side stream; the
+    capture synchronises the card once), then replayed with ``tensors``
+    copied into its inputs. Returns copies of the graph's outputs."""
+    entry = _GRAPHS.get(key)
+    if entry is None:
+        static = [t.clone() for t in tensors]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(*static)
+        entry = _GRAPHS[key] = (graph, static, out)
+    graph, static, out = entry
+    for dst, src in zip(static, tensors):
+        dst.copy_(src)
+    graph.replay()
+    return SlotDecision(*(getattr(out, f.name).clone()
+                          for f in dataclasses.fields(SlotDecision)))
+
+
+def _solve(acc, xi, size, eff, server_id, budgets_b, budgets_c, q, active,
+           *, V, n_servers: int, n_iters: int, solver_effort: str,
+           spec: SolverSpec) -> SlotDecision:
+    n = acc.shape[0]
     sid = server_id.long()
-    counts = allocate.segment_sum(
-        torch.ones(n, dtype=acc.dtype, device=acc.device), sid, n_servers)
-    share = (1.0 / torch.clamp_min(counts, 1.0))[sid]
+    if active is not None:
+        act = (active > 0).to(acc.dtype)
+        eff = eff * act              # lam = 0 for churned-out cameras
+        counts = allocate.segment_sum(act, sid, n_servers)
+        share = act * (1.0 / torch.clamp_min(counts, 1.0))[sid]
+    else:
+        act = None
+        counts = allocate.segment_sum(
+            torch.ones(n, dtype=acc.dtype, device=acc.device), sid,
+            n_servers)
+        share = (1.0 / torch.clamp_min(counts, 1.0))[sid]
     b = budgets_b[sid] * share
     c = budgets_c[sid] * share
     config = (ops.config_argmin if spec.backend == "cuda"
               else ref.config_argmin_ref)
-    make_pair = _pair_fns(spec, server_id, budgets_b, budgets_c, n_servers)
+    make_pair = _pair_fns(spec, server_id, budgets_b, budgets_c, n_servers,
+                          active=act)
 
     polish = solver_effort == "fast"
     if polish:
@@ -242,8 +344,16 @@ def solve_slot(acc, xi, size, eff, server_id, budgets_b, budgets_c, q, V,
         b, c = pair_full(k, p, pol, c / xi_nm, 1.0 / xi_nm)
     lam = b * eff / size[r_idx.long()]                # Eqs. (1)-(2)
     mu = c / xi_nm                                    # Eq. (3)
-    a = aopi.aopi(lam, mu, p, pol)
-    score = -q * torch.mean(p) + V * torch.mean(a)
+    if act is not None:
+        # Dead cameras give exactly 0 in every per-camera output; the means
+        # run over the live count.
+        a = aopi.aopi_masked(lam, mu, p, pol, active=act)
+        p = p * act
+        n_live = torch.clamp_min(torch.sum(act), 1.0)
+        score = -q * torch.sum(p) / n_live + V * torch.sum(a) / n_live
+    else:
+        a = aopi.aopi(lam, mu, p, pol)
+        score = -q * torch.mean(p) + V * torch.mean(a)
     return SlotDecision(r_idx, m_idx, pol, b, c, lam, mu, p, a, score)
 
 

@@ -54,13 +54,20 @@ def rollout_energy(tables: HorizonTables, v, p_min, kappa_tx, kappa_c,
     budgets_c)`` places the cameras between the two solves (default
     ``binpack.first_fit_torch``).
 
+    A fleet-churn mask (``tables.active``) raises ``NotImplementedError``:
+    the reference's ``rollout_energy`` takes no mask and ignores one
+    silently (its solves and power means run over every camera), a fault
+    the port does not copy (ROADMAP section 3).
+
     Returns ``(RolloutResult, power[T], z[T])``.
     """
     dev = resolve_device(device)
     tables = tables.to(dev)
     if tables.active is not None:
-        raise NotImplementedError("the fleet-churn mask (active) is not yet "
-                                  "ported")
+        raise NotImplementedError(
+            "energy-aware LBCD with a fleet-churn mask (active): the "
+            "reference ignores the mask silently; the port refuses it "
+            "until a masked energy ladder is specified")
     n, n_servers = tables.n_cameras, tables.n_servers
     place = assign_fn or binpack.first_fit_torch
     virt_id = torch.zeros(n, dtype=torch.int32, device=dev)

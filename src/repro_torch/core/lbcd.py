@@ -8,8 +8,11 @@ Per slot t (paper §V-D):
 
 ``rollout`` runs all T slots over a pregenerated ``HorizonTables`` on its
 device, the queue carried as a device tensor, with no host round trip
-between slots. ``rollout_grid`` and ``rollout_scenarios`` loop it over a
-hyperparameter grid or a stack of scenarios and stack the results.
+between slots. A horizon with a fleet-churn mask (``tables.active``) runs
+its solves masked (on the plain path: ``bcd.solve_slot``) and Eq. 44 over
+the live cameras, as the reference's rollout does. ``rollout_grid`` and
+``rollout_scenarios`` loop it over a hyperparameter grid or a stack of
+scenarios and stack the results.
 ``LBCDController`` is the stateful wrapper (``plan``, ``step``, ``run``).
 """
 from __future__ import annotations
@@ -120,14 +123,12 @@ def rollout(tables: HorizonTables, v, p_min, q0=0.0,
 
     ``v`` and ``p_min`` are Python numbers, ``q0`` the initial virtual
     queue. ``solver_backend`` is as in ``bcd.solve_slot`` (``"auto"``: the
-    CUDA kernels on the card, the plain versions on the CPU). ``tables``
-    is moved to ``device`` if it lives elsewhere.
+    CUDA kernels on the card, the plain versions on the CPU and for a
+    masked horizon; ``"cuda"`` refuses a mask). ``tables`` is moved to
+    ``device`` if it lives elsewhere.
     """
     dev = resolve_device(device)
     tables = tables.to(dev)
-    if tables.active is not None:
-        raise NotImplementedError("the fleet-churn mask (active) is not yet "
-                                  "ported")
     n = tables.n_cameras
     n_servers = tables.n_servers
     virt_id = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -139,16 +140,25 @@ def rollout(tables: HorizonTables, v, p_min, q0=0.0,
     for t in range(tables.n_slots):
         acc_t, eff_t = tables.acc[t], effs[t]
         bb, bc = tables.budgets_b[t], tables.budgets_c[t]
+        act_t = None if tables.active is None else tables.active[t]
         # Algorithm 2 lines 1-2: virtual-server ideal demands.
         virt = bcd.solve_slot(acc_t, tables.xi, tables.size, eff_t, virt_id,
                               bb.sum().reshape(1), bc.sum().reshape(1), q, v,
-                              n_servers=1, **kw)
+                              n_servers=1, active=act_t, **kw)
         # Algorithm 2 lines 3-9: first-fit placement.
         assign = binpack.first_fit_torch(virt.b, virt.c, bb, bc)
         # Algorithm 2 line 10: re-solve per real server.
         dec = bcd.solve_slot(acc_t, tables.xi, tables.size, eff_t, assign,
-                             bb, bc, q, v, n_servers=n_servers, **kw)
-        q = lyapunov.queue_update(q, torch.mean(dec.acc), p_min)  # Eq. 44
+                             bb, bc, q, v, n_servers=n_servers, active=act_t,
+                             **kw)
+        if act_t is None:
+            acc_mean = torch.mean(dec.acc)
+        else:
+            # Eq. 44 over the live fleet only: churned-out cameras must not
+            # drag the accuracy constraint toward zero.
+            acc_mean = torch.sum(dec.acc) / torch.clamp_min(torch.sum(act_t),
+                                                            1.0)
+        q = lyapunov.queue_update(q, acc_mean, p_min)       # Eq. 44
         decs.append(dec)
         assigns.append(assign)
         qs.append(q)

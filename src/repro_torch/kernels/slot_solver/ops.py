@@ -4,7 +4,12 @@ Each wrapper takes the plain PyTorch version for tensors on the CPU and
 launches the CUDA kernel for tensors on a CUDA device, after checking
 device, dtype, shape and contiguity; there is no fallback from the kernel
 to the plain version. ``launches`` counts kernel launches per kernel (the
-plain version never counts).
+plain version never counts). Beside each count the wrapper bumps
+``obs.count_dispatch`` with the reference's entry name and labels
+(``mode`` on ``baseline_argmax`` and the single water-fills); the
+reference counts at trace time, once per compiled program, the port once
+per launch, so the ``obs.dispatch.count`` series of a kernel add up to its
+``launches`` entry whenever obs is on.
 
 ``ServerLayout`` sorts cameras stably by server into contiguous per-server
 segments; the water-fill kernels spread each segment over a team of G
@@ -22,6 +27,7 @@ import functools
 import torch
 
 from . import kernel, ref
+from ... import obs
 from ...core import allocate
 
 _LANE = 128          # the reference's padding width (its TPU lane width)
@@ -167,6 +173,7 @@ def config_argmin(b, c, acc, xi, size, eff, q, v, n_total: int):
     kernel.config_argmin(b, c, eff, acc, xi, size, q_t, float(v), n_total,
                          out[0], out[1], out[2])
     launches["config_argmin"] += 1
+    obs.count_dispatch("config_argmin")
     return out[0], out[1], out[2]
 
 
@@ -190,6 +197,7 @@ def baseline_argmax(b, c, acc, xi, size, eff, *, mode: str, threshold):
     kernel.baseline_argmax(b, c, eff, acc, xi, size, float(threshold), mode,
                            out[0], out[1])
     launches["baseline_argmax"] += 1
+    obs.count_dispatch("baseline_argmax", mode=str(mode))
     return out[0], out[1]
 
 
@@ -320,6 +328,7 @@ def _fill(mode, coef, p, pol, other, budgets, margin, server_id, n_servers,
                      _grid_slots(plan, n_servers, coef.device), out,
                      tiled=tiled)
     launches[name] += 1
+    obs.count_dispatch(name, mode=mode)
     return out
 
 
@@ -408,4 +417,5 @@ def waterfill_pair(k, p, pol, mu, inv_xi, server_id, budgets_b, budgets_c,
                           scratch, _grid_slots(plan, n_servers, k.device),
                           out[0], out[1])
     launches["waterfill_pair"] += 1
+    obs.count_dispatch("waterfill_pair")
     return out[0], out[1]

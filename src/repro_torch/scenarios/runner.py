@@ -1,0 +1,231 @@
+"""Fleet sweep runner: all policies x all scenarios on one card.
+
+The port of ``repro.scenarios.runner``. ``sweep`` runs the LBCD controller
+and the MIN/DOS/JCAB baselines over a stacked scenario axis (a
+:class:`registry.Suite` or raw stacked ``HorizonTables``). Its one backend,
+``"loop"``, runs each scenario's rollout in turn on ``device`` and reduces
+it there to per-slot fleet means (AoPI, accuracy, queue), so the host only
+sees ``[K, T]`` summaries. The reference's multi-device backends
+(``"shard_map"``, ``"fleet"``) wait for ``sharding/`` (ROADMAP queue 1),
+and ``dataplane=True`` for the GI/G/1 plane and ``serving.replay``.
+
+**The mask dispatch.** Stacking gives every scenario of a mixed suite an
+``active`` mask, all ones where the scenario had none
+(``profiles.stack_horizons``). The reference then runs every LBCD and MIN
+solve of the sweep on its masked jnp path, since no kernel takes a mask.
+Here a scenario whose mask is all ones reaches its rollout with
+``active=None``, so it runs on the kernels; only a scenario with a real
+churn mask (``camera_churn``, ``camera_churn_heavy``) takes the masked
+path: the plain solves for LBCD and MIN, ``baseline_argmax`` with the mask
+applied after the scan for DOS and JCAB. The fleet means still divide by
+the live count wherever the suite carries a mask, as the reference's do.
+``SweepResult.masked`` names the scenarios that took the masked path.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from .. import obs
+from ..core import baselines, lbcd, profiles
+from ..core.profiles import HorizonTables
+from ..device import DEFAULT_DEVICE, resolve_device
+from .registry import Suite
+
+POLICIES = ("lbcd", "min", "dos", "jcab")
+BACKENDS = ("loop",)
+#: The reference's multi-device backends, not ported yet.
+NOT_PORTED_BACKENDS = ("shard_map", "fleet")
+
+
+def divergence_series(measured: np.ndarray,
+                      predicted: np.ndarray) -> np.ndarray:
+    """Per-scenario relative divergence of horizon-mean measured vs
+    predicted AoPI (``measured/predicted - 1`` over matched epochs).
+    [K, T] x [K, T] -> [K]."""
+    return (measured.mean(axis=1) /
+            np.maximum(predicted.mean(axis=1), 1e-12) - 1.0)
+
+
+@dataclasses.dataclass
+class SweepResult:
+    """Per-scenario per-policy slot series (fleet means) + metadata.
+
+    ``aopi``/``acc``/``q`` map policy name -> ``[K, T]`` numpy arrays
+    aligned with ``names``/``families``. ``masked`` lists the scenarios
+    that carried a real churn mask and took the masked path. The
+    reference's data-plane fields (``measured_aopi`` and the rest) come
+    with ``dataplane=True``, which is not ported yet.
+    """
+    names: list[str]
+    families: list[str]
+    policies: list[str]
+    v: float
+    p_min: float
+    backend: str
+    aopi: dict[str, np.ndarray]
+    acc: dict[str, np.ndarray]
+    q: dict[str, np.ndarray]
+    #: policy -> repr of the exception that killed its sweep (series
+    #: NaN-filled).
+    errors: dict = dataclasses.field(default_factory=dict)
+    masked: list[str] = dataclasses.field(default_factory=list)
+
+    def mean_aopi(self, policy: str) -> np.ndarray:
+        """Per-scenario mean AoPI over the horizon. [K]"""
+        return self.aopi[policy].mean(axis=1)
+
+    def pct_aopi(self, policy: str, pct: float = 95.0) -> np.ndarray:
+        """Per-scenario tail (percentile over slots) AoPI. [K]"""
+        return np.percentile(self.aopi[policy], pct, axis=1)
+
+    def worst_aopi(self, policy: str) -> np.ndarray:
+        """Per-scenario worst slot AoPI. [K]"""
+        return self.aopi[policy].max(axis=1)
+
+    def mean_acc(self, policy: str) -> np.ndarray:
+        return self.acc[policy].mean(axis=1)
+
+
+def scenario(tables: HorizonTables, k: int) -> HorizonTables:
+    """Scenario ``k`` of a stacked horizon, with an all-ones mask dropped
+    (``active=None``): the mask dispatch of the module docstring."""
+    one = HorizonTables(**{
+        f: None if getattr(tables, f) is None else getattr(tables, f)[k]
+        for f in profiles.HORIZON_FIELDS})
+    if one.active is not None and bool((one.active > 0).all()):
+        one = dataclasses.replace(one, active=None)
+    return one
+
+
+def _rollout(name: str, tables: HorizonTables, v, p_min, params: dict,
+             solver_backend: str, device):
+    if name == "lbcd":
+        return lbcd.rollout(tables, v, p_min, n_bcd_iters=params["iters"],
+                            solver_backend=solver_backend, device=device)
+    if name == "min":
+        return baselines.rollout_min(tables, v, n_bcd_iters=params["iters"],
+                                     solver_backend=solver_backend,
+                                     device=device)
+    if name == "dos":
+        return baselines.rollout_dos(tables, params["dos_weight"],
+                                     solver_backend=solver_backend,
+                                     device=device)
+    if name == "jcab":
+        return baselines.rollout_jcab(tables, params["jcab_latency_cap"],
+                                      solver_backend=solver_backend,
+                                      device=device)
+    raise ValueError(f"unknown policy {name!r}; known: {POLICIES}")
+
+
+def _reduced(res, active) -> dict:
+    """One rollout -> [T] fleet means on the host; under a suite mask the
+    means divide by the live count, as the reference's
+    ``_reduced_policy`` does."""
+    if active is not None:
+        n_live = torch.clamp_min(active.sum(dim=-1), 1.0)
+        out = {"aopi": res.aopi.sum(dim=-1) / n_live,
+               "acc": res.acc.sum(dim=-1) / n_live}
+    else:
+        out = {"aopi": res.aopi.mean(dim=-1), "acc": res.acc.mean(dim=-1)}
+    out["q"] = res.q
+    return {k: x.cpu().numpy() for k, x in out.items()}
+
+
+def sweep(suite_or_tables: Suite | HorizonTables, v: float = 10.0,
+          p_min: float = 0.7, policies: Sequence[str] = POLICIES,
+          backend: str | None = None,
+          policy_params: Mapping | None = None,
+          solver_backend: str = "auto", dataplane: bool = False,
+          device=DEFAULT_DEVICE) -> SweepResult:
+    """Run every policy over every stacked scenario on ``device``.
+
+    ``backend`` is ``None`` or ``"loop"`` (the only one ported).
+    ``solver_backend`` is the rollouts' (``"auto"``: the kernels on the
+    card, the plain versions on the CPU; ``"torch"``: the plain versions;
+    ``"cuda"`` refuses a suite with a churn mask, which no kernel takes).
+    ``policy_params`` take ``n_bcd_iters``, ``dos_weight`` and
+    ``jcab_latency_cap`` as in the reference. A policy that raises gets
+    NaN series and its error in ``SweepResult.errors``; the others run on.
+    """
+    if backend in NOT_PORTED_BACKENDS:
+        raise NotImplementedError(
+            f"backend={backend!r} (the reference's multi-device sweep) is "
+            "not yet ported: it waits for sharding/ (ROADMAP queue 1)")
+    if backend is not None and backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+    if dataplane:
+        raise NotImplementedError(
+            "dataplane=True (the GI/G/1 replay of every cell) is not yet "
+            "ported: it waits for core/queues.py and serving/replay "
+            "(ROADMAP queue 1)")
+    dev = resolve_device(device)
+    if isinstance(suite_or_tables, Suite):
+        tables = suite_or_tables.tables
+        names = list(suite_or_tables.names)
+        fams = list(suite_or_tables.families)
+    else:
+        tables = suite_or_tables
+        if tables.acc.ndim != 5:
+            raise ValueError(
+                f"sweep() needs a *stacked* scenario axis (acc of rank 5, "
+                f"[K, T, N, M, R]); got acc{tuple(tables.acc.shape)}. "
+                f"Stack horizons with profiles.stack_horizons or pass a "
+                f"scenarios.suite(...)")
+        k = int(tables.acc.shape[0])
+        names = [f"scenario_{i}" for i in range(k)]
+        fams = ["unknown"] * k
+    tables = tables.to(dev)
+    n_scenarios, n_slots = int(tables.acc.shape[0]), int(tables.acc.shape[1])
+    params = dict(policy_params or {})
+    knobs = {"iters": int(params.get("n_bcd_iters", 4)),
+             "dos_weight": float(params.get("dos_weight", 1.0)),
+             "jcab_latency_cap": float(params.get("jcab_latency_cap", 0.5))}
+    per_scenario = [scenario(tables, k) for k in range(n_scenarios)]
+    masked = [names[k] for k, one in enumerate(per_scenario)
+              if one.active is not None]
+
+    series = {}
+    errors: dict = {}
+    for name in policies:
+        if name not in POLICIES:
+            raise ValueError(f"unknown policy {name!r}; known: {POLICIES}")
+        # One span per policy: every scenario's rollout and the host copy
+        # of its fleet means.
+        try:
+            with obs.span("sweep.policy", policy=name, backend="loop",
+                          solver_backend=str(solver_backend),
+                          n_scenarios=n_scenarios, n_devices=1):
+                out = [_reduced(_rollout(name, one, v, p_min, knobs,
+                                         solver_backend, dev),
+                                None if tables.active is None
+                                else tables.active[k])
+                       for k, one in enumerate(per_scenario)]
+                series[name] = {key: np.stack([o[key] for o in out])
+                                for key in ("aopi", "acc", "q")}
+        except Exception as e:  # noqa: BLE001 — isolate the policy cell
+            # One failing policy must not abort the whole sweep: record
+            # the failure, NaN-fill its series, and keep sweeping.
+            errors[name] = f"{type(e).__name__}: {e}"
+            obs.event("sweep.policy_failed", policy=name, backend="loop")
+            nan = np.full((n_scenarios, n_slots), np.nan)
+            series[name] = {"aopi": nan, "acc": nan.copy(),
+                            "q": np.full((n_scenarios, n_slots), np.nan)}
+            continue
+        if obs.enabled():
+            # Per-(policy, family) AoPI histograms of the [T] fleet-mean
+            # slot series of every scenario.
+            for ki, fam in enumerate(fams):
+                obs.histogram("sweep.aopi", policy=name, family=fam
+                              ).observe_many(series[name]["aopi"][ki])
+
+    return SweepResult(
+        names=names, families=fams, policies=list(policies),
+        v=v, p_min=p_min, backend="loop",
+        aopi={p: s["aopi"] for p, s in series.items()},
+        acc={p: s["acc"] for p, s in series.items()},
+        q={p: s["q"] for p, s in series.items()},
+        errors=errors, masked=masked)

@@ -21,9 +21,9 @@ in-flight lane, so a stream that churns out between epochs leaks no lane.
 
 The draws and the event loop are host numpy, the same as the JAX
 package's, so the returned statistics equal its exactly; only the engine
-under them runs on the card. The JAX package also bumps ``repro.obs``
-counters here; those are left out until observability is ported (ROADMAP
-queue 1 item 9).
+under them runs on the card. Each epoch bumps the reference's four obs
+series (``engine_plane.epochs``, ``engine_plane.frames``, ``engine.ticks``
+and ``engine.preempts``) with the same labels and values.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import obs
 from ..core import queues
 from .engine import DECODING, Engine
 from .scheduler import Frame
@@ -232,4 +233,9 @@ def measure_engine_epoch(engine: Engine, lam, mu, p, pol, *,
         out["delay_samples"] = np.where(live[:, None], T[:, :cap], 0.0)
     if collect_trace:
         out["trace"] = sorted(trace, key=lambda r: (r[2], r[0], r[1]))
+    obs.counter("engine_plane.epochs", delay_model=delay_model).inc()
+    obs.histogram("engine_plane.frames").observe(float(n_arr.sum()))
+    obs.counter("engine.ticks", backend="des",
+                delay_model=delay_model).inc(float(engine._steps - steps0))
+    obs.counter("engine.preempts", backend="des").inc(float(n_pre.sum()))
     return out

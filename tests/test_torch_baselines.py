@@ -250,13 +250,18 @@ def test_min_budget_use_matches_reference():
 
 
 def test_rollouts_refuse_churn_masks():
+    """Where a churn mask is refused: MIN with an explicit "cuda" (no
+    kernel takes the mask; "auto" runs it on the plain path) and
+    energy-aware LBCD with any backend (the reference ignores the mask
+    silently, ROADMAP section 3). DOS and JCAB take the mask on every
+    backend; tests/test_torch_scenarios.py holds the masked rollouts to
+    the reference."""
     _, ht = _horizons(t=2)
     masked = t_prof.HorizonTables(ht.acc, ht.xi, ht.size, ht.eff,
                                   ht.budgets_b, ht.budgets_c,
                                   active=torch.ones(2, 40))
-    for fn in (t_bl.rollout_min, t_bl.rollout_dos, t_bl.rollout_jcab):
-        with pytest.raises(NotImplementedError, match="active"):
-            fn(masked, device="cpu")
+    with pytest.raises(ValueError, match="mask"):
+        t_bl.rollout_min(masked, device="cpu", solver_backend="cuda")
     with pytest.raises(NotImplementedError, match="active"):
         t_energy.rollout_energy(masked, 10.0, 0.7, 2e-8, 2e-12, 1.0,
                                 device="cpu")

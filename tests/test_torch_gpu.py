@@ -994,3 +994,88 @@ def test_gpu_reduced_jamba_kernels_match_torch(cuda):
     for key, leaf in eng_k.cache["blocks"]["p1"]["state"].items():
         torch.testing.assert_close(leaf, eng_p.cache["blocks"]["p1"]
                                    ["state"][key], atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The scenario sweep: kernels against the plain path, obs on the card
+# ---------------------------------------------------------------------------
+
+SWEEP_MIX = ["steady_ar1", "camera_churn", "gilbert_elliott"]
+SWEEP_DIMS = dict(n_cameras=30, n_servers=3, n_slots=3, seed=0, churn_t0=1)
+
+
+def test_gpu_kernel_sweep_equals_plain_sweep(cuda):
+    """A small mixed suite: the kernel sweep ("auto") equals the plain one
+    ("torch") exactly, every policy; the churned scenario takes the masked
+    path; obs.dispatch.count equals the launch counters per kernel."""
+    from repro_torch import obs, scenarios
+    suite = scenarios.suite(SWEEP_MIX, SWEEP_DIMS, device=cuda)
+    obs.reset()
+    ops.reset_launches()
+    res_k = scenarios.sweep(suite, device=cuda)
+    launched = dict(ops.launches)
+    res_p = scenarios.sweep(suite, solver_backend="torch", device=cuda)
+    assert res_k.errors == {} and res_p.errors == {}
+    assert res_k.masked == ["camera_churn"]
+    for policy in scenarios.POLICIES:
+        for f in ("aopi", "acc", "q"):
+            got = getattr(res_k, f)[policy]
+            assert np.isfinite(got).all(), (policy, f)
+            np.testing.assert_array_equal(got, getattr(res_p, f)[policy],
+                                          err_msg=f"{policy} {f}")
+    for name in ("config_argmin", "waterfill_pair", "baseline_argmax"):
+        assert launched[name] > 0, name
+    assert ops.launches == launched          # the plain sweep launched none
+    for name, count in launched.items():
+        series = [m for m in obs.registry().collect("obs.dispatch.count")
+                  if m.labels["entry"] == name]
+        assert sum(m.value for m in series) == count, name
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_gpu_plain_solve_graph_equals_eager(cuda, masked):
+    """A plain solve on the card (masked, or "torch") replays a CUDA graph
+    of the plain version: bitwise the eager plain solve, given q as a
+    Python number, on a second call with other inputs too (the graph's
+    inputs are refreshed)."""
+    bcd.release_graphs()
+    tab = profiles.EdgeSystem(n_cameras=30, n_servers=3, n_slots=3,
+                              seed=4).horizon(2, device=cuda)
+    sid = (torch.arange(30, device=cuda) % 3).to(torch.int32)
+    rng = np.random.default_rng(0)
+    for t in range(2):
+        act = torch.as_tensor((rng.uniform(size=30) > 0.4).astype(
+            np.float32), device=cuda) if masked else None
+        q = 0.3 * t + 0.1
+        args = (tab.acc[t], tab.xi, tab.size, tab.eff, sid,
+                tab.budgets_b[t], tab.budgets_c[t])
+        got = bcd.solve_slot(*args, torch.tensor(q, device=cuda), 10.0,
+                             n_servers=3, active=act,
+                             solver_backend="auto" if masked else "torch")
+        want = bcd._solve(*args, q, act, V=10.0, n_servers=3, n_iters=4,
+                          solver_effort="fast",
+                          spec=bcd.resolve_spec("torch", cuda, 30))
+        for f in ("r_idx", "m_idx", "pol", "b", "c", "aopi", "score"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (t, f)
+        if masked:
+            assert (got.b[act == 0] == 0).all()
+    assert len(bcd._GRAPHS) == 1
+    if masked:
+        with pytest.raises(ValueError, match="mask"):
+            bcd.solve_slot(*args, 0.0, 10.0, n_servers=3, active=act,
+                           solver_backend="cuda")
+
+
+def test_gpu_span_does_not_synchronise(cuda):
+    """A span around queued work returns with the work still queued: it
+    neither synchronises the device nor waits on the stream."""
+    from repro_torch import obs
+    obs.reset()
+    stream = torch.cuda.current_stream()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)          # ~0.1 s of device time queued
+    with obs.span("obs.gpu_test"):
+        torch.ones(4, device=cuda).add_(1.0)
+    assert not stream.query(), "the span waited for the device"
+    torch.cuda.synchronize()
+    assert [e["name"] for e in obs.events()] == ["obs.gpu_test"]

@@ -193,11 +193,15 @@ def test_rollout_grid_and_scenarios_match_reference():
 
 def test_entry_points_refuse_cpu_by_default_and_unported_masks(
         monkeypatch):
+    """No kernel takes a churn mask: an explicit "cuda" with one raises
+    (the masked rollout itself is held to repro in
+    tests/test_torch_scenarios.py)."""
     _, ht = _horizons(t=2)
-    with pytest.raises(NotImplementedError, match="active"):
+    with pytest.raises(ValueError, match="mask"):
         t_lbcd.rollout(t_prof.HorizonTables(
             ht.acc, ht.xi, ht.size, ht.eff, ht.budgets_b, ht.budgets_c,
-            active=torch.ones(2, 10)), 10.0, 0.7, device="cpu")
+            active=torch.ones(2, 10)), 10.0, 0.7, device="cpu",
+            solver_backend="cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         t_lbcd.rollout(ht, 10.0, 0.7)

@@ -854,8 +854,11 @@ def test_unported_options_raise():
     assert torch.equal(d_tiled.b, d_plain.b)
     with pytest.raises(NotImplementedError, match="interior"):
         t_bcd.solve_slot(*args, n_servers=3, method="interior")
-    with pytest.raises(NotImplementedError, match="active"):
-        t_bcd.solve_slot(*args, n_servers=3, active=torch.ones(12))
+    # The churn mask is ported (tests/test_torch_scenarios.py); no kernel
+    # takes it, so an explicit "cuda" with a mask is refused.
+    with pytest.raises(ValueError, match="mask"):
+        t_bcd.solve_slot(*args, n_servers=3, active=torch.ones(12),
+                         solver_backend="cuda")
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,9 @@
 Phases, each of which raises on failure (exit code non-zero):
 
   1. card     - nvidia-smi name/power limit, torch/CUDA versions, nvcc builds
-                of the five kernel libraries (slot solver, flash attention,
-                flash decode, mlstm_chunkwise, selective_scan) from the
-                sources in this checkout, in parallel;
+                of the six kernel libraries (slot solver, flash attention,
+                flash decode, mlstm_chunkwise, selective_scan, data plane)
+                from the sources in this checkout, in parallel;
   2. kernels  - each CUDA kernel against its plain PyTorch version on the
                 card at the main paths' shapes and at edge cases, with
                 CUDA-event and profiler times: config_argmin and
@@ -53,7 +53,19 @@ Phases, each of which raises on failure (exit code non-zero):
                 bf16 rounding of the kernel's own f32 run on the same
                 inputs, y within one bf16 rounding plus the f32 atol, 2^-8
                 * |want| + 1e-4, of the f32 plain version), timed beside
-                its plain version (library_ms null);
+                its plain version (library_ms null); the two data-plane
+                kernels: gi_g1_window (every delay family at 640 frames,
+                f32, and 1,280, f64; bitwise but lognormal, within 1e-12)
+                and at a sweep cell's window (16 epochs x 16 streams,
+                20,480 frames, f64, bitwise, timed beside the plain loop),
+                timed alone at the service's window (8 x 30, 65,536) and
+                the sweep's commonest (10 x 16, 200,000); tick_scan (every
+                family at 512 ticks with the trace, bitwise against the
+                plain scan on the card and on the CPU) and at the engine
+                rung's shortest epoch (30 streams, 28,672 ticks, bitwise,
+                timed beside the plain scan), timed alone at its commonest
+                (49,152 ticks, the host draws timed apart); one-lane runs
+                of both (chain floors);
   3. end to end - each path driven through its entry point with the launch
                 counters zeroed just before and read just after, against the
                 plain (solver_backend="torch") run on the card:
@@ -138,6 +150,17 @@ Phases, each of which raises on failure (exit code non-zero):
                 of one obs span and one dispatch count timed alone
                 (20,000 calls each), and their share of a kernel LBCD
                 slot.
+  8. data plane - the launch counters zeroed just before and read just
+                after, the data plane's main path:
+                AnalyticsService(LBCDController(EdgeSystem(30, 3, seed=0)),
+                epoch_duration=300) for 16 epochs with delay_model="auto"
+                and telemetry_gain=0.3, and again with mode="engine" on the
+                scan backend; scenarios.sweep(suite(n_cameras=16,
+                n_slots=60, n_servers=3), dataplane=True, 16 replayed 600 s
+                epochs) per policy, timed; both kernels must launch, every
+                series be finite, no plan fail or fall back to a rung of the
+                degradation ladder, and measured AoPI lie within 15% of the
+                closed form over each run's horizon (every replayed cell).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit``, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -1708,6 +1731,396 @@ def sweep_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the data plane (AnalyticsService, the tick scan, the sweep's
+# replay)
+# ---------------------------------------------------------------------------
+
+# The service at the paper's setting: N=30 cameras on S=3 servers, 300 s
+# epochs (LBCD plans 30-136 frames/s there: 49,152 frames a stream, f64),
+# 16 epochs in plan windows of 8.
+SERVICE_EPOCHS = 16
+# The sweep's replay at examples/scenario_suite.py's size: 11 scenarios,
+# N=16, S=3, 60 slots, the first 16 replayed as 600 s epochs (98,304
+# frames a stream, one window of 16 epochs x 16 streams per cell).
+DP_SUITE = dict(n_cameras=16, n_slots=60, n_servers=3)
+DP_PARAMS = dict(n_epochs=16, epoch_duration=600.0)
+# Shapes the main path gives the kernels (phase 8 logs every window):
+# gi_g1_window is checked against its plain loop, and timed
+# beside it, at one sweep cell's window (E epochs, N streams, F frames),
+# and timed alone at the service's window and the sweep's commonest;
+# tick_scan likewise at the engine rung's shortest epoch (S streams, F
+# ticks) and alone at its commonest. A plain loop's time is linear in F
+# (~0.5 ms a frame): the shortest shapes keep the checks in the script's
+# time.
+CHECK_WINDOW = (16, 16, 20_480)
+SERVICE_WINDOW = (8, 30, 65_536)
+SWEEP_WINDOW = (10, 16, 200_000)
+CHECK_EPOCH = (30, 28_672)
+ENGINE_EPOCH = (30, 49_152)
+# Measured against the closed form (Theorems 1-2): the horizon mean of a
+# replayed cell or service run, |measured / predicted - 1|. An mm1 world
+# planned on the true tables (gain 0, or a fitted mm1 at gain 0.3) is the
+# theorems' own process; over 16 epochs of >= 9,000 frames a stream the
+# sample mean's spread is a few percent.
+CLOSED_FORM_TOL = 0.15
+# Bars of the kernels against their plain versions on the card: bitwise
+# but for lognormal (the kernel's copy of PyTorch's ndtri polynomial).
+DP_RTOL = {"lognormal": 1e-12}
+# Operations per unit of the window kernel's work, counted from
+# csrc/dataplane.cu (each integer or float +, -, *, /, shift, xor, rotate
+# and compare is one; a libdevice log1p, exp, log or pow one): one
+# threefry-2x32 draw (20 rounds of 3, 5 key injections of 3, 2 initial
+# adds, the uniform's 4); a delay from its uniforms; thread 0's step of
+# the recurrence; the tick scan's step.
+OPS_THREEFRY_DRAW = 81
+OPS_DELAY = {"mm1": 3, "uniform": 4, "gamma": 6, "lognormal": 12,
+             "weibull": 5}
+OPS_WINDOW_STEP = 26
+OPS_TICK_STEP = 34
+
+
+def window_inputs(e, n, dtype, dev, seed, lam_range=(2.0, 9.0)):
+    """[E, N] rates with a dead lane's clamped stand-in, mixed policies,
+    and the epoch keys of seed 7 from epoch 3, on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.core import threefry
+    rng = np.random.default_rng(seed)
+    lam = rng.uniform(*lam_range, (e, n))
+    mu = lam * rng.uniform(1.3, 3.0, (e, n))
+    lam[0, min(1, n - 1)] = 1e-6
+    p = rng.uniform(0.4, 0.95, (e, n))
+    pol = rng.integers(0, 2, (e, n))
+
+    def put(x, dt=dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+
+    keys = threefry.fold_in(threefry.key(7, dev),
+                            torch.arange(3, 3 + e, device=dev))
+    return (put(lam), put(mu), put(p), put(pol, torch.int32), keys)
+
+
+def window_err(got, want, rtol, label):
+    """Kernel against plain window: counts exact, the rest bitwise or
+    within ``rtol``; returns the max abs error."""
+    import torch
+    err = 0.0
+    for name, w in want.items():
+        g = got[name]
+        diff = float((g - w).abs().max())
+        err = max(err, diff)
+        exact = rtol is None or name.startswith("n_")
+        if (not torch.equal(g, w) if exact else
+                not torch.allclose(g, w, rtol=rtol, atol=0.0)):
+            raise AssertionError(f"gi_g1_window {label} {name}: kernel "
+                                 f"and plain differ by {diff:.3e}")
+    return err
+
+
+def window_ops(model, n_lanes, frames) -> float:
+    """Operations of one window: per frame, pass 1's draws and delay of
+    T and its sum, pass 2's draws and delays of the next T and of O, its
+    coin and the recurrence step."""
+    from repro_torch.core import queues
+    k = queues._n_uniforms(model)
+    per_frame = ((k // 2 + k) * OPS_THREEFRY_DRAW + 3 * OPS_DELAY[model]
+                 + OPS_WINDOW_STEP + 1)
+    return float(n_lanes) * frames * per_frame
+
+
+def dataplane_kernels(dev):
+    """Both data-plane kernels against their plain versions on the card:
+    every family at 640 frames (f32, light tails) and 1,280 (f64), then at
+    the main path's shapes of the module constants (CHECK_WINDOW,
+    CHECK_EPOCH; the others timed alone); the tick scan also for every
+    family at 512 ticks with the trace; one-lane runs of both for their
+    chain floors."""
+    import numpy as np
+    import torch
+    from repro_torch.core import queues
+    from repro_torch.kernels.dataplane import ops as dp_ops
+    from repro_torch.serving import engine_plane, tick_plane
+
+    errs = {"gi_g1_window": 0.0, "tick_scan": 0.0}
+    for model in queues.DELAY_MODELS:
+        for frames in (640, 1280):
+            heavy = model in queues.HEAVY_TAIL_MODELS
+            dtype = (torch.float64 if frames > queues.F32_MAX_FRAMES or heavy
+                     else torch.float32)
+            args = (*window_inputs(4, 12, dtype, dev, 0), 90.0, frames,
+                    model, 48)
+            err = window_err(dp_ops.gi_g1_window(*args),
+                             queues._window_sim(*args), DP_RTOL.get(model),
+                             f"{model} F={frames}")
+            errs["gi_g1_window"] = max(errs["gi_g1_window"], err)
+    log(f"  gi_g1_window vs plain: 5 families x (640, 1,280 frames), 4 x "
+        f"12 lanes with samples: bitwise but lognormal (max abs err "
+        f"{errs['gi_g1_window']:.3e})")
+
+    out = {}
+    e, n, f = CHECK_WINDOW
+    chk = (*window_inputs(e, n, torch.float64, dev, 1, (30.0, 136.0)),
+           600.0, f, "mm1")
+    got = dp_ops.gi_g1_window(*chk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = queues._window_sim(*chk)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs["gi_g1_window"] = max(errs["gi_g1_window"], window_err(
+        got, want, None, "sweep cell window"))
+    ms = cuda_ms(lambda: dp_ops.gi_g1_window(*chk), reps=10, warmup=1)
+    dev_ms = device_ms(lambda: dp_ops.gi_g1_window(*chk),
+                       "gi_g1_window_kernel", reps=5)
+    more = {}
+    for label, (we, wn, wf), horizon in (
+            ("service_window_ms", SERVICE_WINDOW, 300.0),
+            ("sweep_window_ms", SWEEP_WINDOW, 600.0)):
+        args = (*window_inputs(we, wn, torch.float64, dev, 2,
+                               (30.0, 136.0)), horizon, wf, "mm1")
+        more[label] = cuda_ms(lambda: dp_ops.gi_g1_window(*args), reps=5,
+                              warmup=1)
+    one = (*window_inputs(1, 1, torch.float64, dev, 3, (60.0, 61.0)),
+           600.0, f, "mm1")
+    chain_ms = cuda_ms(lambda: dp_ops.gi_g1_window(*one), reps=5, warmup=1)
+    # Each epoch's key and each lane's rates, p and policy read once, its
+    # five outputs written once.
+    n_bytes = e * 16 + e * n * (3 * 8 + 4 + 5 * 8)
+    b_ms, b_by = bound_ms(n_bytes, window_ops("mm1", e * n, f))
+    out["gi_g1_window"] = dict(
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, chain_floor_ms=chain_ms,
+        max_abs_err=errs["gi_g1_window"], **more)
+    log(f"  gi_g1_window, a sweep cell's window (E={e} N={n} F={f} f64 "
+        f"mm1): {ms:.3f} ms ({dev_ms} ms on the device), plain "
+        f"{plain_ms:.1f} ms (bitwise equal); one lane (F={f}): "
+        f"{chain_ms:.3f} ms; bound {b_ms:.6f} ms ({b_by}); the service's "
+        f"window (E={SERVICE_WINDOW[0]} N={SERVICE_WINDOW[1]} "
+        f"F={SERVICE_WINDOW[2]}) {more['service_window_ms']:.3f} ms, the "
+        f"sweep's commonest (E={SWEEP_WINDOW[0]} N={SWEEP_WINDOW[1]} "
+        f"F={SWEEP_WINDOW[2]}) {more['sweep_window_ms']:.3f} ms")
+
+    rng = np.random.default_rng(4)
+    for model in queues.DELAY_MODELS:
+        lam = rng.uniform(2.0, 9.0, (2, 15))
+        kw = dict(epoch_duration=60.0, seed=4, t0=2, delay_model=model,
+                  frames_cap=512, collect_samples=16, collect_trace=True)
+        args = (lam, lam * rng.uniform(1.1, 2.5, lam.shape),
+                rng.uniform(0.4, 0.95, lam.shape),
+                rng.integers(0, 2, lam.shape))
+        got = tick_plane.measure_engine_window_scan(*args, device=dev, **kw)
+        want = tick_plane.measure_engine_window_scan(*args, device="cpu",
+                                                     **kw)
+        if got["trace"] != want["trace"] or not got["trace"]:
+            raise AssertionError(f"tick_scan {model}: trace differs")
+        for name, w in want.items():
+            if name == "trace":
+                continue
+            g = np.asarray(got[name], np.float64)
+            if g.size:
+                errs["tick_scan"] = max(errs["tick_scan"], float(
+                    np.abs(g - np.asarray(w, np.float64)).max()))
+            if not np.array_equal(got[name], w):
+                raise AssertionError(f"tick_scan {model} {name}: kernel "
+                                     "differs from the plain scan")
+    def put(x):
+        return torch.as_tensor(x, device=dev)
+
+    def engine_epoch(s, f):
+        """An engine epoch's host draws (timed) and the scan's inputs."""
+        lam = rng.uniform(30.0, 136.0, s)
+        t0 = time.perf_counter()
+        draws = engine_plane.draw_streams(
+            lam, lam * rng.uniform(1.3, 3.0, s), np.ones(s, bool),
+            delay_model="mm1", seed=0, t=0, frames_cap=f)
+        sec = time.perf_counter() - t0
+        return sec, (*map(put, draws), put(rng.uniform(0.4, 0.9, s)),
+                     put(rng.integers(0, 2, s) == 1), put(np.ones(s, bool)),
+                     300.0)
+
+    s, f = CHECK_EPOCH
+    _, targs = engine_epoch(s, f)
+    got = dp_ops.tick_scan(*targs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = tick_plane._tick_scan(*targs)
+    torch.cuda.synchronize()
+    tplain_ms = (time.perf_counter() - t0) * 1e3
+    for name, w in want.items():
+        errs["tick_scan"] = max(errs["tick_scan"], float(
+            (got[name].double() - w.double()).abs().max()))
+        if not torch.equal(got[name], w):
+            raise AssertionError(f"tick_scan service epoch {name}: kernel "
+                                 "differs from the plain scan")
+    tms = cuda_ms(lambda: dp_ops.tick_scan(*targs), reps=10, warmup=1)
+    tdev = device_ms(lambda: dp_ops.tick_scan(*targs), "tick_scan_kernel",
+                     reps=5)
+    tchain = cuda_ms(lambda: dp_ops.tick_scan(
+        *(t[:1] for t in targs[:6]), 300.0), reps=5, warmup=1)
+    draw_s, eargs = engine_epoch(*ENGINE_EPOCH)
+    engine_ms = cuda_ms(lambda: dp_ops.tick_scan(*eargs), reps=5, warmup=1)
+    del eargs
+    # The draws read once, p and the two flags read, the nine-word lane
+    # state written.
+    t_bytes = s * f * 3 * 8 + s * (8 + 2) + 9 * s * 8
+    tb_ms, tb_by = bound_ms(t_bytes, float(s) * f * (OPS_TICK_STEP + 1))
+    out["tick_scan"] = dict(
+        ms=tms, device_ms=tdev, plain_ms=tplain_ms, bound_ms=tb_ms,
+        bound_by=tb_by, chain_floor_ms=tchain, host_draw_s=draw_s,
+        engine_epoch_ms=engine_ms, max_abs_err=errs["tick_scan"])
+    log(f"  tick_scan vs plain: 5 families at 2 x 15 lanes, 512 ticks, "
+        f"trace included, bitwise (and the plain scan on the CPU, the "
+        f"DES's twin); the engine rung's shortest epoch (S={s}, F={f} "
+        f"f64): {tms:.3f} ms ({tdev} ms on the device), plain "
+        f"{tplain_ms:.1f} ms (bitwise equal), one lane {tchain:.3f} ms, "
+        f"bound {tb_ms:.6f} ms ({tb_by}); its commonest (S="
+        f"{ENGINE_EPOCH[0]}, F={ENGINE_EPOCH[1]}): {engine_ms:.3f} ms "
+        f"after host draws of {draw_s:.3f} s (3 x {ENGINE_EPOCH[0]} x "
+        f"{ENGINE_EPOCH[1]} f64, "
+        f"{3 * ENGINE_EPOCH[0] * ENGINE_EPOCH[1] * 8 / 1e6:.1f} MB)")
+    return out
+
+
+def closed_form_check(label, measured, predicted):
+    """|mean measured / mean predicted - 1| within CLOSED_FORM_TOL."""
+    import numpy as np
+    div = float(np.mean(measured) / max(np.mean(predicted), 1e-12) - 1.0)
+    if not np.isfinite(measured).all() or abs(div) > CLOSED_FORM_TOL:
+        raise AssertionError(f"{label}: measured vs closed form {div:+.4f} "
+                             f"(bar {CLOSED_FORM_TOL})")
+    return div
+
+
+def dataplane_phase(dev, timed):
+    """Phase 8: the data plane's main path with the launch counters zeroed
+    just before and read just after: the service (fitted selector, gain
+    0.3), the service in engine mode on the scan backend, and the sweep's
+    replay through every policy. ``timed`` is phase 2's
+    ``dataplane_kernels``; returns it with the launches and timings."""
+    import collections
+
+    import numpy as np
+    import torch
+    from repro_torch import obs, scenarios
+    from repro_torch.core import lbcd, profiles
+    from repro_torch.kernels.dataplane import ops as dp_ops
+    from repro_torch.kernels.slot_solver import ops
+    from repro_torch.serving import AnalyticsService
+
+    t_phase = time.perf_counter()
+
+    obs.reset()
+    obs.configure(enabled=True)
+    dp_ops.reset_launches()
+    ops.reset_launches()
+    runs = {}
+
+    def service(label, **kw):
+        ctrl = lbcd.LBCDController(
+            profiles.EdgeSystem(n_cameras=30, n_servers=3, seed=0),
+            device=dev)
+        before = dict(dp_ops.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc = AnalyticsService(ctrl, epoch_duration=300.0, **kw)
+        reps = svc.run(SERVICE_EPOCHS)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = {k: v - before[k] for k, v in dp_ops.launches.items()}
+        meas = np.array([r.measured_aopi for r in reps])
+        pred = np.array([r.predicted_aopi for r in reps])
+        div = closed_form_check(f"service {label}", meas, pred)
+        # Nothing is injected: a planning failure here is a fault of the
+        # path (a kernel's included), and no rung of the ladder may serve.
+        if svc.plan_failures or svc.fallbacks or svc.degraded_epochs:
+            raise AssertionError(
+                f"service {label}: plan failures {svc.plan_failures}, "
+                f"fallbacks {svc.fallbacks}, degraded "
+                f"{svc.degraded_epochs}")
+        extra = ""
+        if svc.mode == "engine":
+            model = np.array([r.model_aopi for r in reps])
+            closed_form_check(f"service {label} GI/G/1 rung", model, pred)
+            extra = (f", GI/G/1 rung mean {model.mean():.5f} s "
+                     f"({model.mean() / meas.mean() - 1:+.4f} vs engine)")
+        log(f"  service {label}: {SERVICE_EPOCHS} epochs in {sec:.2f} s "
+            f"({SERVICE_EPOCHS / sec:.3f} epochs/s), launches {counts}; "
+            f"mean measured {meas.mean():.5f} s vs closed form "
+            f"{pred.mean():.5f} s ({div:+.4f}){extra}; fitted "
+            f"{sorted(set(m for _, m in svc.fitted_models))}")
+        runs[label] = dict(seconds=sec, launches=counts)
+        return svc
+
+    service("auto, gain 0.3", delay_model="auto", telemetry_gain=0.3)
+    service("engine, scan", mode="engine", engine_backend="scan")
+
+    suite = scenarios.suite(device=dev, **DP_SUITE)
+    before = dict(dp_ops.launches)
+    per_policy = {}
+    results = {}
+    for policy in scenarios.POLICIES:
+        res, sec = timed_sweep(scenarios, suite, dev, policies=(policy,),
+                               dataplane=True, dataplane_params=DP_PARAMS)
+        check_series(f"dataplane sweep {policy}", res)
+        if any(res.fallbacks[policy]) or any(res.degraded[policy]):
+            raise AssertionError(
+                f"dataplane sweep {policy}: fallbacks {res.fallbacks}, "
+                f"degraded {res.degraded}")
+        divs = res.divergence(policy)
+        worst = int(np.argmax(np.abs(divs)))
+        if (not np.isfinite(res.measured_aopi[policy]).all()
+                or abs(divs[worst]) > CLOSED_FORM_TOL):
+            raise AssertionError(
+                f"dataplane sweep {policy}: {res.names[worst]} measured vs "
+                f"closed form {divs[worst]:+.4f} (bar {CLOSED_FORM_TOL})")
+        per_policy[policy] = sec
+        results[policy] = res
+        log(f"  sweep {policy} (dataplane): {sec:.2f} s; divergence per "
+            f"scenario {np.round(divs, 4).tolist()}")
+    runs["sweep"] = dict(seconds=sum(per_policy.values()), launches={
+        k: v - before[k] for k, v in dp_ops.launches.items()})
+    counts = dict(dp_ops.launches)
+    slot_counts = dict(ops.launches)
+    for name in ("gi_g1_window", "tick_scan"):
+        if counts[name] <= 0:
+            raise AssertionError(f"phase 8: {name} never launched: {counts}")
+    # The reference's own series count the same launches: one
+    # queues.batch_dispatches per window, engine.ticks per tick scanned.
+    reg = obs.registry()
+    ticks = sum(m.value for m in reg.collect("engine.ticks")
+                if m.labels.get("backend") == "scan")
+    if reg.total("queues.batch_dispatches") != counts["gi_g1_window"]:
+        raise AssertionError("queues.batch_dispatches "
+                             f"{reg.total('queues.batch_dispatches')} != "
+                             f"{counts['gi_g1_window']} window launches")
+    shapes = collections.Counter(
+        (e["args"]["epochs"], e["args"]["streams"], e["args"]["n_frames"])
+        for e in obs.events() if e["name"] == "queues.gi_g1_window")
+    if sum(shapes.values()) != counts["gi_g1_window"]:
+        raise AssertionError(f"{sum(shapes.values())} window spans for "
+                             f"{counts['gi_g1_window']} launches")
+    log("  window shapes (epochs, streams, frames): launches "
+        + ", ".join(f"{k}: {v}" for k, v in sorted(shapes.items()))
+        + f"; engine.ticks (scan) {ticks:.0f}")
+    for name in ("config_argmin", "waterfill_pair", "baseline_argmax"):
+        if slot_counts[name] <= 0:
+            raise AssertionError(f"phase 8: {name} never launched: "
+                                 f"{slot_counts}")
+    res = results["lbcd"]
+    print(scenarios.robustness(res), flush=True)
+    log(f"  data-plane main path launches {counts} (service auto "
+        f"{runs['auto, gain 0.3']['launches']}, engine "
+        f"{runs['engine, scan']['launches']}, sweep "
+        f"{runs['sweep']['launches']}); slot-solver {slot_counts}; sweep "
+        f"seconds per policy {per_policy} (11 scenarios, N=16, S=3, 60 "
+        f"closed-form slots, 16 replayed 600 s epochs); phase 8 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(timed=timed, launches=counts, runs=runs,
+                sweep_seconds=per_policy,
+                shapes={str(k): v for k, v in shapes.items()})
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-5: LM serving at full width and depth (qwen2.5-3b, xlstm-1.3b)
 # ---------------------------------------------------------------------------
 
@@ -2193,6 +2606,7 @@ def main() -> int:
 
     from repro_torch.core import baselines, bcd, energy, lbcd, profiles
     from repro_torch.kernels import _build
+    from repro_torch.kernels.dataplane import kernel as dp_kernel
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mlstm import kernel as ml_kernel
@@ -2214,12 +2628,14 @@ def main() -> int:
                                   _build.ATTENTION_FLAGS),
                  "mlstm_chunkwise": (ml_kernel.SOURCES,
                                      _build.ATTENTION_FLAGS),
-                 "selective_scan": (ss_kernel.SOURCES, _build.NVCC_FLAGS)}
+                 "selective_scan": (ss_kernel.SOURCES, _build.NVCC_FLAGS),
+                 "dataplane": (dp_kernel.SOURCES, _build.NVCC_FLAGS)}
     with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each
         futures = {name: pool.submit(_build.build, name, *args)
                    for name, args in libraries.items()}
         lib_paths = {name: f.result() for name, f in futures.items()}
-    for lib in (kernel, fa_kernel, dec_kernel, ml_kernel, ss_kernel):
+    for lib in (kernel, fa_kernel, dec_kernel, ml_kernel, ss_kernel,
+                dp_kernel):
         lib.load()
     log(f"  build: {time.perf_counter() - t0:.2f} s -> "
         + ", ".join(p.name for p in lib_paths.values()))
@@ -2286,6 +2702,7 @@ def main() -> int:
     attn = check_attention(dev)
     mlstm = check_mlstm(dev)
     scan = check_scan(dev)
+    dp_timed = dataplane_kernels(dev)
 
     log(f"== phase 3 (at {time.perf_counter() - t_start:.0f} s): end to end")
 
@@ -2445,8 +2862,18 @@ def main() -> int:
         "sweep (the full suite, all four policies)")
     sweep = sweep_phase(dev)
 
+    bcd.release_graphs()
+    torch.cuda.empty_cache()
+    log(f"== phase 8 (at {time.perf_counter() - t_start:.0f} s): the data "
+        "plane (AnalyticsService, the tick scan, the sweep's replay)")
+    dplane = dataplane_phase(dev, dp_timed)
+
     for module in ("repro_torch.obs", "repro_torch.obs.report",
-                   "repro_torch.faults", "repro_torch.scenarios"):
+                   "repro_torch.faults", "repro_torch.scenarios",
+                   "repro_torch.serving.service",
+                   "repro_torch.serving.replay",
+                   "repro_torch.serving.tick_plane",
+                   "repro_torch.core.threefry"):
         if module not in sys.modules:
             raise AssertionError(f"{module} was not imported")
     if "jax" in sys.modules or any(m.split(".")[0] == "repro"
@@ -2519,6 +2946,24 @@ def main() -> int:
             library_ms=r["library_ms"],
             **{k: r[k] for k in ("tc_bound_ms", "n_split", "passes",
                                  "tiling", "lanes") if k in r}))
+    # The data-plane kernels: no TPU kernel; each replaces a lax.scan of
+    # the JAX package. Launches from phase 8's main path.
+    dp_src = "src/repro_torch/kernels/dataplane/csrc/dataplane.cu"
+    dp_replaces = {"gi_g1_window": "src/repro/core/queues.py:330",
+                   "tick_scan": "src/repro/serving/tick_plane.py:94"}
+    for name, replaced in dp_replaces.items():
+        r = dplane["timed"][name]
+        kernels.append(dict(
+            name=name, route="cuda", source=dp_src, replaces=replaced,
+            launches=dplane["launches"][name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            chain_floor_ms=r["chain_floor_ms"], tpu_kernel=None,
+            run_launches={k: v["launches"][name]
+                          for k, v in dplane["runs"].items()},
+            **{k: r[k] for k in ("service_window_ms", "sweep_window_ms",
+                                 "engine_epoch_ms", "host_draw_s")
+               if k in r}))
     log("  timed shapes: config_argmin and waterfill_pair at N=10000 S=32 "
         "(loop effort), waterfill at N=30 S=3 (bandwidth, loop effort), "
         f"waterfill_tiled at N=100000 S=1 (bandwidth, loop effort, team "
@@ -2540,7 +2985,10 @@ def main() -> int:
         "ms); selective_scan at b=1 s=2048 inner=16384 n=16 f32 (s=6: "
         f"{scan['s=6']['ms']:.4f} ms, s=3072: {scan['s=3072']['ms']:.4f} "
         f"ms); LM launches (b): {lm['counts_b']}, {xl['counts_b']}, "
-        f"{jamba['counts_b']}")
+        f"{jamba['counts_b']}; gi_g1_window at E={CHECK_WINDOW[0]} "
+        f"N={CHECK_WINDOW[1]} F={CHECK_WINDOW[2]} f64 (a sweep cell's "
+        f"window), tick_scan at S={CHECK_EPOCH[0]} F={CHECK_EPOCH[1]} "
+        "(the engine rung's shortest epoch)")
     log(f"  chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
         "build included")
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,7 @@ The port of ``repro.faults``. Every draw is host numpy from the same
 ``zlib``-derived seeds, so each mask and capacity factor is bitwise the
 reference's; :func:`apply_plan` builds torch tensors on the tables'
 device. The telemetry and solver kinds are consulted by the serving
-service, which is not ported yet (ROADMAP queue 1).
+service (``serving.AnalyticsService``).
 
 A :class:`FaultPlan` is a tuple of timed :class:`FaultSpec` injections plus a
 seed; every fault kind draws from its own deterministic RNG stream
@@ -21,7 +21,7 @@ Fault kinds split into three delivery mechanisms:
   the water-fill, capacity faults scale ``budgets_b``/``budgets_c`` (floored
   at ``1e-6 x`` the mean so the solvers stay finite);
 * **telemetry** (``telemetry_drop``/``delay``/``corrupt``) are consulted by
-  the serving service (``AnalyticsService`` in the reference) per
+  the serving service (``AnalyticsService``) per
   measurement epoch and gate what the EWMA telemetry filter is allowed to
   ingest;
 * **solver** (``solver_nan``/``nonconverge``/``timeout``) are consulted per

@@ -1,9 +1,8 @@
 """Robustness reporting: per-policy, per-family tail behaviour.
 
-The port of ``repro.scenarios.report``. :func:`robustness` is the
-reference's, number for number; :func:`degradation` replays the suite
-through ``serving.replay``, which is not ported yet, and raises
-``NotImplementedError`` until it is.
+The port of ``repro.scenarios.report``: :func:`robustness` and
+:func:`degradation` are the reference's, number for number, on the same
+series.
 
 The headline claims of the paper are means over one trace; what a
 deployment cares about is how each policy degrades under each *kind* of
@@ -23,7 +22,7 @@ rung) with per-rung divergences against both the GI/G/1 plane
 (``div:gi``) and the closed forms (``div:cf``).
 
 :func:`degradation` is the fault-plane counterpart: it replays a suite
-clean and once per fault kind (``repro.faults``) and tabulates, per
+clean and once per fault kind (``faults``) and tabulates, per
 (policy, fault kind), measured AoPI under faults vs fault-free, the
 recovery time in epochs after the fault window clears, and the fallback /
 degraded-epoch counts from the service's graceful-degradation ladder.
@@ -35,6 +34,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .. import faults as fault_plane
 from .runner import POLICIES, SweepResult
 
 
@@ -334,6 +334,25 @@ class DegradationReport:
         return "\n".join(lines)
 
 
+def _plan_for_kind(kind: str, t0: int, length: int,
+                   seed: int) -> fault_plane.FaultPlan:
+    """One-kind plan with parameters strong enough that the injection is
+    visible (solver kinds exhaust the retry budget so the ladder's
+    fallback rungs — not just retries — engage)."""
+    params: dict = {}
+    if kind == "camera_churn":
+        params = {"fraction": 0.4, "leave_prob": 0.1, "join_prob": 0.3}
+    elif kind == "server_crash":
+        params = {"server": 0, "depth": 1.0}
+    elif kind == "correlated_fade":
+        params = {"fraction": 1.0, "depth": 0.7, "corr": 0.9}
+    elif kind in fault_plane.SOLVER_KINDS:
+        params = {"attempts": 64}
+    return fault_plane.FaultPlan(
+        (fault_plane.FaultSpec(kind, t0=t0, duration=length,
+                               params=params),), seed=seed)
+
+
 def degradation(suite_or_tables,
                 fault_kinds: Sequence[str] = DEFAULT_FAULT_KINDS,
                 policies: Sequence[str] = POLICIES, *,
@@ -343,8 +362,7 @@ def degradation(suite_or_tables,
                 **replay_kw) -> DegradationReport:
     """Measured AoPI under faults vs fault-free, per (policy, fault kind).
 
-    Not yet ported: it raises ``NotImplementedError``. In the reference it
-    replays the suite once clean and once per fault kind (same seeds, so
+    Replays the suite once clean and once per fault kind (same seeds, so
     the clean run is the exact counterfactual), injecting that kind over
     slots ``[fault_t0, fault_t0 + fault_len)`` (defaults: the middle
     third). Recovery time is the number of epochs after the window clears
@@ -356,7 +374,47 @@ def degradation(suite_or_tables,
     (``plan_window``, ``telemetry_gain``, ...) forward to
     ``replay_suite``.
     """
-    raise NotImplementedError(
-        "degradation() replays the suite through serving.replay, which is "
-        "not yet ported (ROADMAP queue 1: core/queues.py with the rest of "
-        "serving/)")
+    from ..serving import replay as _replay  # lazy: keep deps one-way
+    for kind in fault_kinds:
+        if kind not in fault_plane.FAULT_KINDS:
+            raise ValueError(f"unknown fault kind {kind!r}; known: "
+                             f"{fault_plane.FAULT_KINDS}")
+    clean = _replay.replay_suite(suite_or_tables, policies=list(policies),
+                                 n_epochs=n_epochs, seed=seed, **replay_kw)
+    t_len = next(iter(clean.measured.values())).shape[1]
+    t0 = max(1, t_len // 3) if fault_t0 is None else int(fault_t0)
+    length = max(1, t_len // 3) if fault_len is None else int(fault_len)
+    t1 = min(t0 + length, t_len)
+    table: dict = {p: {} for p in policies}
+    for kind in fault_kinds:
+        # Solver faults only bite at planning epochs; by default start
+        # their window at slot 0 so the guaranteed first plan (and every
+        # replan before ``t1``) falls inside it regardless of how the
+        # plan-window boundaries align with the middle third.
+        k_t0 = (0 if fault_t0 is None and kind in fault_plane.SOLVER_KINDS
+                else t0)
+        plan = _plan_for_kind(kind, k_t0, t1 - k_t0, seed)
+        faulted = _replay.replay_suite(
+            suite_or_tables, policies=list(policies), n_epochs=n_epochs,
+            seed=seed, faults=plan, **replay_kw)
+        for p in policies:
+            c = clean.measured[p]                         # [K, T]
+            f = faulted.measured[p]
+            rec = []
+            for k in range(c.shape[0]):
+                tail = np.abs(f[k, t1:] - c[k, t1:]) <= \
+                    tolerance * np.maximum(c[k, t1:], 1e-12)
+                hit = np.flatnonzero(tail)
+                rec.append(float(hit[0]) if hit.size else float(t_len - t1))
+            n_fb = sum(len(x) for x in faulted.fallbacks.get(p, []))
+            n_dg = sum(len(x) for x in faulted.degraded.get(p, []))
+            n_err = sum(1 for (_, pol) in faulted.errors if pol == p)
+            table[p][kind] = DegradedStats(
+                clean_aopi=float(np.nanmean(c)),
+                faulted_aopi=float(np.nanmean(f)),
+                recovery_epochs=float(np.mean(rec)) if rec else 0.0,
+                fallbacks=int(n_fb), degraded_epochs=int(n_dg),
+                errors=int(n_err))
+    return DegradationReport(policies=list(policies),
+                             fault_kinds=list(fault_kinds), table=table,
+                             fault_window=(t0, t1), tolerance=tolerance)

@@ -6,8 +6,9 @@ and the MIN/DOS/JCAB baselines over a stacked scenario axis (a
 ``"loop"``, runs each scenario's rollout in turn on ``device`` and reduces
 it there to per-slot fleet means (AoPI, accuracy, queue), so the host only
 sees ``[K, T]`` summaries. The reference's multi-device backends
-(``"shard_map"``, ``"fleet"``) wait for ``sharding/`` (ROADMAP queue 1),
-and ``dataplane=True`` for the GI/G/1 plane and ``serving.replay``.
+(``"shard_map"``, ``"fleet"``) wait for ``sharding/`` (ROADMAP queue 1).
+``dataplane=True`` also replays every cell through the GI/G/1 data plane
+(``serving.replay.replay_suite``) for measured AoPI beside the closed form.
 
 **The mask dispatch.** Stacking gives every scenario of a mixed suite an
 ``active`` mask, all ones where the scenario had none
@@ -56,9 +57,13 @@ class SweepResult:
 
     ``aopi``/``acc``/``q`` map policy name -> ``[K, T]`` numpy arrays
     aligned with ``names``/``families``. ``masked`` lists the scenarios
-    that carried a real churn mask and took the masked path. The
-    reference's data-plane fields (``measured_aopi`` and the rest) come
-    with ``dataplane=True``, which is not ported yet.
+    that carried a real churn mask and took the masked path. With
+    ``dataplane=True``, ``measured_aopi`` holds the data-plane measurement
+    per epoch (``[K, T_replay]``, possibly fewer slots than the closed-form
+    series) and ``predicted_aopi`` the matching planner prediction, both
+    for the *primary* (first) delay model; ``delay_models`` lists every
+    replayed family and ``measured_by_model``/``predicted_by_model`` map
+    model -> policy -> ``[K, T_replay]`` for all of them.
     """
     names: list[str]
     families: list[str]
@@ -69,9 +74,23 @@ class SweepResult:
     aopi: dict[str, np.ndarray]
     acc: dict[str, np.ndarray]
     q: dict[str, np.ndarray]
+    measured_aopi: dict[str, np.ndarray] | None = None
+    predicted_aopi: dict[str, np.ndarray] | None = None
+    delay_models: tuple[str, ...] | None = None
+    measured_by_model: dict[str, dict[str, np.ndarray]] | None = None
+    predicted_by_model: dict[str, dict[str, np.ndarray]] | None = None
+    #: Engine-rung series of the primary delay model (replay with
+    #: ``dataplane_params={"mode": "engine"}``): policy -> [K, T_replay].
+    engine_aopi: dict[str, np.ndarray] | None = None
+    engine_by_model: dict[str, dict[str, np.ndarray]] | None = None
     #: policy -> repr of the exception that killed its sweep (series
-    #: NaN-filled).
+    #: NaN-filled), merged with the replay's per-cell errors under
+    #: (scenario, policy) keys when dataplane=True.
     errors: dict = dataclasses.field(default_factory=dict)
+    #: The primary-model replay's fault records (dataplane=True with a
+    #: fault plan): policy -> [K] lists, as on ReplayResult.
+    fallbacks: dict | None = None
+    degraded: dict | None = None
     masked: list[str] = dataclasses.field(default_factory=list)
 
     def mean_aopi(self, policy: str) -> np.ndarray:
@@ -88,6 +107,33 @@ class SweepResult:
 
     def mean_acc(self, policy: str) -> np.ndarray:
         return self.acc[policy].mean(axis=1)
+
+    def divergence(self, policy: str,
+                   delay_model: str | None = None) -> np.ndarray:
+        """Per-scenario measured/predicted - 1 over the replayed epochs
+        (requires ``dataplane=True``); ``delay_model=None`` is the primary
+        model. [K]"""
+        if self.measured_aopi is None:
+            raise ValueError("sweep ran without dataplane=True; no "
+                             "measured series to diverge against")
+        if delay_model is None:
+            return divergence_series(self.measured_aopi[policy],
+                                     self.predicted_aopi[policy])
+        if (self.measured_by_model is None
+                or delay_model not in self.measured_by_model):
+            raise ValueError(
+                f"delay model {delay_model!r} was not replayed; "
+                f"available: {self.delay_models}")
+        return divergence_series(self.measured_by_model[delay_model][policy],
+                                 self.predicted_by_model[delay_model][policy])
+
+
+#: The keys ``dataplane_params`` takes (``serving.replay.replay_suite``'s).
+DATAPLANE_PARAMS = frozenset({
+    "n_epochs", "epoch_duration", "frames_cap", "seed", "plan_window",
+    "telemetry_gain", "delay_model", "true_delay_model", "mode",
+    "engine_params", "replan_threshold", "faults", "plan_retries",
+    "plan_deadline"})
 
 
 def scenario(tables: HorizonTables, k: int) -> HorizonTables:
@@ -140,6 +186,7 @@ def sweep(suite_or_tables: Suite | HorizonTables, v: float = 10.0,
           backend: str | None = None,
           policy_params: Mapping | None = None,
           solver_backend: str = "auto", dataplane: bool = False,
+          dataplane_params: Mapping | None = None,
           device=DEFAULT_DEVICE) -> SweepResult:
     """Run every policy over every stacked scenario on ``device``.
 
@@ -150,6 +197,12 @@ def sweep(suite_or_tables: Suite | HorizonTables, v: float = 10.0,
     ``policy_params`` take ``n_bcd_iters``, ``dos_weight`` and
     ``jcab_latency_cap`` as in the reference. A policy that raises gets
     NaN series and its error in ``SweepResult.errors``; the others run on.
+
+    ``dataplane=True`` replays every (policy, scenario) cell through the
+    data plane (``serving.replay.replay_suite``) once per delay model of
+    ``dataplane_params["delay_model"]`` (a name or a sequence; default
+    "mm1"), with the other ``dataplane_params`` (``DATAPLANE_PARAMS``)
+    passed on, and fills the data-plane fields of the result.
     """
     if backend in NOT_PORTED_BACKENDS:
         raise NotImplementedError(
@@ -157,11 +210,11 @@ def sweep(suite_or_tables: Suite | HorizonTables, v: float = 10.0,
             "not yet ported: it waits for sharding/ (ROADMAP queue 1)")
     if backend is not None and backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
-    if dataplane:
-        raise NotImplementedError(
-            "dataplane=True (the GI/G/1 replay of every cell) is not yet "
-            "ported: it waits for core/queues.py and serving/replay "
-            "(ROADMAP queue 1)")
+    dp = dict(dataplane_params or {})
+    unknown = sorted(set(dp) - DATAPLANE_PARAMS)
+    if dataplane and unknown:
+        raise ValueError(f"unknown dataplane_params {unknown}; "
+                         f"known: {sorted(DATAPLANE_PARAMS)}")
     dev = resolve_device(device)
     if isinstance(suite_or_tables, Suite):
         tables = suite_or_tables.tables
@@ -222,10 +275,57 @@ def sweep(suite_or_tables: Suite | HorizonTables, v: float = 10.0,
                 obs.histogram("sweep.aopi", policy=name, family=fam
                               ).observe_many(series[name]["aopi"][ki])
 
-    return SweepResult(
+    res = SweepResult(
         names=names, families=fams, policies=list(policies),
         v=v, p_min=p_min, backend="loop",
         aopi={p: s["aopi"] for p, s in series.items()},
         acc={p: s["acc"] for p, s in series.items()},
         q={p: s["q"] for p, s in series.items()},
         errors=errors, masked=masked)
+    if dataplane:
+        _replay_cells(res, suite_or_tables, dp, policies, v, p_min,
+                      policy_params, solver_backend, dev)
+    return res
+
+
+def _replay_cells(res: SweepResult, suite_or_tables, dp: dict, policies,
+                  v, p_min, policy_params, solver_backend, dev) -> None:
+    """``sweep``'s data-plane replay: one ``replay_suite`` per delay
+    model, its series into ``res``."""
+    # Imported here: serving imports this module.
+    from ..serving import replay as _replay
+    models = dp.get("delay_model", "mm1")
+    if isinstance(models, str):
+        models = (models,)
+    res.delay_models = tuple(models)
+    res.measured_by_model, res.predicted_by_model = {}, {}
+    engine_by_model = {}
+    for dm in res.delay_models:
+        rres = _replay.replay_suite(
+            suite_or_tables, policies=list(policies), v=v, p_min=p_min,
+            policy_params=policy_params, solver_backend=solver_backend,
+            n_epochs=dp.get("n_epochs"),
+            epoch_duration=float(dp.get("epoch_duration", 300.0)),
+            frames_cap=int(dp.get("frames_cap", 200_000)),
+            seed=int(dp.get("seed", 0)),
+            plan_window=dp.get("plan_window"),
+            telemetry_gain=float(dp.get("telemetry_gain", 0.0)),
+            delay_model=dm,
+            true_delay_model=dp.get("true_delay_model"),
+            mode=str(dp.get("mode", "mm1")),
+            engine_params=dp.get("engine_params"),
+            replan_threshold=dp.get("replan_threshold"),
+            faults=dp.get("faults"),
+            plan_retries=int(dp.get("plan_retries", 2)),
+            plan_deadline=dp.get("plan_deadline"), device=dev)
+        res.measured_by_model[dm] = rres.measured
+        res.predicted_by_model[dm] = rres.predicted
+        if rres.engine:
+            engine_by_model[dm] = rres.engine
+        if dm == res.delay_models[0]:
+            res.fallbacks, res.degraded = rres.fallbacks, rres.degraded
+            res.errors.update(rres.errors)
+    res.measured_aopi = res.measured_by_model[res.delay_models[0]]
+    res.predicted_aopi = res.predicted_by_model[res.delay_models[0]]
+    res.engine_aopi = engine_by_model.get(res.delay_models[0])
+    res.engine_by_model = engine_by_model or None

@@ -24,6 +24,29 @@ FCFS, LCFSP = 0, 1
 
 
 @dataclasses.dataclass
+class StreamTelemetry:
+    """Measured per-stream data-plane rates for one epoch: what re-enters
+    the next planning window (``AnalyticsService``), whose profiled
+    accuracy and link efficiency are corrected toward what the data plane
+    delivered."""
+    acc_hat: np.ndarray      # accurate fraction among completed frames
+    lam_hat: np.ndarray      # measured frame arrival rate (frames/s)
+    mu_hat: np.ndarray       # measured frame completion rate (frames/s)
+    n_frames: np.ndarray     # frames offered to each stream's queue
+    n_completed: np.ndarray  # frames whose result was delivered
+    aopi_hat: np.ndarray = None  # measured per-stream AoPI over the epoch
+    #: Raw per-stream transmission-delay draws [streams, cap] (zero-padded;
+    #: only set when the service runs the fitted delay-model selector).
+    delay_samples: Optional[np.ndarray] = None
+
+    @staticmethod
+    def empty(n_streams: int) -> "StreamTelemetry":
+        z = np.zeros(n_streams)
+        return StreamTelemetry(z.copy(), z.copy(), z.copy(),
+                               z.copy(), z.copy(), z.copy())
+
+
+@dataclasses.dataclass
 class Frame:
     stream_id: int
     gen_time: float            # capture instant at the camera

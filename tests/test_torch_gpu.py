@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from repro_torch import configs, models
-from repro_torch.core import allocate, baselines, bcd, energy, lbcd, profiles
+from repro_torch.core import (allocate, baselines, bcd, energy, lbcd,
+                               profiles, queues, threefry)
+from repro_torch.kernels.dataplane import ops as dp_ops
 from repro_torch.kernels.decode_attention import kernel as dec_kernel
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention import ref as dec_ref
@@ -25,7 +27,8 @@ from repro_torch.kernels.selective_scan import kernel as ss_kernel
 from repro_torch.kernels.selective_scan import ops as ss_ops
 from repro_torch.kernels.selective_scan import ref as ss_ref
 from repro_torch.kernels.slot_solver import ops, ref
-from repro_torch.serving import Engine, Frame
+from repro_torch.serving import (AnalyticsService, Engine, Frame,
+                                 engine_plane, tick_plane)
 
 pytestmark = pytest.mark.gpu
 
@@ -1079,3 +1082,197 @@ def test_gpu_span_does_not_synchronise(cuda):
     assert not stream.query(), "the span waited for the device"
     torch.cuda.synchronize()
     assert [e["name"] for e in obs.events()] == ["obs.gpu_test"]
+
+
+# ---------------------------------------------------------------------------
+# The data plane: gi_g1_window and tick_scan against their plain versions
+# ---------------------------------------------------------------------------
+
+#: Bitwise on the card: every family but lognormal, whose inverse normal
+#: CDF is the kernel's copy of PyTorch's polynomial (csrc/dataplane.cu).
+DATAPLANE_RTOL = {"lognormal": 1e-12}
+
+
+def _window_inputs(e, n, dtype, dev, seed=0):
+    """Rates of the paper's scale with a dead lane, mixed policies and the
+    epoch keys of seed 7 from epoch 3."""
+    rng = np.random.default_rng(seed)
+    lam = rng.uniform(2.0, 9.0, (e, n))
+    mu = rng.uniform(6.0, 20.0, (e, n))
+    lam[0, 1] = 1e-6                       # a dead lane's clamped stand-in
+    p = rng.uniform(0.4, 0.95, (e, n))
+    pol = rng.integers(0, 2, (e, n)).astype(np.int32)
+    keys = threefry.fold_in(threefry.key(7, dev),
+                            torch.arange(3, 3 + e, device=dev))
+
+    def put(x, dt=dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+
+    return put(lam), put(mu), put(p), put(pol, torch.int32), keys
+
+
+def _assert_window_equal(got, want, rtol, label):
+    for name, w in want.items():
+        g = got[name]
+        assert g.shape == w.shape and g.dtype == w.dtype, (label, name)
+        if rtol is None or name.startswith("n_"):
+            assert torch.equal(g, w), (label, name,
+                                       float((g - w).abs().max()))
+        else:
+            torch.testing.assert_close(g, w, rtol=rtol, atol=0.0,
+                                       msg=f"{label} {name}")
+
+
+@pytest.mark.parametrize("frames", [640, 1280])
+@pytest.mark.parametrize("model", ["mm1", "uniform", "gamma", "lognormal",
+                                   "weibull"])
+def test_gpu_window_kernel_matches_plain(cuda, model, frames):
+    """One window of 4 epochs x 12 streams, FCFS and LCFSP lanes, a dead
+    lane and delay samples, float32 (640 frames, light tails) or float64:
+    the kernel equals the plain loop on the card bitwise (lognormal within
+    1e-12), its delay samples (the threefry draws) included."""
+    heavy = model in ("lognormal", "weibull")
+    dtype = torch.float64 if frames > 1024 or heavy else torch.float32
+    lam, mu, p, pol, keys = _window_inputs(4, 12, dtype, cuda)
+    args = (lam, mu, p, pol, keys, 90.0, frames, model, 48)
+    dp_ops.reset_launches()
+    got = dp_ops.gi_g1_window(*args)
+    assert dp_ops.launches["gi_g1_window"] == 1
+    want = queues._window_sim(*args)
+    assert dp_ops.launches["gi_g1_window"] == 1
+    assert got["delay_samples"].shape == (4, 12, 48)
+    _assert_window_equal(got, want, DATAPLANE_RTOL.get(model), model)
+    done = got["n_completed"].clone()
+    done[0, 1] = 1.0                       # the dead lane completes nothing
+    assert (done > 0).all()
+
+
+@pytest.mark.parametrize("model", ["uniform", "gamma", "lognormal",
+                                   "weibull"])
+def test_gpu_window_kernel_follows_family_constants(cuda, monkeypatch,
+                                                    model):
+    """Every family constant reaches the kernel from ``queues`` at run
+    time: with other values there (an Erlang-4 gamma, nine uniform rows a
+    frame), the kernel still equals the plain loop on the card. (Weibull
+    shapes whose 1/k PyTorch's pow turns into a product or a root, 1/k in
+    {0.5, 2, 3, -0.5, -1, -2}, would differ by ulps: 0.6 is none.)"""
+    for name, value in (("UNIFORM_SPREAD", 0.3), ("GAMMA_SHAPE", 4.0),
+                        ("LOGNORMAL_SIGMA", 0.75), ("WEIBULL_SHAPE", 0.6)):
+        monkeypatch.setattr(queues, name, value)
+    assert queues._n_uniforms("gamma") == 9
+    heavy = model in ("lognormal", "weibull")
+    dtype = torch.float64 if heavy else torch.float32
+    lam, mu, p, pol, keys = _window_inputs(3, 10, dtype, cuda, seed=5)
+    args = (lam, mu, p, pol, keys, 90.0, 640, model, 32)
+    got = dp_ops.gi_g1_window(*args)
+    want = queues._window_sim(*args)
+    _assert_window_equal(got, want, DATAPLANE_RTOL.get(model), model)
+
+
+def test_gpu_window_kernel_full_epoch(cuda):
+    """The service's window at the paper's size: 8 epochs x 30 streams,
+    49,152 frames (a 300 s epoch), float64, against the plain loop."""
+    lam, mu, p, pol, keys = _window_inputs(8, 30, torch.float64, cuda,
+                                           seed=1)
+    lam, mu = lam * 14.0, mu * 14.0      # ~30-130 frames/s, as LBCD plans
+    args = (lam.contiguous(), mu.contiguous(), p, pol, keys, 300.0, 49_152,
+            "mm1")
+    got = dp_ops.gi_g1_window(*args)
+    want = queues._window_sim(*args)
+    _assert_window_equal(got, want, None, "full")
+    assert bool((got["horizon"] == 300.0).all())
+
+
+@pytest.mark.parametrize("model", ["mm1", "uniform", "gamma", "lognormal",
+                                   "weibull"])
+def test_gpu_tick_scan_matches_plain_and_des(cuda, model):
+    """The engine rung's scan: the kernel on the card equals the plain scan
+    on the CPU bitwise (which equals the DES), trace included."""
+    rng = np.random.default_rng(2)
+    lam = rng.uniform(2.0, 9.0, (3, 10))
+    mu = rng.uniform(4.0, 12.0, (3, 10))
+    p = rng.uniform(0.4, 0.95, (3, 10))
+    pol = rng.integers(0, 2, (3, 10))
+    active = np.ones((3, 10))
+    active[1, 4] = 0.0
+    kw = dict(epoch_duration=60.0, seed=4, t0=2, delay_model=model,
+              active=active, frames_cap=512, collect_samples=16,
+              collect_trace=True)
+    dp_ops.reset_launches()
+    got = tick_plane.measure_engine_window_scan(lam, mu, p, pol,
+                                                device=cuda, **kw)
+    assert dp_ops.launches["tick_scan"] == 1
+    want = tick_plane.measure_engine_window_scan(lam, mu, p, pol,
+                                                 device="cpu", **kw)
+    assert got["trace"] == want["trace"] and len(got["trace"]) > 0
+    for name, w in want.items():
+        if name != "trace":
+            np.testing.assert_array_equal(got[name], w, err_msg=name)
+
+
+def test_gpu_tick_scan_kernel_matches_plain_on_card(cuda):
+    """The kernel against the plain scan on the card, at the service's
+    engine epoch (30 streams, 49,152 ticks)."""
+    rng = np.random.default_rng(3)
+    lam = rng.uniform(30.0, 130.0, 30)
+    mu = lam * rng.uniform(1.3, 3.0, 30)
+    T, O, coin = engine_plane.draw_streams(
+        lam, mu, np.ones(30, bool), delay_model="mm1", seed=0, t=0,
+        frames_cap=49_152)
+
+    def put(x):
+        return torch.as_tensor(x, device=cuda)
+
+    args = (put(T), put(O), put(coin), put(rng.uniform(0.4, 0.9, 30)),
+            put(rng.integers(0, 2, 30) == 1), put(np.ones(30, bool)), 300.0)
+    got = dp_ops.tick_scan(*args)
+    want = tick_plane._tick_scan(*args)
+    for name, w in want.items():
+        assert torch.equal(got[name], w), name
+
+
+def test_gpu_dataplane_wrappers_refuse_bad_inputs(cuda):
+    lam, mu, p, pol, keys = _window_inputs(2, 4, torch.float32, cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        dp_ops.gi_g1_window(lam, mu.double(), p, pol, keys, 10.0, 64, "mm1")
+    with pytest.raises(TypeError, match="int32"):
+        dp_ops.gi_g1_window(lam, mu, p, pol.long(), keys, 10.0, 64, "mm1")
+    with pytest.raises(ValueError, match="delay_model"):
+        dp_ops.gi_g1_window(lam, mu, p, pol, keys, 10.0, 64, "pareto")
+    with pytest.raises(ValueError, match="shape"):
+        dp_ops.gi_g1_window(lam, mu, p, pol, keys[:1], 10.0, 64, "mm1")
+    t = torch.zeros((3, 8), dtype=torch.float64, device=cuda)
+    flag = torch.zeros(3, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        dp_ops.tick_scan(t, t, t.float(), t[:, 0], flag, flag, 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        dp_ops.tick_scan(t, t, t, t[:2, 0], flag, flag, 1.0)
+
+
+def test_gpu_service_runs_the_kernels(cuda):
+    """AnalyticsService on the card: the planner's kernels and one
+    gi_g1_window launch per plan window (mm1), one tick_scan launch per
+    engine epoch (engine mode, scan backend); measured AoPI finite and
+    within 25% of the closed form on average; no planning failure and no
+    rung of the degradation ladder engaged."""
+    system = profiles.EdgeSystem(n_cameras=8, n_servers=2, n_slots=8, seed=3)
+    ctrl = lbcd.LBCDController(system, v=10.0, p_min=0.6, device=cuda)
+    ops.reset_launches()
+    dp_ops.reset_launches()
+    svc = AnalyticsService(ctrl, epoch_duration=300.0, plan_window=4)
+    reps = svc.run(8)
+    assert dp_ops.launches == {"gi_g1_window": 2, "tick_scan": 0}
+    assert ops.launches["config_argmin"] > 0
+    meas = np.array([r.measured_aopi for r in reps])
+    pred = np.array([r.predicted_aopi for r in reps])
+    assert np.isfinite(meas).all()
+    assert meas.mean() == pytest.approx(pred.mean(), rel=0.25)
+    assert svc.plan_failures == [] and svc.fallbacks == []
+    assert svc.degraded_epochs == []
+    ctrl = lbcd.LBCDController(system, v=10.0, p_min=0.6, device=cuda)
+    svc = AnalyticsService(ctrl, mode="engine", engine_backend="scan",
+                           epoch_duration=60.0, plan_window=4)
+    svc.run(2)
+    assert dp_ops.launches["tick_scan"] == 2
+    assert svc.plan_failures == [] and svc.fallbacks == []
+    assert svc.degraded_epochs == []

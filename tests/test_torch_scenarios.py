@@ -397,10 +397,11 @@ def test_sweep_refusals():
             t_scen.sweep(st, backend=backend, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         t_scen.sweep(st, backend="vmap", device="cpu")
-    with pytest.raises(NotImplementedError, match="queues"):
-        t_scen.sweep(st, dataplane=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="serving.replay"):
-        t_scen.degradation(st)
+    with pytest.raises(ValueError, match="unknown dataplane_params"):
+        t_scen.sweep(st, dataplane=True, dataplane_params=dict(epochs=2),
+                     device="cpu")
+    with pytest.raises(ValueError, match="unknown fault kind"):
+        t_scen.degradation(st, fault_kinds=("meteor",), device="cpu")
     with pytest.raises(ValueError, match="unknown policy"):
         t_scen.sweep(st, policies=("lbcd", "best"), device="cpu")
     with pytest.raises(ValueError, match="stacked"):

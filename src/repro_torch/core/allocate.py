@@ -22,8 +22,11 @@ These functions are the plain versions that the CUDA water-fill kernels of
 loops of whole-fleet tensor operations, and the per-server fill sums are
 pairwise trees (``tree_segment_sum``) in the order the kernels reduce, so
 kernel and plain version add alike and the plain version is deterministic
-on the card (no atomics). The paper's interior-point method is not ported
-yet.
+on the card (no atomics).
+
+The paper's own method, ``interior_point`` (a log barrier with damped
+Newton steps), has no kernel in either package: it runs here only, with
+its per-server sums on the same trees.
 """
 from __future__ import annotations
 
@@ -72,15 +75,18 @@ def segment_tree(segment_ids: torch.Tensor, n_segments: int) -> SegmentTree:
 def tree_segment_sum(x: torch.Tensor, tree: SegmentTree) -> torch.Tensor:
     """Per-segment sums by a pairwise halving tree: each segment, in stable
     order and zero-padded to ``width``, is folded as x[j] += x[j + w] for
-    w = width/2, ..., 1 (the water-fill kernels' ``segment_sum``)."""
-    buf = torch.zeros(tree.n_segments * tree.width, dtype=x.dtype,
-                      device=x.device)
-    buf = buf.scatter_(0, tree.index, x).view(tree.n_segments, tree.width)
+    w = width/2, ..., 1 (the water-fill kernels' ``segment_sum``). Leading
+    axes of ``x`` are independent rows, each summed as a 1-D ``x``."""
+    lead = x.shape[:-1]
+    buf = torch.zeros(lead + (tree.n_segments * tree.width,),
+                      dtype=x.dtype, device=x.device)
+    buf = buf.scatter_(-1, tree.index.expand(lead + (-1,)), x).view(
+        lead + (tree.n_segments, tree.width))
     w = tree.width
     while w > 1:
         w //= 2
-        buf = buf[:, :w] + buf[:, w:]
-    return buf[:, 0]
+        buf = buf[..., :w] + buf[..., w:]
+    return buf[..., 0]
 
 
 def clip(x, lo, hi):
@@ -260,3 +266,198 @@ def waterfill_pair(k, p, pol, mu, inv_xi, server_id, budgets_b, budgets_c,
     c = waterfill_compute(inv_xi, p, pol, b * k, server_id, budgets_c,
                           n_servers, stability_margin=stability_margin, **kw)
     return b, c
+
+
+# ---------------------------------------------------------------------------
+# The paper's interior-point method (log barrier, damped Newton).
+# ---------------------------------------------------------------------------
+
+def _kkt_step(g, h, x, server_id, n_servers: int, target_fill,
+              tree: SegmentTree | None = None):
+    """Equality-constrained Newton step with a diagonal Hessian.
+
+    Solves ``[diag(h) W^T; W 0] [dx; nu] = [-g; r]``, where ``W`` is the
+    camera -> server indicator and ``r`` the residual of the per-server
+    fill against ``target_fill``. The per-server sums are halving trees
+    (``tree_segment_sum``), deterministic on the card."""
+    tree = tree or segment_tree(server_id, n_servers)
+    sid = server_id.long()
+    h = torch.clamp_min(h, 1e-8)
+    inv_h = 1.0 / h
+    g_over_h, inv_sum, fill = tree_segment_sum(
+        torch.stack([g * inv_h, inv_h, x]), tree)
+    r = target_fill - fill
+    nu = (-g_over_h - r) / torch.clamp_min(inv_sum, 1e-8)
+    return -(g + nu[sid]) * inv_h
+
+
+# The damped step's ladder, alpha = 2^-k for k = 0..7 (exact in f32).
+_N_ALPHAS = 8
+
+
+def _barrier(x, lo, hi):
+    return (-torch.log(torch.clamp_min(x - lo, _EPS))
+            - torch.log(torch.clamp_min(hi - x, _EPS)))
+
+
+def _barrier_derivs(x, lo, hi):
+    """First and second derivatives of ``_barrier`` in ``x`` (zero where a
+    clamp holds, as autograd gives)."""
+    a, b = x - lo, hi - x
+    ia = torch.where(a >= _EPS, 1.0 / a, 0.0)
+    ib = torch.where(b >= _EPS, 1.0 / b, 0.0)
+    return ib - ia, ia * ia + ib * ib
+
+
+def interior_point(score_elem, derivs, x0, lo, hi, server_id,
+                   n_servers: int, t0: float = 4.0, t_mult: float = 6.0,
+                   n_outer: int = 7, n_inner: int = 14):
+    """Minimize ``sum_n score_elem(x)_n`` subject to a per-server sum equal
+    to the target fill and ``lo < x < hi``: Algorithm 1's interior-point
+    step, in normalized per-server units.
+
+    ``score_elem(x)`` maps allocations of shape ``[..., N]`` to per-camera
+    scores of the same shape, separable and convex in each ``x_n``, and
+    ``derivs(x)`` gives their first and second derivatives (the reference
+    takes both from ``jax.grad``; the tests hold these against autograd);
+    ``x0`` is strictly feasible. Round ``i`` of ``n_outer`` runs
+    ``n_inner`` damped Newton steps on ``t * score + barrier`` at
+    ``t = t0 * t_mult**i``.
+    """
+    tree = segment_tree(server_id, n_servers)
+    # The budget is an inequality: where the caps sum below it the target
+    # is the (slightly interior) cap total instead.
+    target_fill = torch.clamp_max(0.999 * tree_segment_sum(hi, tree), 1.0)
+    # [0, 1, 1/2, ..., 2^-7] as a column, made on the device (no host
+    # copy: the solve may be captured in a CUDA graph); halvings are exact.
+    half = torch.full((_N_ALPHAS,), 0.5, dtype=x0.dtype, device=x0.device)
+    alphas = torch.cat([torch.zeros_like(half[:1]),
+                        2.0 * torch.cumprod(half, 0)])[:, None]
+    inf = torch.full_like(half, float("inf"))
+
+    def phi(x, t):
+        return t * score_elem(x) + _barrier(x, lo, hi)
+
+    def step(x, t):
+        ds, d2s = derivs(x)
+        gb, hb = _barrier_derivs(x, lo, hi)
+        g, h = t * ds + gb, t * d2s + hb
+        dx = _kkt_step(g, h, x, server_id, n_servers, target_fill, tree)
+        # Row 0 is x itself, rows 1-8 the ladder's candidates. The damped
+        # step takes the best candidate strictly inside the box, and only
+        # if it lowers the objective.
+        cand = x + alphas * dx
+        vals = phi(cand, t).sum(dim=1)
+        feas = ((cand[1:] > lo + _EPS) & (cand[1:] < hi - _EPS)).all(dim=1)
+        vals, total = torch.where(feas, vals[1:], inf), vals[:1]
+        best = torch.argmin(vals).reshape(1)
+        improved = vals.index_select(0, best) < total
+        return torch.where(improved, cand.index_select(0, best + 1)[0], x)
+
+    x = x0
+    for i in range(n_outer):
+        t = t0 * t_mult ** i
+        for _ in range(n_inner):
+            x = step(x, t)
+    return x
+
+
+def _interior_start(server_id, n_servers: int, lo, hi):
+    """The equal split of each server, kept 1e-6 inside the box (``hi``
+    wins where the box is narrower than 2e-6, as in ``jnp.clip``)."""
+    counts = segment_sum(torch.ones_like(lo), server_id, n_servers)
+    share = (1.0 / torch.clamp_min(counts, 1.0))[server_id.long()]
+    return clip(share, lo + 1e-6, hi - 1e-6)
+
+
+def _bandwidth_score(lam_scale, p, pol, mu):
+    """Problem (53)'s per-camera score in normalized bandwidth, and its
+    first and second derivatives (FCFS at ``min(lam, 0.999 mu)``)."""
+    lcfsp = pol == aopi.LCFSP
+
+    def score(x):
+        lam = lam_scale * x
+        a_l = aopi.aopi_lcfsp(lam, mu, p)
+        a_f = aopi.aopi_fcfs(torch.minimum(lam, 0.999 * mu), mu, p)
+        return torch.where(lcfsp, a_l, a_f)
+
+    cap = 0.999 * mu
+    scale2 = lam_scale * lam_scale
+
+    def derivs(x):
+        lam = lam_scale * x
+        lam_f = torch.minimum(lam, cap)
+        free = lam < cap              # the clamp passes no derivative
+        d_f, d2_f = aopi.d12_aopi_fcfs_dlam(lam_f, mu, p)
+        d = torch.where(lcfsp, aopi.d_aopi_lcfsp_dlam(lam, mu, p),
+                        torch.where(free, d_f, 0.0))
+        d2 = torch.where(lcfsp, aopi.d2_aopi_lcfsp_dlam2(lam, mu, p),
+                         torch.where(free, d2_f, 0.0))
+        return d * lam_scale, d2 * scale2
+
+    return score, derivs
+
+
+def _compute_score(mu_scale, p, pol, lam):
+    """Problem (54)'s per-camera score in normalized compute, and its
+    first and second derivatives (FCFS at ``max(mu, lam / 0.999)``)."""
+    lcfsp = pol == aopi.LCFSP
+    floor = lam / 0.999
+
+    def score(x):
+        mu = mu_scale * x
+        a_l = aopi.aopi_lcfsp(lam, mu, p)
+        a_f = aopi.aopi_fcfs(lam, torch.maximum(mu, floor), p)
+        return torch.where(lcfsp, a_l, a_f)
+
+    scale2 = mu_scale * mu_scale
+
+    def derivs(x):
+        mu = mu_scale * x
+        mu_f = torch.maximum(mu, floor)
+        free = mu > floor             # the clamp passes no derivative
+        d_f, d2_f = aopi.d12_aopi_fcfs_dmu(lam, mu_f, p)
+        d = torch.where(lcfsp, aopi.d_aopi_lcfsp_dmu(lam, mu, p),
+                        torch.where(free, d_f, 0.0))
+        d2 = torch.where(lcfsp, aopi.d2_aopi_lcfsp_dmu2(lam, mu, p),
+                         torch.where(free, d2_f, 0.0))
+        return d * mu_scale, d2 * scale2
+
+    return score, derivs
+
+
+def interior_point_bandwidth(k, p, pol, mu, server_id, budgets,
+                             n_servers: int):
+    """Problem (53) by the paper's interior-point method; Hz per camera."""
+    B = budgets[server_id.long()]
+    lam_scale = k * B
+    hi = torch.where(pol == aopi.LCFSP, torch.ones_like(lam_scale),
+                     torch.clamp_max(0.995 * mu / torch.clamp_min(
+                         lam_scale, _EPS), 1.0))
+    lo = torch.full_like(hi, 1e-7)
+    u = interior_point(*_bandwidth_score(lam_scale, p, pol, mu),
+                       _interior_start(server_id, n_servers, lo, hi), lo, hi,
+                       server_id, n_servers)
+    return u * B
+
+
+def interior_point_compute(inv_xi, p, pol, lam, server_id, budgets,
+                           n_servers: int, stability_margin: float = 1.05):
+    """Problem (54) by the paper's interior-point method; FLOPS per
+    camera, with the FCFS stability floors of ``waterfill_compute``."""
+    sid = server_id.long()
+    C = budgets[sid]
+    mu_scale = inv_xi * C
+    floor = torch.where(pol == aopi.FCFS,
+                        stability_margin * lam / torch.clamp_min(mu_scale,
+                                                                 _EPS),
+                        torch.full_like(lam, 1e-7))
+    scale = torch.clamp_max(1.0 / torch.clamp_min(tree_segment_sum(
+        floor, segment_tree(server_id, n_servers)), _EPS), 1.0)
+    lo = clip(floor * scale[sid], torch.full_like(floor, 1e-7),
+              torch.full_like(floor, 1.0 - 1e-6))
+    hi = torch.ones_like(lo)
+    v = interior_point(*_compute_score(mu_scale, p, pol, lam),
+                       _interior_start(server_id, n_servers, lo, hi), lo, hi,
+                       server_id, n_servers)
+    return v * C

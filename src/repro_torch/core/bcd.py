@@ -19,18 +19,28 @@ Three blocks, iterated ``n_iters`` times (paper §V-B):
   * ``"auto"``  - ``cuda`` for CUDA tensors, ``torch`` on the CPU.
 
 The ``tile=<n>`` knob and the fleet-size policy that sets it are the
-reference's (``resolve_spec``). Not yet ported: the paper's interior-point
-method (``method="interior"``), which raises ``NotImplementedError``.
+reference's (``resolve_spec``).
+
+``method`` picks lines 4-5: ``"waterfill"`` (default) or the paper's own
+``"interior"`` (``allocate.interior_point_*``: a log barrier with damped
+Newton steps, the same in every BCD pass, with no final re-allocation).
+No kernel runs the interior method, in this package or the reference: it
+runs the plain versions on any device, ``"auto"`` resolves to ``"torch"``
+for it, and an explicit ``"cuda"`` raises ``ValueError``. It takes no
+churn mask (``ValueError``, as in the reference).
 
 A fleet-churn mask (``active``) is taken by no kernel, in this package or
 the reference, so a masked solve runs the plain versions: silently under
 ``"auto"``, as in the reference; an explicit ``"cuda"`` with a mask raises
 ``ValueError``, so that no caller believes a kernel ran.
 
-On the card a plain solve (``"torch"``, or any masked solve) is ~50,000
-launches of a few microseconds of work each, so it runs as a CUDA graph,
-captured at the first call with its shapes and knobs and replayed per call
-(the same kernels on the same inputs, bitwise the eager run).
+On the card a plain solve (``"torch"``, any masked solve, any interior
+solve) is ~50,000 launches of a few microseconds of work each, so it runs
+as a CUDA graph, captured at the first call with its shapes, method and
+knobs and replayed per call (the same kernels on the same inputs, bitwise
+the eager run). The interior method's Newton steps take closed-form
+derivatives (``allocate.interior_point_*``), so its graph holds no
+autograd pass.
 
 Each call opens the ``bcd.solve_slot`` obs span, labelled by the backend
 that runs. The port is eager, so every call is concrete: the reference's
@@ -50,6 +60,7 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels.slot_solver import ops, ref
 
 SOLVER_BACKENDS = ("torch", "cuda", "auto")
+METHODS = ("waterfill", "interior")
 
 # Fleet size from which the cuda backend tiles the water-fills by default,
 # and the default tile: the reference's values (repro.core.bcd), kept until
@@ -101,15 +112,20 @@ def resolve_spec(solver_backend, device, n_cameras: int,
     :data:`AUTO_TILE_MIN_CAMERAS` cameras unless the spec pins ``tile=``;
     ``tile=0`` pins the untiled kernels, and so does any tile the whole
     fleet fits in (``n_cameras <= tile``). ``torch`` never tiles. The
-    resolved spec never carries ``auto``. ``method="interior"`` raises
-    ``NotImplementedError``."""
+    resolved spec never carries ``auto``. ``method="interior"`` has no
+    kernel: ``auto`` resolves to ``torch`` for it on every device, and
+    ``cuda`` raises ``ValueError``."""
     spec = parse_backend(solver_backend)
-    if method != "waterfill":
-        raise NotImplementedError(
-            f"method={method!r} (the paper's interior-point allocator) is "
-            "not yet ported; use method='waterfill'")
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; known: {METHODS}")
     dev = torch.device(device)
     backend = spec.backend
+    if method == "interior":
+        if backend == "cuda":
+            raise ValueError(
+                "solver_backend='cuda' runs the water-filling kernels; "
+                "method='interior' only runs on the 'torch' backend")
+        backend = "torch"
     if backend == "auto":
         backend = "cuda" if dev.type == "cuda" else "torch"
     if backend == "cuda" and dev.type != "cuda":
@@ -203,6 +219,8 @@ def solve_slot(acc, xi, size, eff, server_id, budgets_b, budgets_c, q, V,
       budgets_b/_c: [n_servers] available Hz / FLOPS.
       q, V: Lyapunov queue value (number or 0-d tensor) and penalty weight
         (Python number).
+      method: lines 4-5 by ``"waterfill"`` or the paper's ``"interior"``
+        (plain versions only; see the module docstring).
       solver_effort: "fast" uses cheap water-filling inside the BCD loop
         plus one full-precision re-allocation; "seed" the flat
         high-iteration effort.
@@ -216,6 +234,9 @@ def solve_slot(acc, xi, size, eff, server_id, budgets_b, budgets_c, q, V,
     """
     n = acc.shape[0]
     if active is not None:
+        if method == "interior":
+            raise ValueError("method='interior' does not support a fleet-"
+                             "churn mask; use method='waterfill'")
         if parse_backend(solver_backend).backend == "cuda":
             raise ValueError(
                 "solver_backend='cuda' with a fleet-churn mask (active): no "
@@ -225,7 +246,7 @@ def solve_slot(acc, xi, size, eff, server_id, budgets_b, budgets_c, q, V,
     else:
         spec = resolve_spec(solver_backend, acc.device, n, method=method)
     args = (acc, xi, size, eff, server_id, budgets_b, budgets_c, q, active)
-    kw = dict(V=V, n_servers=n_servers, n_iters=n_iters,
+    kw = dict(V=V, n_servers=n_servers, n_iters=n_iters, method=method,
               solver_effort=solver_effort, spec=spec)
     if not obs.enabled():
         return _dispatch(args, kw)
@@ -248,7 +269,7 @@ def _dispatch(args, kw) -> SlotDecision:
         return _solve(*t[:8], t[8] if len(t) > 8 else None, **kw)
 
     key = (tuple((t.shape, t.dtype) for t in tensors), acc.device,
-           kw["V"], kw["n_servers"], kw["n_iters"],
+           kw["V"], kw["n_servers"], kw["n_iters"], kw["method"],
            kw["solver_effort"])
     return replay_graph(key, fn, tensors)
 
@@ -289,8 +310,8 @@ def replay_graph(key, fn, tensors) -> SlotDecision:
 
 
 def _solve(acc, xi, size, eff, server_id, budgets_b, budgets_c, q, active,
-           *, V, n_servers: int, n_iters: int, solver_effort: str,
-           spec: SolverSpec) -> SlotDecision:
+           *, V, n_servers: int, n_iters: int, method: str = "waterfill",
+           solver_effort: str, spec: SolverSpec) -> SlotDecision:
     n = acc.shape[0]
     sid = server_id.long()
     if active is not None:
@@ -311,16 +332,23 @@ def _solve(acc, xi, size, eff, server_id, budgets_b, budgets_c, q, active,
     make_pair = _pair_fns(spec, server_id, budgets_b, budgets_c, n_servers,
                           active=act)
 
-    polish = solver_effort == "fast"
+    polish = method == "waterfill" and solver_effort == "fast"
     if polish:
         # Cheap effort inside the BCD loop (it only steers the discrete
         # config choice); one accurate re-allocation afterwards.
         pair_loop = make_pair(dict(outer_iters=10, inner_iters=3,
                                    final_inner_iters=5))
         pair_full = make_pair({})
-    else:
+    elif method == "waterfill":
         pair_loop = make_pair(dict(outer_iters=54, inner_iters=40,
                                    final_inner_iters=40))
+    else:
+        def pair_loop(k, p, pol, mu, inv_xi):
+            b = allocate.interior_point_bandwidth(
+                k, p, pol, mu, server_id, budgets_b, n_servers)
+            c = allocate.interior_point_compute(
+                inv_xi, p, pol, b * k, server_id, budgets_c, n_servers)
+            return b, c
 
     rows = torch.arange(n, device=acc.device)
 

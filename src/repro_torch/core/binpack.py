@@ -8,7 +8,9 @@ remaining volume (lines 4-9).
   * ``first_fit``       - host numpy version (the per-slot controller path);
   * ``first_fit_torch`` - tensor version on the tensors' device, written after
     ``repro.core.binpack.first_fit_jax``: one loop step per camera with no
-    host synchronisation, so on the card it is bound by launch overhead.
+    host synchronisation, so on the card it is bound by launch overhead;
+  * ``hierarchical_first_fit`` - host first-fit over pods, then over the
+    islands of each pod (beyond the paper).
 """
 from __future__ import annotations
 
@@ -88,3 +90,26 @@ def first_fit_torch(b_hat: torch.Tensor, c_hat: torch.Tensor,
     if placed:
         assign[cam_order] = torch.stack(placed).to(torch.int32)
     return assign
+
+
+def hierarchical_first_fit(b_hat, c_hat, pod_budgets_b, pod_budgets_c,
+                           islands_per_pod: int) -> np.ndarray:
+    """Two-level placement (beyond the paper): first-fit over pods, then
+    over the islands of the chosen pod, each island holding
+    1/``islands_per_pod`` of its pod's capacity. Returns global island ids
+    ``pod * islands_per_pod + i`` (int32, on the host)."""
+    b_hat = np.asarray(b_hat)
+    c_hat = np.asarray(c_hat)
+    pod_budgets_b = np.asarray(pod_budgets_b, np.float64)
+    pod_budgets_c = np.asarray(pod_budgets_c, np.float64)
+    pods = first_fit(b_hat, c_hat, pod_budgets_b, pod_budgets_c)
+    out = np.zeros_like(pods)
+    for pod in range(pod_budgets_b.shape[0]):
+        mask = pods == pod
+        if not mask.any():
+            continue
+        ib = np.full(islands_per_pod, pod_budgets_b[pod] / islands_per_pod)
+        ic = np.full(islands_per_pod, pod_budgets_c[pod] / islands_per_pod)
+        local = first_fit(b_hat[mask], c_hat[mask], ib, ic)
+        out[mask] = pod * islands_per_pod + local
+    return out

@@ -118,6 +118,133 @@ def test_lyapunov_matches_reference():
         assert vq_t.update(p_bar) == vq_j.update(p_bar)
 
 
+def test_lyapunov_helpers_match_reference():
+    """``per_camera_score`` and ``drift_bound`` on the same inputs."""
+    rng = np.random.default_rng(8)
+    aopi_v = rng.uniform(0.01, 0.2, 30).astype(np.float32)
+    acc = rng.uniform(0.3, 0.9, 30).astype(np.float32)
+    for q, v in ((0.0, 10.0), (0.4, 2.0), (2.5, 30.0)):
+        want = np.asarray(j_lyap.per_camera_score(aopi_v, acc, q, v, 30))
+        got = t_lyap.per_camera_score(torch.as_tensor(aopi_v),
+                                      torch.as_tensor(acc), q, v, 30)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+        for p_bar in (0.3, 0.7, 0.95):
+            assert t_lyap.drift_bound(q, p_bar, 0.7) == \
+                j_lyap.drift_bound(q, p_bar, 0.7)
+    got = t_lyap.drift_bound(torch.as_tensor(acc), torch.as_tensor(aopi_v),
+                             0.7)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(j_lyap.drift_bound(acc, aopi_v, 0.7)),
+        rtol=1e-6)
+
+
+def test_drift_lemma1_bound():
+    """tests/test_lbcd.py's Lemma-1 property on the port: the one-slot
+    drift of q^2 / 2 never exceeds ``drift_bound``."""
+    rng = np.random.default_rng(0)
+    q = 0.0
+    for _ in range(200):
+        p_bar = rng.uniform(0.0, 1.0)
+        q_next = t_lyap.queue_update(torch.tensor(q, dtype=torch.float64),
+                                     p_bar, 0.7)
+        drift = 0.5 * (float(q_next) ** 2 - q ** 2)
+        assert drift <= t_lyap.drift_bound(q, p_bar, 0.7) + 1e-9
+        q = float(q_next)
+
+
+# ---------------------------------------------------------------------------
+# Rate frontiers (Figs. 3 and 5)
+# ---------------------------------------------------------------------------
+
+def test_aopi_best_matches_reference():
+    lam, mu, p, _ = _rates(3)
+    j, t = _both("aopi_best", lam, mu, p)
+    np.testing.assert_allclose(t, j, rtol=1e-5)
+    np.testing.assert_array_equal(
+        t, np.minimum(t_aopi.aopi_fcfs(*map(torch.as_tensor,
+                                            (lam, mu, p))).numpy(),
+                      t_aopi.aopi_lcfsp(*map(torch.as_tensor,
+                                             (lam, mu, p))).numpy()))
+
+
+# Targets x rates x accuracies x policies: both of min_lam's inf branches
+# (an FCFS target below the interior minimum) and min_mu's (a target no
+# mu reaches), and the FCFS rate past which min_mu turns up again.
+TARGETS = (0.05, 0.2, 0.5, 2.0)
+RATES = (0.5, 2.0, 5.0, 12.0, 20.0, 40.0, 60.0, 200.0)
+
+
+@pytest.mark.parametrize("fn", ["min_lam_for_target", "min_mu_for_target"])
+def test_frontiers_match_reference(fn):
+    """Per point, against the reference mapped over the grid with
+    ``jax.vmap`` (it takes no arrays itself: see
+    test_reference_frontiers_take_scalars_only), at rtol 1e-5, inf where
+    the reference gives inf; the port's one tensor call over the grid
+    equals its own scalar calls bitwise."""
+    grid = np.array([(tg, r, p, pol) for tg in TARGETS for r in RATES
+                     for p in (0.3, 0.8) for pol in (0, 1)], np.float32)
+    tg, rate, p, pol = grid.T
+    pol = pol.astype(np.int32)
+    got = getattr(t_aopi, fn)(torch.as_tensor(tg), torch.as_tensor(rate),
+                              torch.as_tensor(p), torch.as_tensor(pol))
+    assert got.shape == (len(grid),) and got.dtype == torch.float32
+    got = got.numpy()
+    want = np.asarray(jax.jit(jax.vmap(getattr(j_aopi, fn)))(
+        *map(jnp.asarray, (tg, rate, p, pol))))
+    scalar = np.array([float(getattr(t_aopi, fn)(*row))
+                       for row in zip(tg.tolist(), rate.tolist(), p.tolist(),
+                                      pol.tolist())])
+    np.testing.assert_array_equal(got, scalar.astype(np.float32))
+    inf = np.isinf(want)
+    np.testing.assert_array_equal(np.isinf(got), inf)
+    assert 0 < inf.sum() < len(grid)
+    np.testing.assert_allclose(got[~inf], want[~inf], rtol=1e-5)
+
+
+def test_reference_frontiers_take_scalars_only():
+    """The reference's ``_bisect`` carries scalar brackets through a
+    ``fori_loop`` whose body returns the broadcast shape, so an array rate
+    raises there; the port broadcasts its brackets."""
+    with pytest.raises(TypeError, match="carry"):
+        j_aopi.min_lam_for_target(0.5, jnp.array([10.0, 20.0]), 0.8, 1)
+    got = t_aopi.min_lam_for_target(0.5, torch.tensor([10.0, 20.0]), 0.8, 1)
+    for i, mu in enumerate((10.0, 20.0)):
+        assert float(got[i]) == pytest.approx(
+            float(j_aopi.min_lam_for_target(0.5, mu, 0.8, 1)), rel=1e-5)
+
+
+def test_min_rate_frontiers():
+    """tests/test_aopi_theory.py's Figs. 3/5 property on the port: the
+    minimum-rate frontier meets the target."""
+    target = 0.5
+    for pol in (t_aopi.FCFS, t_aopi.LCFSP):
+        mu, p = 20.0, 0.8
+        lam_min = t_aopi.min_lam_for_target(target, mu, p, pol)
+        a = float(t_aopi.aopi(lam_min, mu, p, pol))
+        assert a == pytest.approx(target, rel=1e-2)
+        lam = 6.0
+        mu_min = t_aopi.min_mu_for_target(target, lam, p, pol)
+        a = float(t_aopi.aopi(lam, mu_min, p, pol))
+        assert a == pytest.approx(target, rel=1e-2)
+
+
+def test_lcfsp_frontier_monotone():
+    """Section IV-B: under LCFSP min-lam decreases with reserved mu."""
+    lams = t_aopi.min_lam_for_target(0.5, torch.tensor([5.0, 10.0, 20.0,
+                                                        40.0]), 0.8,
+                                     t_aopi.LCFSP)
+    assert (lams[:-1] >= lams[1:]).all()
+
+
+def test_fcfs_min_mu_nonmonotone_in_lam():
+    """Fig. 3b: the FCFS min computation rate first falls then rises with
+    the reserved transmission rate."""
+    lams = torch.linspace(3.0, 30.0, 25)
+    mus = t_aopi.min_mu_for_target(0.5, lams, 0.9, t_aopi.FCFS)
+    i = int(mus.argmin())
+    assert 0 < i < len(mus) - 1
+
+
 # ---------------------------------------------------------------------------
 # Profiles: host numpy draws seeded as the reference seeds them.
 # ---------------------------------------------------------------------------

@@ -27,8 +27,10 @@ from repro_torch.kernels.selective_scan import kernel as ss_kernel
 from repro_torch.kernels.selective_scan import ops as ss_ops
 from repro_torch.kernels.selective_scan import ref as ss_ref
 from repro_torch.kernels.slot_solver import ops, ref
+from repro_torch.launch import serve
 from repro_torch.serving import (AnalyticsService, Engine, Frame,
                                  engine_plane, tick_plane)
+from repro_torch.training import failure
 
 pytestmark = pytest.mark.gpu
 
@@ -1276,3 +1278,85 @@ def test_gpu_service_runs_the_kernels(cuda):
     assert dp_ops.launches["tick_scan"] == 2
     assert svc.plan_failures == [] and svc.fallbacks == []
     assert svc.degraded_epochs == []
+
+
+def test_gpu_interior_graph_is_keyed_by_method(cuda):
+    """The interior solve replays its own CUDA graph, bitwise its eager
+    solve; a water-fill solve of the same shapes, V, effort and servers,
+    replayed right after it, still equals its own eager solve (one graph
+    per method: a graph keyed without the method would hand one method's
+    answer to the other)."""
+    bcd.release_graphs()
+    tab = profiles.EdgeSystem(n_cameras=30, n_servers=3, n_slots=3,
+                              seed=4).horizon(2, device=cuda)
+    sid = (torch.arange(30, device=cuda) % 3).to(torch.int32)
+    for t in range(2):
+        args = (tab.acc[t], tab.xi, tab.size, tab.eff, sid,
+                tab.budgets_b[t], tab.budgets_c[t])
+        q = 0.3 * t + 0.1
+        solved = {}
+        for method in ("interior", "waterfill"):
+            got = bcd.solve_slot(*args, torch.tensor(q, device=cuda), 10.0,
+                                 n_servers=3, method=method,
+                                 solver_backend="torch")
+            want = bcd._solve(*args, q, None, V=10.0, n_servers=3,
+                              n_iters=4, method=method, solver_effort="fast",
+                              spec=bcd.resolve_spec("torch", cuda, 30,
+                                                    method=method))
+            for f in ("r_idx", "m_idx", "pol", "b", "c", "aopi", "score"):
+                assert torch.equal(getattr(got, f), getattr(want, f)), (
+                    t, method, f)
+            solved[method] = got
+        assert not torch.equal(solved["interior"].c, solved["waterfill"].c)
+    assert len(bcd._GRAPHS) == 2
+    assert {key[-2] for key in bcd._GRAPHS} == {"interior", "waterfill"}
+    with pytest.raises(ValueError, match="method='interior'"):
+        bcd.solve_slot(*args, 0.0, 10.0, n_servers=3, method="interior",
+                       solver_backend="cuda")
+    bcd.release_graphs()
+
+
+def test_gpu_failover_kernels_equal_plain(cuda):
+    """Failover on an ``auto`` controller (the slot-solver kernels) equals
+    the same call on a ``torch`` controller bitwise; no stream on the dead
+    island; the capacities restored."""
+    dead = np.array([False, True, False])
+    recs = []
+    for backend in ("auto", "torch"):
+        ctrl = lbcd.LBCDController(profiles.EdgeSystem(n_cameras=30,
+                                                       n_servers=3, seed=0),
+                                   solver_backend=backend, device=cuda)
+        healthy = ctrl.system.capacities(3)
+        ops.reset_launches()
+        recs.append(failure.failover_assignment(ctrl, 3, dead))
+        if backend == "auto":
+            assert ops.launches["config_argmin"] > 0
+            assert ops.launches["waterfill_pair"] > 0
+        for x, y in zip(ctrl.system.capacities(3), healthy):
+            np.testing.assert_array_equal(x, y)
+    a, b = recs
+    assert not dead[a.assign].any()
+    np.testing.assert_array_equal(a.assign, b.assign)
+    for f in ("r_idx", "m_idx", "pol", "b", "c", "aopi", "acc"):
+        np.testing.assert_array_equal(getattr(a.decision, f),
+                                      getattr(b.decision, f))
+    assert a.q == b.q
+    bcd.release_graphs()
+
+
+def test_gpu_launcher_mm1(cuda, capsys):
+    """``launch.serve.main`` on the card at small flags: the planner's
+    kernels and one gi_g1_window launch a plan window."""
+    ops.reset_launches()
+    dp_ops.reset_launches()
+    svc = serve.main(["--streams", "8", "--islands", "2", "--epochs", "2"])
+    out = capsys.readouterr().out
+    assert svc.device.type == "cuda" and svc.mode == "mm1"
+    assert out.startswith("epoch  pred-AoPI")
+    assert ops.launches["config_argmin"] > 0
+    assert dp_ops.launches["gi_g1_window"] >= 1
+    meas = np.array([r.measured_aopi for r in svc.reports])
+    pred = np.array([r.predicted_aopi for r in svc.reports])
+    assert np.isfinite(meas).all()
+    assert meas.mean() == pytest.approx(pred.mean(), rel=0.15)
+    assert svc.plan_failures == [] and svc.fallbacks == []

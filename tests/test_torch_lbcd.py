@@ -17,9 +17,11 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+from repro.core import baselines as j_base  # noqa: E402
 from repro.core import binpack as j_binpack  # noqa: E402
 from repro.core import lbcd as j_lbcd  # noqa: E402
 from repro.core import profiles as j_prof  # noqa: E402
+from repro_torch.core import baselines as t_base  # noqa: E402
 from repro_torch.core import binpack as t_binpack  # noqa: E402
 from repro_torch.core import lbcd as t_lbcd  # noqa: E402
 from repro_torch.core import profiles as t_prof  # noqa: E402
@@ -80,6 +82,23 @@ def test_first_fit_torch_bitwise(n, s, seed, load):
     np.testing.assert_array_equal(
         t_binpack.first_fit(b_hat, c_hat, bb, bc),
         j_binpack.first_fit(b_hat, c_hat, bb, bc))
+
+
+@pytest.mark.parametrize("seed,n,pods,per_pod,cap", [
+    (0, 16, 2, 4, 20.0),       # tests/test_lbcd.py's instance
+    (1, 40, 3, 4, 12.0),
+    (2, 25, 2, 8, 6.0),        # overloaded: the fallbacks at both levels
+    (3, 5, 4, 2, 20.0)])       # pods left empty
+def test_hierarchical_first_fit_bitwise(seed, n, pods, per_pod, cap):
+    rng = np.random.default_rng(seed)
+    b_hat = rng.uniform(0.5, 2.0, n)
+    c_hat = rng.uniform(0.5, 2.0, n)
+    pb, pc = np.full(pods, cap), rng.uniform(0.8, 1.2, pods) * cap
+    want = j_binpack.hierarchical_first_fit(b_hat, c_hat, pb, pc, per_pod)
+    got = t_binpack.hierarchical_first_fit(b_hat, c_hat, pb, pc, per_pod)
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert got.min() >= 0 and got.max() < pods * per_pod
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +210,97 @@ def test_rollout_grid_and_scenarios_match_reference():
         t_lbcd.rollout_grid(ht, [1.0, 2.0], [0.7], device="cpu")
 
 
+# tests/test_lbcd.py's system for the paper's interior-point method.
+INTERIOR_SYSTEM = dict(n_cameras=10, n_servers=2, n_slots=12, seed=6)
+
+
+def test_rollout_interior_matches_reference():
+    """``method="interior"`` over 4 slots, by the rollout contract: AoPI
+    per camera at rtol 1e-3 or, where repro's float32 per-server solve
+    strays further from its own float64 solve of the same slot, at 1.1
+    times that gap. On this horizon that is five cameras of slot 1:
+    repro's float32 line search stops with one camera's compute 14% (AoPI
+    1.2%) off the float64 solution, the port's within 2.1e-4 (ROADMAP
+    section 3). The port is held to the float64 solves at 1e-3 on every
+    camera."""
+    from repro.core import bcd as j_bcd
+    hj = j_prof.EdgeSystem(**INTERIOR_SYSTEM).horizon(4)
+    ht = t_prof.EdgeSystem(**INTERIOR_SYSTEM).horizon(4, device="cpu")
+    r_j = j_lbcd.rollout(hj, 10.0, 0.7, method="interior")
+    r_t = t_lbcd.rollout(ht, 10.0, 0.7, method="interior", device="cpu")
+    effs = np.asarray(j_prof.eff_sequence(hj))
+    q_j = np.concatenate([[0.0], np.asarray(r_j.q)[:-1]])
+    a64 = []
+    for t in range(4):
+        args = (hj.acc[t], hj.xi, hj.size, effs[t], r_j.assign[t],
+                hj.budgets_b[t], hj.budgets_c[t], q_j[t], 10.0)
+        with jax.enable_x64(True):
+            a64.append(np.asarray(j_bcd.solve_slot(
+                *(jnp.asarray(np.asarray(a, np.float64)
+                              if np.asarray(a).dtype != np.int32 else a)
+                  for a in args), n_servers=2, method="interior").aopi))
+    a64 = np.stack(a64)
+    ref_gap = np.abs(np.asarray(r_j.aopi) / a64 - 1.0)
+    bound = np.maximum(1e-3, 1.1 * ref_gap)
+    print(f"repro f32 vs f64 AoPI at most {ref_gap.max():.3e} "
+          f"({int((bound > 1e-3).sum())} cameras over 1e-3); port vs f64 "
+          f"{np.abs(r_t.aopi.numpy() / a64 - 1.0).max():.3e}")
+    print("slots with cameras over 1e-3:", sorted(set(
+        np.nonzero(bound > 1e-3)[0].tolist())))
+    assert ref_gap.max() > 1e-2          # repro's side of the fault
+    _assert_rollout_contract(r_t, r_j, rtol_aopi=bound)
+    same = np.all(r_t.assign.numpy() == np.asarray(r_j.assign), axis=-1)
+    np.testing.assert_allclose(r_t.aopi.numpy()[same], a64[same], rtol=1e-3)
+    np.testing.assert_array_equal(r_t.decision.m_idx.numpy(),
+                                  np.asarray(r_j.decision.m_idx))
+
+
+def test_interior_point_method_end_to_end():
+    """tests/test_lbcd.py's property on the port: over 12 slots the
+    paper's interior-point method reaches the water-fill's mean AoPI
+    within 15%, and the accuracy queue stays finite."""
+    ip = t_lbcd.LBCDController(t_prof.EdgeSystem(**INTERIOR_SYSTEM), v=10.0,
+                               p_min=0.7, method="interior",
+                               device="cpu").run(12)
+    wf = t_lbcd.LBCDController(t_prof.EdgeSystem(**INTERIOR_SYSTEM), v=10.0,
+                               p_min=0.7, method="waterfill",
+                               device="cpu").run(12)
+    assert ip.mean_aopi == pytest.approx(wf.mean_aopi, rel=0.15)
+    assert np.isfinite(ip.q_series).all()
+
+
+def test_reference_interior_misses_the_15pct_bar_at_the_paper_setting():
+    """The reference's own 25-slot runs of the paper setting (N=30, S=3,
+    seed 0): the interior method's mean AoPI is 0.76 of the water-fill's,
+    outside tests/test_lbcd.py's 15% (held on that test's own system
+    above), so chip_smoke.py phase 9 holds the port's two means on the
+    card to these values of the reference's and reports the ratio."""
+    sys.path.insert(0, str(SRC.parent))
+    import chip_smoke
+    got = {m: j_lbcd.LBCDController(j_prof.EdgeSystem(
+        **chip_smoke.PAPER_SYSTEM), v=10.0, p_min=0.7, method=m).run(
+            chip_smoke.INTERIOR_SLOTS).mean_aopi
+        for m in ("interior", "waterfill")}
+    for m, v in got.items():
+        assert v == pytest.approx(chip_smoke.REFERENCE_PAPER_AOPI[m],
+                                  rel=1e-5)
+    assert got["interior"] / got["waterfill"] < 1 - 0.15
+
+
+def test_min_controller_interior_matches_reference():
+    """MIN with the interior method passes ``method`` through to the
+    solve (2 slots)."""
+    out_j = j_base.MINController(j_prof.EdgeSystem(**INTERIOR_SYSTEM),
+                                 method="interior").run(2)
+    out_t = t_base.MINController(t_prof.EdgeSystem(**INTERIOR_SYSTEM),
+                                 method="interior", device="cpu").run(2)
+    for rj, rt in zip(out_j.records, out_t.records):
+        for f in ("r_idx", "m_idx", "pol"):
+            np.testing.assert_array_equal(getattr(rt.decision, f),
+                                          getattr(rj.decision, f))
+        np.testing.assert_allclose(rt.aopi, rj.aopi, rtol=1e-3)
+
+
 def test_entry_points_refuse_cpu_by_default_and_unported_masks(
         monkeypatch):
     """No kernel takes a churn mask: an explicit "cuda" with one raises
@@ -212,7 +322,8 @@ def test_entry_points_refuse_cpu_by_default_and_unported_masks(
 def test_port_imports_neither_jax_nor_repro():
     """Importing the port's main path loads no jax* and no repro.* module."""
     code = ("import sys, repro_torch.core.lbcd, "
-            "repro_torch.kernels.slot_solver.ops; "
+            "repro_torch.kernels.slot_solver.ops, "
+            "repro_torch.training.failure, repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")

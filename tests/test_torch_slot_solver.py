@@ -852,8 +852,17 @@ def test_unported_options_raise():
                                solver_backend="auto:tile=128")
     d_plain = t_bcd.solve_slot(*args, n_servers=3)
     assert torch.equal(d_tiled.b, d_plain.b)
-    with pytest.raises(NotImplementedError, match="interior"):
-        t_bcd.solve_slot(*args, n_servers=3, method="interior")
+    # The interior method is ported (tests/test_torch_interior.py) on the
+    # plain path only: "cuda" with it is refused, "auto" resolves to
+    # "torch" for it on every device, and it takes no churn mask.
+    with pytest.raises(ValueError, match="method='interior'"):
+        t_bcd.solve_slot(*args, n_servers=3, method="interior",
+                         solver_backend="cuda")
+    assert t_bcd.resolve_spec("auto", torch.device("cuda"), 12,
+                              method="interior").backend == "torch"
+    with pytest.raises(ValueError, match="fleet-churn mask"):
+        t_bcd.solve_slot(*args, n_servers=3, method="interior",
+                         active=torch.ones(12))
     # The churn mask is ported (tests/test_torch_scenarios.py); no kernel
     # takes it, so an explicit "cuda" with a mask is refused.
     with pytest.raises(ValueError, match="mask"):

@@ -32,7 +32,16 @@ Phases, each of which raises on failure (exit code non-zero):
                 device time is per wrapper call, split and combine passes
                 summed),
                 each timed beside its plain version and one
-                scaled_dot_product_attention call (library_ms);
+                scaled_dot_product_attention call (library_ms); both also
+                at the rest of the ladder's shapes and modes (phase 10's),
+                in f32 and bf16 with the same bars, timed in f32:
+                flash_attention non-causal at llama-3.2-vision's cross
+                layer (b=2, s = 512 and 6, t = 1,601, h 32 / kvh 8, d 128)
+                and seamless-m4t's encoder (b=2, s = t = 1,024, 16 / 16,
+                d 64), causal at yi-34b's (56 / 8) and dbrx's (48 / 8)
+                widths; flash_decode over the cross cache read whole
+                (kv_len = t = 1,601 on every lane), seamless's encoder
+                cache and phase 10's ragged caches at GQA groups 6 and 7;
                 flash_attention's tilings as the library reports them, its
                 registers and spills from the build's ptxas report, and its
                 device time against two bounds, the f32 CUDA cores' and
@@ -102,7 +111,8 @@ Phases, each of which raises on failure (exit code non-zero):
   5. xLSTM serving - xlstm-1.3b at full width and depth (48 layers: 6
                 periods of 7 mLSTM and 1 sLSTM, f32 parameters from a
                 seeded torch.Generator, 7.94 GB; qwen2.5-3b's freed first),
-                the same (a) and (b) as phase 4 with logits within 0.1
+                the same (a) and (b) as phase 4, (b)'s prompts a quarter
+                as long (128-768 tokens), with logits within 0.1
                 (see LOGIT_ATOL), then one period (8 layers) of the same
                 weights teacher-forced within 1e-3 and the plain run's
                 response to a one-ulp change of its input embedding (its
@@ -189,6 +199,31 @@ Phases, each of which raises on failure (exit code non-zero):
                 qwen2.5-3b, 8 epochs of 3 s, the event-driven plane; both
                 attention kernels must launch), tables and wall seconds
                 printed.
+ 10. the rest of the LM ladder - each architecture at full width, f32
+                parameters from a seeded torch.Generator, freed before the
+                next: yi-6b (32 layers, 24.2 GB), yi-34b (4 of 60 layers),
+                qwen2-moe-a2.7b (8 of 24 layers, all 60 routed and 4
+                shared experts, top-4), dbrx-132b (2 of 40 layers, 16
+                experts, top-4) and minicpm3-4b (62 layers, MLA) served by
+                the Engine (4 lanes of 1,280 rows): prompts of 256, 512,
+                768 and 1,024 tokens and 16 decode ticks, timed, with
+                flash_attention launched once per attention layer and
+                admit and flash_decode once per layer and tick (none for
+                MLA, plain in both packages), then teacher-forced against
+                the impl="torch" engine (logits within 2e-3, >= 99%
+                identical argmax tokens; MoE routing decisions that differ
+                counted); minicpm3-4b's absorbed decode also against its
+                expanded forward (2e-3 on an f32 stream; on the served
+                bf16 stream the decode rounds the first layer's latent
+                context, as repro's does: reported); llama-3.2-vision-11b
+                (one period:
+                4 self-attention layers and the cross layer) and
+                seamless-m4t-large-v2 (24 + 24 layers) through prefill /
+                decode_step (the Engine feeds no embeddings): batch 2,
+                512- and 256-token prompts against 1,601 vision or 1,024
+                audio embeddings (normal, 0.3), 16 steps, timed, launches
+                exact (5 and 72 flash_attention a prefill, 5 and 48
+                flash_decode a step), teacher-forced at the same bars.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit``, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -845,6 +880,11 @@ DECODE_JAMBA = (8, 4096, 64, 8, 128)
 # Phase 4's prompt lengths (ragged, 512-3,072 tokens): the cache fill the
 # decode timing reads.
 PROMPT_LENS = (512, 896, 1280, 1664, 2048, 2432, 2816, 3072)
+# Phase 5's (b): a quarter of those lengths. Its admits are the sLSTM's
+# per-token loop (~380 tokens/s), run for the timed set and again by each
+# of the three teacher-forced engines: at PROMPT_LENS that was ~150 of the
+# phase's 209 s, which phase 10 needs.
+XLSTM_PROMPT_LENS = tuple(n // 4 for n in PROMPT_LENS)
 
 
 def normal(shape, dtype, dev, seed):
@@ -1081,6 +1121,147 @@ def check_attention(dev):
         f"live rows) on {dec_kernel.sm_count(dev)} SMs; caches cold (four "
         "in turn)")
     out["flash_decode"] = r
+    out["ladder"] = check_ladder_attention(dev, held, tight)
+    return out
+
+
+# The attention kernels at the rest of the ladder's shapes and modes (phase
+# 10's main path): flash_attention non-causal at llama-3.2-vision's cross
+# layer (512 prompt tokens, and a 6-token frame, against 1,601 vision
+# tokens: the last KV tile ragged) and seamless-m4t's encoder (1,024
+# frames, d = 64, one query head per KV head), causal at yi-34b's widths
+# (GQA group 7) and dbrx's (group 6); flash_decode over the cross cache
+# read whole on every lane (kv_len = t = 1,601), over seamless's encoder
+# cache, and over phase 10's ragged caches at groups 6 and 7. Each in f32
+# and bf16 against the plain version (ATTN_TOL, and bf16 against the f32
+# plain version within BF16_TIGHT), timed in f32 beside the plain version
+# and one scaled_dot_product_attention call.
+# (label, b, s, t, h, kvh, d, causal)
+LADDER_PREFILL = [("cross s=512", 2, 512, 1601, 32, 8, 128, False),
+                  ("cross s=6", 2, 6, 1601, 32, 8, 128, False),
+                  ("encoder", 2, 1024, 1024, 16, 16, 64, False),
+                  ("yi-34b", 1, 1024, 1024, 56, 8, 128, True),
+                  ("dbrx", 1, 1024, 1024, 48, 8, 128, True)]
+# Phase 10's decoder-only prompts (one a lane) and decode ticks.
+LADDER_PROMPTS = (256, 512, 768, 1024)
+LADDER_TICKS = 16
+# (label, b, t, h, kvh, d, kv_len: None for t on every lane)
+LADDER_DECODE = [("cross cache", 2, 1601, 32, 8, 128, None),
+                 ("encoder cache", 2, 1024, 16, 16, 64, None),
+                 ("dbrx", 4, 1280, 48, 8, 128,
+                  [n + LADDER_TICKS for n in LADDER_PROMPTS]),
+                 ("yi-34b", 4, 1280, 56, 8, 128,
+                  [n + LADDER_TICKS for n in LADDER_PROMPTS])]
+
+
+def check_ladder_attention(dev, held, tight):
+    """flash_attention and flash_decode at LADDER_PREFILL and LADDER_DECODE
+    against their plain versions in f32 and bf16, then timed in f32.
+    ``held`` and ``tight`` are check_attention's checks. Returns {label:
+    results}."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    out = {}
+    for i, (label, b, s, t, h, kvh, d, causal) in enumerate(LADDER_PREFILL):
+        name = f"flash_attention {label} {(b, s, t, h, kvh, d)}"
+        r = {"shape": (b, s, t, h, kvh, d), "causal": causal}
+        for dtype in ("float32", "bfloat16"):
+            q = normal((b, s, h, d), dtype, dev, 200 + 3 * i)
+            k = normal((b, t, kvh, d), dtype, dev, 201 + 3 * i)
+            v = normal((b, t, kvh, d), dtype, dev, 202 + 3 * i)
+            got = fa_ops.attention(q, k, v, causal=causal)
+            r[f"max_abs_err_{dtype}"] = held(
+                f"{name} {dtype}", got,
+                fa_ref.mha_ref(q, k, v, causal=causal), dtype)
+            if dtype == "bfloat16":
+                r["bf16_tight"] = tight(name, got, fa_ref.mha_ref(
+                    q.float(), k.float(), v.float(), causal=causal))[1]
+        q, k, v = (x.float() for x in (q, k, v))
+        r.update(
+            ms=cuda_ms(lambda: fa_ops.attention(q, k, v, causal=causal)),
+            device_ms=device_ms(
+                lambda: fa_ops.attention(q, k, v, causal=causal),
+                "flash_attention_kernel"),
+            plain_ms=cuda_ms(lambda: fa_ref.mha_ref(q, k, v, causal=causal)),
+            library_ms=cuda_ms(lambda: sdpa(q, k, v, causal=causal)),
+            bytes=4 * (2 * q.numel() + 2 * k.numel()),
+            ops=2 * b * h * s * t * d * 2 / (2 if causal else 1))
+        r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
+        r["tc_bound_ms"] = max(r["bytes"] / HBM_BYTES_PER_S,
+                               3 * r["ops"] / TF32_FLOPS) * 1e3
+        dev_s = r["device_ms"] or float("nan")
+        log(f"  {name} {'causal' if causal else 'non-causal'}: max abs err "
+            f"f32 {r['max_abs_err_float32']:.3e}, bf16 "
+            f"{r['max_abs_err_bfloat16']:.3e} (vs the f32 plain version: "
+            f"worst at {r['bf16_tight']:.3f} of {BF16_TIGHT}); f32 "
+            f"{r['ms']:.4f} ms per wrapper call, {r['device_ms']} ms on the "
+            f"device, {r['plain_ms']:.4f} ms plain, {r['library_ms']:.4f} "
+            f"ms SDPA, bound {r['bound_ms']:.6f} ms ({r['bound_by']}, f32 "
+            f"cores, {100 * r['bound_ms'] / dev_s:.1f}% of it), 3xTF32 "
+            f"bound {r['tc_bound_ms']:.6f} ms "
+            f"({100 * r['tc_bound_ms'] / dev_s:.1f}% of it)")
+        out[f"flash_attention {label}"] = r
+
+    for i, (label, b, t, h, kvh, d, lens) in enumerate(LADDER_DECODE):
+        name = f"flash_decode {label} {(b, t, h, kvh, d)}"
+        lens = [t] * b if lens is None else lens
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        r = {"shape": (b, t, h, kvh, d), "kv_len": lens}
+        for dtype in ("float32", "bfloat16"):
+            q = normal((b, h, d), dtype, dev, 230 + 3 * i)
+            kc = normal((b, t, kvh, d), dtype, dev, 231 + 3 * i)
+            vc = normal((b, t, kvh, d), dtype, dev, 232 + 3 * i)
+            got = dec_ops.decode_attention(q, kc, vc, kv_len)
+            r[f"max_abs_err_{dtype}"] = held(
+                f"{name} {dtype}", got,
+                dec_ref.decode_ref(q, kc, vc, kv_len), dtype)
+            if dtype == "bfloat16":
+                r["bf16_tight"] = tight(name, got, dec_ref.decode_ref(
+                    q.float(), kc.float(), vc.float(), kv_len))[1]
+        # Timed in f32 over four caches in turn (beyond the 50 MB L2), as
+        # each layer of the served model reads its own cache.
+        q = q.float()
+        gen = torch.Generator(device=dev).manual_seed(240 + i)
+        caches = itertools.cycle([tuple(
+            torch.randn((b, t, kvh, d), generator=gen, device=dev)
+            for _ in "kv") for _ in range(4)])
+        mask = (torch.arange(t, device=dev)[None, :]
+                < kv_len[:, None])[:, None, None, :]
+
+        def cold(fn):
+            def call():
+                kc, vc = next(caches)
+                return fn(kc, vc)
+            return call
+
+        rows = sum(lens)
+        kern = cold(lambda kc, vc: dec_ops.decode_attention(q, kc, vc,
+                                                            kv_len))
+        r.update(
+            ms=cuda_ms(kern),
+            device_ms=device_ms(kern, ("flash_decode_kernel",
+                                       "flash_decode_combine_kernel")),
+            plain_ms=cuda_ms(cold(lambda kc, vc: dec_ref.decode_ref(
+                q, kc, vc, kv_len))),
+            library_ms=cuda_ms(cold(lambda kc, vc: sdpa(q[:, None], kc, vc,
+                                                         mask=mask))),
+            bytes=4 * (rows * kvh * d * 2 + 2 * b * h * d + b),
+            ops=4 * h * rows * d)
+        r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
+        dev_s = r["device_ms"] or float("nan")
+        log(f"  {name} kv_len {lens}: max abs err f32 "
+            f"{r['max_abs_err_float32']:.3e}, bf16 "
+            f"{r['max_abs_err_bfloat16']:.3e} (vs the f32 plain version: "
+            f"worst at {r['bf16_tight']:.3f} of {BF16_TIGHT}); f32 "
+            f"{r['ms']:.4f} ms per wrapper call, {r['device_ms']} ms on the "
+            f"device, {r['plain_ms']:.4f} ms plain, {r['library_ms']:.4f} "
+            f"ms SDPA, bound {r['bound_ms']:.6f} ms ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / dev_s:.1f}% of it); caches cold")
+        out[f"flash_decode {label}"] = r
     return out
 
 
@@ -2565,14 +2746,17 @@ JAMBA_CUT = dict(n_layers=8, n_experts=4)
 
 
 def kernel_counts(model):
-    """Launches per admit and per tick of each LM kernel: flash_attention
-    once per attention layer in a prefill, flash_decode once per attention
-    layer in a tick, mlstm_chunkwise once per mLSTM layer and
-    selective_scan once per Mamba layer in a prefill. Returns (per_admit,
-    per_tick) over the kernels the model runs."""
-    layers = {kind: model.n_periods * sum(spec.mixer == kind
+    """Launches per admit and per tick of each LM kernel of a decoder-only
+    model: flash_attention once per attention or cross-attention layer in
+    a prefill, flash_decode once per such layer in a tick (none for MLA),
+    mlstm_chunkwise once per mLSTM layer and selective_scan once per Mamba
+    layer in a prefill. Returns (per_admit, per_tick) over the kernels the
+    model runs."""
+    layers = {kind: model.n_periods * sum(spec.mixer in kinds
                                           for spec in model.period)
-              for kind in ("attn", "mlstm", "mamba")}
+              for kind, kinds in (("attn", ("attn", "cross")),
+                                  ("mlstm", ("mlstm",)),
+                                  ("mamba", ("mamba",)))}
     per_admit = {"flash_attention": layers["attn"], "flash_decode": 0,
                  "mlstm_chunkwise": layers["mlstm"],
                  "selective_scan": layers["mamba"]}
@@ -2776,7 +2960,8 @@ def xlstm_rounding(cfg, params, prompt, dev):
     return dict(one_period_err=err_one, one_ulp_sensitivity=sens)
 
 
-def serve_lm(dev, name, cut=None, launcher=False):
+def serve_lm(dev, name, cut=None, launcher=False,
+             prompt_lens=PROMPT_LENS):
     """Serve ``name`` at full width (and depth, unless ``cut`` replaces
     fields of its config) through the port's Engine:
     (a) the engine rung of the service (measure_engine_epoch, 8 streams,
@@ -2885,7 +3070,7 @@ def serve_lm(dev, name, cut=None, launcher=False):
     # (b) Long ragged prompts, then N_TICKS decode ticks, timed.
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, n_tok).astype(np.int32)
-               for n_tok in PROMPT_LENS]
+               for n_tok in prompt_lens]
     eng_b = Engine(model, params, n_lanes=8, max_len=4096,
                    decode_tokens=N_TICKS + 2, device=dev)
     reset()
@@ -2913,10 +3098,10 @@ def serve_lm(dev, name, cut=None, launcher=False):
     ms_tick = 1e3 * float(np.mean(tick_s))
     out = dict(
         counts_a=counts_a, counts_b=counts_b, sec_a=sec_a,
-        prefill_tok_s=sum(PROMPT_LENS) / sec_prefill,
+        prefill_tok_s=sum(prompt_lens) / sec_prefill,
         ms_tick=ms_tick, decode_tok_s=8 / (ms_tick / 1e3),
         busy_share=busy / (wall * 1e3))
-    log(f"  (b) 8 admits of {list(PROMPT_LENS)} tokens: {sec_prefill:.3f} s,"
+    log(f"  (b) 8 admits of {list(prompt_lens)} tokens: {sec_prefill:.3f} s,"
         f" {out['prefill_tok_s']:.1f} prefill tokens/s; {N_TICKS} ticks: "
         f"{ms_tick:.2f} ms per tick (median {1e3 * np.median(tick_s):.2f}), "
         f"{out['decode_tok_s']:.1f} decode tokens/s; device busy "
@@ -3036,6 +3221,352 @@ def full_width_launcher(dev, model, params, reset, counts):
         f"{LAUNCHER_FULL_FRAMES}, {svc.engine_backend}): {sec:.2f} s, "
         f"{frames} frames completed; launches {launched}")
     return dict(seconds=sec, frames=frames, launches=launched)
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the rest of the LM ladder
+# ---------------------------------------------------------------------------
+
+# Each architecture at full width, f32 parameters from a seeded generator,
+# freed before the next is built. Depth cuts (layers kept of the config's)
+# keep each model's parameters near 12-31 GB and the phase inside its time;
+# the rest run at full depth. qwen2-moe keeps all 60 routed and 4 shared
+# experts (top-4), dbrx all 16 (top-4), both at capacity factor 1.25.
+LADDER_CUTS = {"yi-6b": None, "yi-34b": dict(n_layers=4),
+               "qwen2-moe-a2.7b": dict(n_layers=8),
+               "dbrx-132b": dict(n_layers=2), "minicpm3-4b": None}
+LADDER_LANES = 4
+LADDER_ROWS = 1280
+# The bars of phases 4 and 6: teacher-forced logits within 2e-3 of the
+# impl="torch" run and ARGMAX_SHARE identical greedy tokens.
+LADDER_ATOL = 2e-3
+# minicpm3-4b launches no kernel (MLA is plain in both packages), so its
+# absorbed decode is also held against its expanded form: one lane's
+# prefill of the first MLA_SPLIT tokens of a LADDER_PROMPTS[0]-token
+# prompt, then decode steps over the rest, against one forward over the
+# whole prompt (on an f32 stream; see mla_against_forward).
+MLA_SPLIT = 248
+# llama-3.2-vision-11b: one period (5 layers: 4 self-attention, the cross
+# layer 4th); seamless-m4t-large-v2 at full depth (24 + 24 layers). Both run
+# through prefill / decode_step: the Engine feeds no embeddings, in either
+# package.
+VISION_CUT = dict(n_layers=5)
+EMBED_RUNS = {"llama-3.2-vision-11b": dict(batch=2, prompt=512, source=1601),
+              "seamless-m4t-large-v2": dict(batch=2, prompt=256,
+                                            source=1024)}
+
+
+def _ladder_counters():
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    def reset():
+        fa_ops.reset_launches()
+        dec_ops.reset_launches()
+
+    def counts():
+        return {**fa_ops.launches, **dec_ops.launches}
+    return reset, counts
+
+
+def _ladder_model(dev, name, cut):
+    """(cfg, kernel model, plain model, params, header) at full width."""
+    import torch
+    from repro_torch import configs, models
+    cfg = configs.get(name)
+    if cut:
+        cfg = dataclasses.replace(cfg, **cut)
+    t0 = time.perf_counter()
+    model = models.build(cfg)
+    params = models.common.init_params(
+        model.template(), torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    torch.cuda.synchronize()
+    n = model.param_count()
+    head = (f"  {name}: {cfg.n_layers} layers"
+            + (f" (cut from {configs.get(name).n_layers})" if cut else "")
+            + f", d_model {cfg.d_model}, {cfg.n_heads} heads / "
+            f"{cfg.n_kv_heads} KV heads"
+            + (f", {cfg.n_experts} experts top {cfg.top_k}"
+               + (f" + {cfg.n_shared_experts} shared"
+                  if cfg.n_shared_experts else "") if cfg.is_moe else "")
+            + f"; {n / 1e9:.4f} B parameters, {4 * n / 1e9:.2f} GB f32, "
+            f"initialised in {time.perf_counter() - t0:.2f} s")
+    return cfg, model, models.build(cfg, impl="torch"), params, \
+        dict(params=n, bytes=4 * n, header=head)
+
+
+def _need_exact(label, got, want):
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def _teacher_forced_bar(name, errs, same, total):
+    share = same / total
+    log(f"  teacher-forced kernel vs impl='torch': max abs logit err "
+        f"{max(errs):.3e} (prefill {errs[0]:.3e}; bar {LADDER_ATOL}); "
+        f"identical argmax on {same}/{total} = {share:.4f} (bar "
+        f"{ARGMAX_SHARE})")
+    if max(errs) > LADDER_ATOL or share < ARGMAX_SHARE:
+        raise AssertionError(f"{name} teacher-forced: kernel run outside "
+                             "the bar against the plain run")
+    return dict(max_logit_err=max(errs), argmax_share=share)
+
+
+def ladder_decoder(dev, name, smi):
+    """A decoder-only architecture of the ladder served by the port's
+    Engine (LADDER_LANES lanes of LADDER_ROWS rows): LADDER_PROMPTS
+    admitted (one a lane) and LADDER_TICKS decode ticks, timed, with the
+    attention kernels' launches exact; then teacher-forced against the
+    impl="torch" engine (MoE: the routing decisions that differ counted);
+    minicpm3-4b also against its own full forward."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import Engine, Frame
+    reset, counts = _ladder_counters()
+    cfg, model, plain, params, out = _ladder_model(dev, name,
+                                                   LADDER_CUTS[name])
+    per_admit, per_tick = kernel_counts(model)
+    per_admit = {k: per_admit.get(k, 0) for k in ("flash_attention",
+                                                  "flash_decode")}
+    per_tick = {k: per_tick.get(k, 0) for k in per_admit}
+    n_moe = model.n_periods * sum(spec.ffn == "moe" for spec in model.period)
+    log(out["header"] + f"; kernel launches per admit {per_admit}, per "
+        f"tick {per_tick}")
+
+    def want(admits, ticks):
+        return {k: admits * per_admit[k] + ticks * per_tick[k]
+                for k in per_admit}
+
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in LADDER_PROMPTS]
+    eng = Engine(model, params, n_lanes=LADDER_LANES, max_len=LADDER_ROWS,
+                 decode_tokens=LADDER_TICKS + 2, device=dev)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, prompt in enumerate(prompts):
+        if not eng.admit(Frame(i, 0.0, 0.0), prompt):
+            raise AssertionError(f"{name}: admit {i} refused")
+    torch.cuda.synchronize()
+    sec_prefill = time.perf_counter() - t0
+    _need_exact(f"{name} admits", counts(), want(len(prompts), 0))
+    tick_s = []
+    for _ in range(LADDER_TICKS):
+        t0 = time.perf_counter()
+        if eng.decode_tick():
+            raise AssertionError(f"{name}: a lane finished early")
+        tick_s.append(time.perf_counter() - t0)
+    launched = counts()
+    _need_exact(f"{name} admits and ticks", launched,
+                want(len(prompts), LADDER_TICKS))
+    wall, busy = profile_slot(eng.decode_tick, f"{name} one decode tick")
+    del eng
+    out.update(launches=launched, per_admit=per_admit, per_tick=per_tick,
+               prefill_tok_s=sum(LADDER_PROMPTS) / sec_prefill,
+               ms_tick=1e3 * float(np.mean(tick_s)),
+               busy_share=busy / (wall * 1e3))
+    log(f"  {len(prompts)} admits of {list(LADDER_PROMPTS)} tokens: "
+        f"{sec_prefill:.3f} s, {out['prefill_tok_s']:.1f} prefill tokens/s; "
+        f"{LADDER_TICKS} ticks: {out['ms_tick']:.2f} ms per tick (median "
+        f"{1e3 * np.median(tick_s):.2f}), device busy "
+        f"{100 * out['busy_share']:.1f}% of one profiled tick; launches "
+        f"{launched}, as the layers ask; {smi}")
+
+    eng_k = Engine(model, params, n_lanes=LADDER_LANES, max_len=LADDER_ROWS,
+                   device=dev)
+    eng_p = Engine(plain, params, n_lanes=LADDER_LANES, max_len=LADDER_ROWS,
+                   device=dev)
+    routes = []
+    undo = record_routing(routes) if n_moe else (lambda: None)
+    errs, same, total = [], 0, 0
+    last = np.zeros(LADDER_LANES, np.int32)
+    try:
+        for lane, prompt in enumerate(prompts):
+            lk = eng_k.prefill_lane(prompt, lane)
+            lp = eng_p.prefill_lane(prompt, lane)
+            errs.append(float((lk - lp).abs().max()))
+            last[lane] = int(torch.argmax(lk))
+            same += int(last[lane] == int(torch.argmax(lp)))
+            total += 1
+        errs = [max(errs)]
+        for _ in range(LADDER_TICKS):
+            lk = eng_k.decode_logits(last)
+            lp = eng_p.decode_logits(last)
+            if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+                raise AssertionError(f"{name}: non-finite logits")
+            errs.append(float((lk - lp).abs().max()))
+            nk = torch.argmax(lk, -1)
+            same += int((nk == torch.argmax(lp, -1)).sum())
+            total += nk.numel()
+            last = nk.cpu().numpy().astype(np.int32)
+    finally:
+        undo()
+    if n_moe:
+        flips, routed, gap = routing_flips(routes, n_moe)
+        out.update(routing_flips=flips, routed=routed)
+        log(f"  routing, kernel vs plain engine: {flips} of {routed} top-"
+            f"{cfg.top_k} decisions differ over the {n_moe} MoE layers; "
+            f"largest gate gap among them {gap:.3e}")
+    out.update(_teacher_forced_bar(name, errs, same, total))
+    del eng_k, eng_p
+    if cfg.attn_type == "mla":
+        out["forward_errs"] = mla_against_forward(dev, model, params,
+                                                  prompts[0])
+    return out
+
+
+def mla_against_forward(dev, model, params, prompt):
+    """One lane's prefill of ``prompt[:MLA_SPLIT]`` and decode steps over
+    the rest (the absorbed form) against one forward over the whole prompt
+    (the expanded form), as tests/test_models.py holds the reference: on
+    an f32 stream (the config with dtype="float32", the same parameters),
+    held to LADDER_ATOL, and on the served config's bf16 stream, where the
+    absorbed decode rounds the first layer's latent context to bf16 and
+    the expanded form does not, in repro too (ROADMAP section 3):
+    reported."""
+    import numpy as np
+    import torch
+    from repro_torch import models
+    from repro_torch.serving import Engine
+    errs = {}
+    for dtype in dict.fromkeys(("float32", model.cfg.dtype)):
+        m = models.build(dataclasses.replace(model.cfg, dtype=dtype))
+        eng = Engine(m, params, n_lanes=1, max_len=LADDER_ROWS, device=dev)
+        with torch.no_grad():
+            full = m.forward(params, {"tokens": torch.as_tensor(
+                prompt[None], device=dev)})[0][0]
+        got = [eng.prefill_lane(prompt[:MLA_SPLIT], 0)]
+        for tok in prompt[MLA_SPLIT:-1]:
+            got.append(eng.decode_logits(np.array([tok], np.int32))[0])
+        errs[dtype] = float((torch.stack(got)
+                             - full[MLA_SPLIT - 1:-1]).abs().max())
+        del eng
+    log(f"  MLA: prefill of {MLA_SPLIT} tokens and {len(got) - 1} absorbed "
+        f"decode steps against one expanded forward over {len(prompt)} "
+        f"tokens: max abs logit err {errs['float32']:.3e} on an f32 stream "
+        f"(bar {LADDER_ATOL}); {errs[model.cfg.dtype]:.3e} on the served "
+        f"{model.cfg.dtype} stream (the first layer's latent context "
+        "rounded to it at decode, as in repro: reported)")
+    if errs["float32"] > LADDER_ATOL:
+        raise AssertionError("MLA: the absorbed decode misses the forward")
+    return errs
+
+
+def ladder_embeds(dev, name, smi):
+    """The VLM or the encoder-decoder through prefill / decode_step: a batch
+    of EMBED_RUNS[name] prompts with its stub frontend's embeddings
+    (normal, 0.3, as repro.data.pipeline draws them, from a seeded
+    generator on the card), LADDER_TICKS decode steps on the kernel run's
+    greedy tokens, timed, with the attention kernels' launches exact; then
+    the impl="torch" model teacher-forced on the same tokens."""
+    import numpy as np
+    import torch
+    from repro_torch import models
+    reset, counts = _ladder_counters()
+    run = EMBED_RUNS[name]
+    cfg, model, plain, params, out = _ladder_model(
+        dev, name, VISION_CUT if name.startswith("llama") else None)
+    b, p_len, src = run["batch"], run["prompt"], run["source"]
+    if isinstance(model, models.EncDecLM):
+        per_prefill = {"flash_attention": model.enc_n + 2 * model.dec_n}
+        per_step = {"flash_decode": 2 * model.dec_n}
+        kind, cache_kw = "audio_embeds", {"enc_len": src}
+    else:
+        n_attn = model.n_periods * sum(spec.mixer in ("attn", "cross")
+                                       for spec in model.period)
+        per_prefill = {"flash_attention": n_attn}
+        per_step = {"flash_decode": n_attn}
+        kind, cache_kw = "vision_embeds", {}
+    log(out["header"] + f"; batch {b}, {p_len}-token prompts, {src} "
+        f"{kind.split('_')[0]} embeddings; kernel launches per prefill "
+        f"{per_prefill}, per step {per_step}")
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (b, p_len)).astype(np.int32), device=dev),
+        kind: 0.3 * torch.randn((b, src, cfg.d_model), generator=gen,
+                                device=dev)}
+    max_len = p_len + LADDER_TICKS
+
+    def cache(m):
+        return models.common.init_params(
+            m.cache_template(b, max_len, **cache_kw),
+            torch.Generator(device=dev), device=dev)
+
+    cache_k = cache(model)
+    reset()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lk, cache_k = model.prefill(params, batch, cache_k)
+        tok = torch.argmax(lk[:, -1], -1).to(torch.int32).cpu()
+        sec_prefill = time.perf_counter() - t0
+        _need_exact(f"{name} prefill", counts(),
+                    {"flash_attention": per_prefill["flash_attention"],
+                     "flash_decode": 0})
+        logits_k, tokens, step_s = [lk[:, -1]], [tok], []
+        for _ in range(LADDER_TICKS):
+            t0 = time.perf_counter()
+            lk, cache_k = model.decode_step(params, tok.to(dev), cache_k)
+            tok = torch.argmax(lk, -1).to(torch.int32).cpu()
+            step_s.append(time.perf_counter() - t0)
+            logits_k.append(lk)
+            tokens.append(tok)
+        launched = counts()
+        _need_exact(f"{name} prefill and steps", launched,
+                    {"flash_attention": per_prefill["flash_attention"],
+                     "flash_decode": LADDER_TICKS * per_step["flash_decode"]})
+        out.update(launches=launched, per_admit=per_prefill,
+                   per_tick=per_step,
+                   prefill_tok_s=b * p_len / sec_prefill,
+                   ms_tick=1e3 * float(np.mean(step_s)))
+        log(f"  prefill of {b} x {p_len} tokens (the encoder or the vision "
+            f"keys included): {sec_prefill:.3f} s, "
+            f"{out['prefill_tok_s']:.1f} prefill tokens/s; {LADDER_TICKS} "
+            f"decode steps: {out['ms_tick']:.2f} ms per step (median "
+            f"{1e3 * np.median(step_s):.2f}); launches {launched}, as the "
+            f"layers ask; {smi}")
+        del cache_k
+        cache_p = cache(plain)
+        lp, cache_p = plain.prefill(params, batch, cache_p)
+        errs = [float((logits_k[0] - lp[:, -1]).abs().max())]
+        same = int((torch.argmax(lp[:, -1], -1).cpu() == tokens[0]).sum())
+        for i in range(LADDER_TICKS):
+            lp, cache_p = plain.decode_step(params, tokens[i].to(dev),
+                                            cache_p)
+            if not (torch.isfinite(lp).all()
+                    and torch.isfinite(logits_k[i + 1]).all()):
+                raise AssertionError(f"{name}: non-finite logits")
+            errs.append(float((logits_k[i + 1] - lp).abs().max()))
+            same += int((torch.argmax(lp, -1).cpu() == tokens[i + 1]).sum())
+    out.update(_teacher_forced_bar(name, errs, same,
+                                   b * (LADDER_TICKS + 1)))
+    return out
+
+
+def ladder_phase(dev, smi):
+    """Phase 10: the seven architectures of the ladder, each freed before
+    the next is built. Returns {arch: results}."""
+    import torch
+    t_phase = time.perf_counter()
+    res = {}
+    for name in ("yi-6b", "yi-34b", "qwen2-moe-a2.7b", "dbrx-132b",
+                 "minicpm3-4b", "llama-3.2-vision-11b",
+                 "seamless-m4t-large-v2"):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        res[name] = (ladder_embeds if name in EMBED_RUNS
+                     else ladder_decoder)(dev, name, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res[name].update(seconds=time.perf_counter() - t0,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"  {name}: {res[name]['seconds']:.1f} s, peak device memory "
+            f"{res[name]['peak_gb']:.2f} GB")
+    log(f"  phase 10 {time.perf_counter() - t_phase:.1f} s")
+    return res
 
 
 def main() -> int:
@@ -3293,7 +3824,7 @@ def main() -> int:
 
     log(f"== phase 5 (at {time.perf_counter() - t_start:.0f} s): xLSTM "
         "serving (xlstm-1.3b, full width and depth)")
-    xl = serve_lm(dev, "xlstm-1.3b")
+    xl = serve_lm(dev, "xlstm-1.3b", prompt_lens=XLSTM_PROMPT_LENS)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3321,6 +3852,14 @@ def main() -> int:
         "of core/ (interior-point LBCD, rate frontiers), island failover "
         "and the serving launcher")
     core = core_phase(dev)
+
+    bcd.release_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== phase 10 (at {time.perf_counter() - t_start:.0f} s): the rest "
+        "of the LM ladder (yi-6b, yi-34b, qwen2-moe-a2.7b, dbrx-132b, "
+        "minicpm3-4b, llama-3.2-vision-11b, seamless-m4t-large-v2)")
+    ladder = ladder_phase(dev, smi)
 
     for module in ("repro_torch.obs", "repro_torch.obs.report",
                    "repro_torch.training.failure",
@@ -3410,6 +3949,18 @@ def main() -> int:
                 "launches"][name]
             kernels[-1]["full_width_launcher_launches"] = lm["launcher"][
                 "launches"][name]
+            # Phase 10: each architecture's launches over its run (the
+            # admits or prefill and LADDER_TICKS ticks or steps), and the
+            # kernel at the ladder's shapes (phase 2).
+            kernels[-1]["ladder_launches"] = {
+                arch: r["launches"][name] for arch, r in ladder.items()}
+            kernels[-1]["ladder_shapes"] = {
+                label.split(" ", 1)[1]: {k: v[k] for k in (
+                    "shape", "ms", "device_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "max_abs_err_float32",
+                    "max_abs_err_bfloat16")}
+                for label, v in attn["ladder"].items()
+                if label.startswith(name + " ")}
     # The data-plane kernels: no TPU kernel; each replaces a lax.scan of
     # the JAX package. Launches from phase 8's main path.
     dp_src = "src/repro_torch/kernels/dataplane/csrc/dataplane.cu"
@@ -3451,7 +4002,9 @@ def main() -> int:
         "ms); selective_scan at b=1 s=2048 inner=16384 n=16 f32 (s=6: "
         f"{scan['s=6']['ms']:.4f} ms, s=3072: {scan['s=3072']['ms']:.4f} "
         f"ms); LM launches (b): {lm['counts_b']}, {xl['counts_b']}, "
-        f"{jamba['counts_b']}; gi_g1_window at E={CHECK_WINDOW[0]} "
+        f"{jamba['counts_b']}; phase 10's launches "
+        + ", ".join(f"{a} {r['launches']}" for a, r in ladder.items())
+        + f"; gi_g1_window at E={CHECK_WINDOW[0]} "
         f"N={CHECK_WINDOW[1]} F={CHECK_WINDOW[2]} f64 (a sweep cell's "
         f"window), tick_scan at S={CHECK_EPOCH[0]} F={CHECK_EPOCH[1]} "
         "(the engine rung's shortest epoch)")

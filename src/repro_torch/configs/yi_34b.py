@@ -1,0 +1,11 @@
+"""yi-34b [dense] — 60L d7168 56H (GQA kv=8) ff20480 v64000.
+
+Llama-architecture GQA. [arXiv:2403.04652; hf]
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-34b", family="dense",
+    n_layers=60, d_model=7168, n_heads=56, n_kv_heads=8, d_ff=20480,
+    vocab=64000, head_dim=128, rope_theta=5e6,
+)

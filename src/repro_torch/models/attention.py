@@ -1,4 +1,5 @@
-"""GQA self-attention block: templates, prefill and single-token decode.
+"""GQA self-attention and cross-attention blocks: templates, prefill and
+single-token decode.
 
 The KV cache is updated in place (the JAX package returns a new cache
 tree): the prefill writes the new keys and values at offset 0 of the cache
@@ -40,35 +41,38 @@ def cache_template(cfg, batch: int, max_len: int, dtype=None):
                    dtype=dtype)}
 
 
-def _qkv(params, x, cfg):
+def _qkv(params, x, kv_x, cfg):
     q = einsum("bsd,dhk->bshk", x, params["wq"])
-    k = einsum("btd,dhk->bthk", x, params["wk"])
-    v = einsum("btd,dhk->bthk", x, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
-    return q, k, v
+    return (q,) + encode_kv(params, cfg, kv_x)
 
 
 def _out(params, ctx):
     return einsum("bshk,hkd->bsd", ctx, params["wo"])
 
 
-def gqa_apply(params, x, cfg, *, impl: str = "auto", cache=None):
-    """Causal full-sequence attention (training / prefill) over the s
-    tokens of ``x`` [b, s, d] at positions 0..s-1: query offset 0 against
-    the s new keys.
+def gqa_apply(params, x, cfg, *, causal: bool = True, kv_x=None,
+              impl: str = "auto", cache=None):
+    """Full-sequence attention (training / prefill) over the s tokens of
+    ``x`` [b, s, d] at positions 0..s-1: query offset 0 against the s new
+    keys, causal unless ``causal=False`` (the encoder).
 
+    ``kv_x``: the cross-attention source [b, t, d] (vision or encoder
+    embeddings): keys and values come from it, with no rope, and every
+    query sees every key.
     ``cache``: when given (prefill), the keys and values are written at
     offset 0 in place and ``(y, cache)`` is returned.
     """
     s = x.shape[1]
-    q, k, v = _qkv(params, x, cfg)
-    positions = torch.arange(s, device=x.device)[None, :]
-    q = apply_rope(q, positions, cfg.rope_theta).contiguous()
-    k = apply_rope(k, positions, cfg.rope_theta).contiguous()
-    out = attn_op(q, k, v.contiguous(), causal=True, impl=impl)
+    cross = kv_x is not None
+    q, k, v = _qkv(params, x, kv_x if cross else x, cfg)
+    if not cross:
+        positions = torch.arange(s, device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = attn_op(q.contiguous(), k.contiguous(), v.contiguous(),
+                  causal=causal and not cross, impl=impl)
     y = _out(params, out)
     if cache is None:
         return y
@@ -101,7 +105,7 @@ def gqa_decode(params, x, cfg, cache, lens, *, impl: str = "auto"):
 
     Writes the new key and value at ``lens`` in place and attends over the
     ``lens + 1`` first cache rows. Returns (y [b, 1, d], cache)."""
-    q, k, v = _qkv(params, x, cfg)
+    q, k, v = _qkv(params, x, x, cfg)
     pos = lens[:, None]                                   # [b, 1]
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
@@ -110,3 +114,28 @@ def gqa_decode(params, x, cfg, cache, lens, *, impl: str = "auto"):
     out = decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
                            (lens + 1).to(torch.int32), impl=impl)
     return _out(params, out[:, None]), cache
+
+
+def cross_decode(params, x, cfg, enc_k, enc_v, *, impl: str = "auto"):
+    """Cross-attention during decode: x [b, 1, d] against all t rows of
+    the static encoder keys and values [b, t, kvh, hd]; nothing is
+    written."""
+    q = einsum("bsd,dhk->bshk", x, params["wq"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    lens = torch.full((x.shape[0],), enc_k.shape[1], dtype=torch.int32,
+                      device=x.device)
+    out = decode_attention(q[:, 0].contiguous(), enc_k, enc_v, lens,
+                           impl=impl)
+    return _out(params, out[:, None])
+
+
+def encode_kv(params, cfg, kv_x):
+    """The cross-attention keys and values of ``kv_x`` [b, t, d] (encoder
+    output or vision embeddings): ([b, t, kvh, hd], [b, t, kvh, hd])."""
+    k = einsum("btd,dhk->bthk", kv_x, params["wk"])
+    v = einsum("btd,dhk->bthk", kv_x, params["wv"])
+    if cfg.qkv_bias:
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return k, v

@@ -1,7 +1,8 @@
-"""Primitive layers: RMS norm, rotary embeddings, SwiGLU, embeddings.
+"""Primitive layers: RMS and layer norms, rotary embeddings, SwiGLU and
+GELU MLPs, embeddings.
 
-Dtypes follow the JAX package's promotion: ``rmsnorm`` computes in f32
-and returns its input's dtype, and a product of a bf16 activation with an
+Dtypes follow the JAX package's promotion: the norms compute in f32
+and return their input's dtype, and a product of a bf16 activation with an
 f32 weight is taken in f32 (``jnp.promote_types``). ``torch.einsum``
 refuses mixed dtypes instead of promoting, so :func:`einsum` casts both
 operands to their promoted type first.
@@ -31,6 +32,21 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(dtype)
+
+
+def layernorm_template(d: int):
+    return {"scale": P((d,), (EMBED,), init="ones"),
+            "bias": P((d,), (EMBED,), init="zeros")}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mean), dim=-1, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float = 1e4,
@@ -67,6 +83,21 @@ def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     up = einsum("...d,df->...f", x, params["wi_up"])
     h = F.silu(gate.float()).to(x.dtype) * up
     return einsum("...f,fd->...d", h, params["wo"])
+
+
+def gelu_mlp_template(d: int, ff: int):
+    return {"wi": P((d, ff), (EMBED, MLP)),
+            "bi": P((ff,), (MLP,), init="zeros"),
+            "wo": P((ff, d), (MLP, EMBED)),
+            "bo": P((d,), (EMBED,), init="zeros")}
+
+
+def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+    """The audio family's FFN: ``jax.nn.gelu``'s default, the tanh
+    approximation, taken in f32 and cast back to the stream's dtype."""
+    h = einsum("...d,df->...f", x, params["wi"]) + params["bi"]
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return einsum("...f,fd->...d", h, params["wo"]) + params["bo"]
 
 
 def embedding_template(vocab: int, d: int):

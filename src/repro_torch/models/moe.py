@@ -123,5 +123,5 @@ def _moe_apply_a2a(*args, **kwargs):
     """Expert parallelism over a mesh (the JAX package's shard_map path
     with all-to-alls): the port runs on one card."""
     raise NotImplementedError("expert-parallel MoE over a mesh is not "
-                              "ported yet: ROADMAP queue 1 item 10d "
+                              "ported yet: ROADMAP queue 1 entry 5 "
                               "(sharding/)")

@@ -1,12 +1,19 @@
-"""The decoder-only LM (dense GQA, xLSTM or the hybrid) and ``build``.
+"""The decoder-only LM, the encoder-decoder and ``build``.
 
-``TransformerLM`` keeps the JAX package's surface: parameters are a tree
-passed to every call, not module state.
+``TransformerLM`` covers the dense, MoE, MLA, VLM, xLSTM and hybrid
+decoders (any period layout); ``EncDecLM`` covers seamless-m4t (a stub
+audio encoder input, a non-causal encoder and a causal decoder with
+cross-attention). Both keep the JAX package's surface: parameters are a
+tree passed to every call, not module state.
 
     template() / cache_template()      -> P-trees (see models.common)
     forward(params, batch)             -> (logits, aux)
     prefill(params, batch, cache)      -> (last_logits [b, 1, V], cache)
     decode_step(params, tokens, cache) -> (logits [b, V], cache)
+
+``batch`` holds ``tokens`` and, for the stub modalities, precomputed
+frontend outputs: ``vision_embeds`` [b, n_vision_tokens, d] (the VLM) or
+``audio_embeds`` [b, frames, d] (the encoder-decoder).
 
 Dtypes follow the JAX package: the embedding is cast to ``cfg.dtype``, so
 with f32 parameters and ``dtype="bfloat16"`` only the embedding and the
@@ -14,9 +21,9 @@ first norm's output are rounded to bf16, and the first product with an
 f32 weight promotes the stream back to f32. Logits cover the padded
 vocabulary (``cfg.padded_vocab`` columns), as the reference's do.
 
-The model has no ``vocab`` attribute: the engine plane reads
+The models have no ``vocab`` attribute: the engine plane reads
 ``getattr(model, "vocab", 32)`` for its frame tokens, and the reference
-model has none either.
+models have none either.
 """
 from __future__ import annotations
 
@@ -26,20 +33,40 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..kernels.attention_common import check_impl
 from .common import P, count_params, stack_template
-from .layers import (einsum, embed, embedding_template, rmsnorm,
-                     rmsnorm_template, unembed, unembed_template)
+from .layers import (einsum, embed, embedding_template, unembed,
+                     unembed_template)
 from .transformer import (block_cache_template, block_template, layout,
-                          not_ported, stack_apply, stack_decode)
+                          norm, norm_template, stack_apply, stack_decode)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _stacked_block_template(cfg, period, n_periods, ep_pad):
+    per = {f"p{i}": block_template(cfg, spec, ep_pad)
+           for i, spec in enumerate(period)}
+    return stack_template(per, n_periods)
+
+
+def _stacked_cache_template(cfg, period, n_periods, batch, max_len,
+                            kv_source_len, dtype=None):
+    per = {f"p{i}": block_cache_template(cfg, spec, batch, max_len,
+                                         kv_source_len, dtype)
+           for i, spec in enumerate(period)}
+    return stack_template(per, n_periods)
+
+
+def _len_template(batch: int):
+    return P((batch,), ("batch",), init="zeros", dtype=torch.int32)
+
+
 class TransformerLM(nn.Module):
-    """Decoder-only LM: a dense GQA decoder (qwen2.5-style), the xLSTM
-    (periods of mLSTM layers and one sLSTM layer) or the hybrid (jamba:
-    periods of one attention and Mamba layers, MoE FFNs on every other
-    layer). The port runs on one card, so experts are padded as the
-    reference pads them for an expert-parallel degree of 1."""
+    """Decoder-only LM: a dense or MoE GQA decoder, MLA, the VLM (periods
+    of self-attention layers and one cross-attention layer to the vision
+    embeddings), the xLSTM (periods of mLSTM layers and one sLSTM layer)
+    or the hybrid (jamba: periods of one attention and Mamba layers, MoE
+    FFNs on every other layer). The port runs on one card, so experts are
+    padded as the reference pads them for an expert-parallel degree of
+    1."""
 
     def __init__(self, cfg: ModelConfig, impl: str = "auto"):
         super().__init__()
@@ -51,48 +78,53 @@ class TransformerLM(nn.Module):
 
     def template(self):
         cfg = self.cfg
-        per = {f"p{i}": block_template(cfg, spec, self.ep_pad)
-               for i, spec in enumerate(self.period)}
         t = {"embed": embedding_template(cfg.padded_vocab, cfg.d_model),
-             "blocks": stack_template(per, self.n_periods),
-             "final_norm": rmsnorm_template(cfg.d_model)}
+             "blocks": _stacked_block_template(cfg, self.period,
+                                               self.n_periods, self.ep_pad),
+             "final_norm": norm_template(cfg)}
         if not cfg.tie_embeddings:
             t["unembed"] = unembed_template(cfg.d_model, cfg.padded_vocab)
         return t
 
     def cache_template(self, batch: int, max_len: int, dtype=None):
-        per = {f"p{i}": block_cache_template(self.cfg, spec, batch, max_len,
-                                             dtype)
-               for i, spec in enumerate(self.period)}
-        return {"blocks": stack_template(per, self.n_periods),
-                "len": P((batch,), ("batch",), init="zeros",
-                         dtype=torch.int32)}
+        cfg = self.cfg
+        kv_src = cfg.n_vision_tokens if cfg.family == "vlm" else max_len
+        return {"blocks": _stacked_cache_template(cfg, self.period,
+                                                  self.n_periods, batch,
+                                                  max_len, kv_src, dtype),
+                "len": _len_template(batch)}
 
     def param_count(self) -> int:
         return count_params(self.template())
 
     def _logits(self, params, x):
-        x = rmsnorm(params["final_norm"], x)
+        x = norm(self.cfg, params["final_norm"], x)
         if self.cfg.tie_embeddings:
             return einsum("...d,vd->...v", x, params["embed"]["table"])
         return unembed(params["unembed"], x)
 
+    def _vision(self, batch):
+        kv = batch.get("vision_embeds")
+        return None if kv is None else kv.to(self.dtype)
+
     def forward(self, params, batch):
-        if "vision_embeds" in batch:
-            raise not_ported("cross")
         x = embed(params["embed"], batch["tokens"]).to(self.dtype)
         x, _, aux = stack_apply(params["blocks"], x, self.cfg, self.period,
+                                kv_embeds=self._vision(batch),
                                 impl=self.impl)
         return self._logits(params, x), aux
 
     def prefill(self, params, batch, cache):
         """Prefill ``batch["tokens"]`` [b, s] into ``cache`` (written in
-        place at offset 0); returns the last position's logits."""
+        place at offset 0; a cross layer's cache takes the vision
+        embeddings' keys and values); returns the last position's
+        logits."""
         tokens = batch["tokens"]
         x = embed(params["embed"], tokens).to(self.dtype)
         x, blocks, _ = stack_apply(params["blocks"], x, self.cfg,
-                                   self.period, impl=self.impl,
-                                   caches=cache["blocks"])
+                                   self.period,
+                                   kv_embeds=self._vision(batch),
+                                   impl=self.impl, caches=cache["blocks"])
         new_cache = {"blocks": blocks,
                      "len": torch.full_like(cache["len"], tokens.shape[1])}
         return self._logits(params, x[:, -1:]), new_cache
@@ -108,12 +140,102 @@ class TransformerLM(nn.Module):
         return self._logits(params, x)[:, 0], new_cache
 
 
-def build(cfg: ModelConfig, impl: str = "auto") -> TransformerLM:
-    """The model of ``cfg``. ``impl`` picks the path of the kernels
+class EncDecLM(nn.Module):
+    """Encoder-decoder (seamless-m4t): a projection of precomputed audio
+    frame embeddings, a non-causal encoder stack and its norm, then a
+    causal text decoder whose every layer cross-attends to the encoder's
+    output. The decoder's caches hold the encoder's keys and values
+    (``enc_len`` rows, the encoder's frames)."""
+
+    def __init__(self, cfg: ModelConfig, impl: str = "auto"):
+        super().__init__()
+        self.cfg = cfg
+        self.impl = impl
+        self.enc_period, self.enc_n = layout(cfg, role="encoder")
+        self.dec_period, self.dec_n = layout(cfg, role="decoder")
+        self.dtype = DTYPES[cfg.dtype]
+
+    def template(self):
+        cfg = self.cfg
+        return {
+            "enc_in": {"w": P((cfg.d_model, cfg.d_model),
+                              ("embed", "embed"))},
+            "enc_blocks": _stacked_block_template(cfg, self.enc_period,
+                                                  self.enc_n, None),
+            "enc_norm": norm_template(cfg),
+            "embed": embedding_template(cfg.padded_vocab, cfg.d_model),
+            "dec_blocks": _stacked_block_template(cfg, self.dec_period,
+                                                  self.dec_n, None),
+            "final_norm": norm_template(cfg),
+            "unembed": unembed_template(cfg.d_model, cfg.padded_vocab),
+        }
+
+    def cache_template(self, batch: int, max_len: int, dtype=None,
+                       enc_len: int | None = None):
+        enc_len = enc_len or max_len
+        return {"blocks": _stacked_cache_template(self.cfg, self.dec_period,
+                                                  self.dec_n, batch, max_len,
+                                                  enc_len, dtype),
+                "len": _len_template(batch)}
+
+    def param_count(self) -> int:
+        return count_params(self.template())
+
+    def encode(self, params, audio_embeds):
+        """audio_embeds [b, frames, d] -> the encoder's output [b, frames,
+        d]: self-attention over all frames (non-causal)."""
+        x = einsum("bsd,de->bse", audio_embeds.to(self.dtype),
+                   params["enc_in"]["w"])
+        x, _, _ = stack_apply(params["enc_blocks"], x, self.cfg,
+                              self.enc_period, causal=False, impl=self.impl)
+        return norm(self.cfg, params["enc_norm"], x)
+
+    def _logits(self, params, x):
+        x = norm(self.cfg, params["final_norm"], x)
+        return unembed(params["unembed"], x)
+
+    def forward(self, params, batch):
+        enc = self.encode(params, batch["audio_embeds"])
+        x = embed(params["embed"], batch["tokens"]).to(self.dtype)
+        x, _, aux = stack_apply(params["dec_blocks"], x, self.cfg,
+                                self.dec_period, kv_embeds=enc,
+                                impl=self.impl)
+        return self._logits(params, x), aux
+
+    def prefill(self, params, batch, cache):
+        """Encode ``batch["audio_embeds"]``, then prefill ``batch["tokens"]``
+        [b, s] into ``cache`` (in place: the self-attention caches at
+        offset 0, every layer's encoder cache whole); returns the last
+        position's logits."""
+        enc = self.encode(params, batch["audio_embeds"])
+        tokens = batch["tokens"]
+        x = embed(params["embed"], tokens).to(self.dtype)
+        x, blocks, _ = stack_apply(params["dec_blocks"], x, self.cfg,
+                                   self.dec_period, kv_embeds=enc,
+                                   impl=self.impl, caches=cache["blocks"])
+        new_cache = {"blocks": blocks,
+                     "len": torch.full_like(cache["len"], tokens.shape[1])}
+        return self._logits(params, x[:, -1:]), new_cache
+
+    def decode_step(self, params, tokens, cache):
+        """tokens: [b] -> (logits [b, V], cache); the cache is written in
+        place and its ``len`` advanced by one."""
+        x = embed(params["embed"], tokens[:, None]).to(self.dtype)
+        lens = cache["len"]
+        x, blocks = stack_decode(params["dec_blocks"], x, self.cfg,
+                                 self.dec_period, cache["blocks"], lens,
+                                 impl=self.impl)
+        new_cache = {"blocks": blocks, "len": lens + 1}
+        return self._logits(params, x)[:, 0], new_cache
+
+
+def build(cfg: ModelConfig, impl: str = "auto"):
+    """The model of ``cfg``: an ``EncDecLM`` when it has encoder layers,
+    else a ``TransformerLM``. ``impl`` picks the path of the kernels
     (attention, the mLSTM's prefill and the Mamba layers' selective scan):
     ``auto`` (the CUDA kernels on CUDA tensors, the plain versions on CPU
     ones) or ``torch`` (the plain versions on any device)."""
     check_impl(impl)
     if cfg.enc_layers:
-        raise not_ported("cross")
+        return EncDecLM(cfg, impl=impl)
     return TransformerLM(cfg, impl=impl)

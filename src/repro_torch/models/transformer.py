@@ -1,14 +1,13 @@
-"""Decoder blocks and the layer stack: the dense GQA decoder, the xLSTM
-and the hybrid (jamba: attention, Mamba and MoE).
+"""Blocks and the layer stack of every architecture: dense and MoE GQA
+decoders, MLA, the VLM's cross-attention layers, the encoder-decoder's
+encoder and decoder (LayerNorm, GELU MLP, a cross-attention sublayer),
+the xLSTM and the hybrid (jamba: attention, Mamba and MoE).
 
 Every architecture of the JAX package is a *period* of layer specs
 repeated n_periods times; its parameters and caches are stacked along a
 leading LAYERS dim. The JAX package drives the stack with ``lax.scan`` (or
 unrolls it at <= 2 periods); here it is a Python loop over the periods,
-which computes the same thing. The ported layer kinds are the mixers
-``attn``, ``mamba``, ``mlstm`` and ``slstm`` and the FFNs ``dense``,
-``moe`` and ``none``; the others raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+which computes the same thing. Caches are written in place.
 """
 from __future__ import annotations
 
@@ -18,40 +17,38 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import attention as attn_mod
+from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
-from .layers import rmsnorm, rmsnorm_template, swiglu, swiglu_template
-
-_NOT_PORTED = {
-    "mla": "MLA attention (minicpm3): ROADMAP queue 1 item 10",
-    "moe": "MoE serving outside the hybrid layout (dbrx, qwen2-moe): "
-           "ROADMAP queue 1 item 10d",
-    "cross": "cross-attention (VLM, encoder-decoder): ROADMAP queue 1 item "
-             "10",
-    "layernorm": "LayerNorm blocks (audio family): ROADMAP queue 1 item 10",
-    "remat": "rematerialisation for training (run under torch.no_grad() "
-             "to serve): ROADMAP queue 1 item 10",
-}
+from .layers import (gelu_mlp, gelu_mlp_template, layernorm,
+                     layernorm_template, rmsnorm, rmsnorm_template, swiglu,
+                     swiglu_template)
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: "
-                               f"{_NOT_PORTED[what]}")
+def remat_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "rematerialisation for training is not ported yet (run under "
+        "torch.no_grad() to serve): ROADMAP queue 1 entry 5 (training)")
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str                  # attn | mamba | mlstm | slstm (mla | cross)
+    mixer: str                  # attn | mla | cross | mamba | mlstm | slstm
     ffn: str                    # dense | moe | none
-    cross_sub: bool = False     # extra cross-attn sublayer (enc-dec)
+    cross_sub: bool = False     # extra cross-attn sublayer (enc-dec decoder)
 
 
-def layout(cfg: ModelConfig):
-    """Return (period: list[LayerSpec], n_periods) for a dense GQA decoder,
-    the xLSTM or the hybrid; other families raise ``NotImplementedError``."""
-    if cfg.enc_layers:
-        raise not_ported("cross")
+def layout(cfg: ModelConfig, role: str = "decoder"):
+    """Return (period: list[LayerSpec], n_periods) for an arch config;
+    ``role="encoder"`` gives the encoder-decoder's encoder stack."""
+    if role == "encoder":
+        if not cfg.enc_layers:
+            raise ValueError(f"{cfg.name} has no encoder")
+        return [LayerSpec("attn", "dense")], cfg.enc_layers
+    if cfg.enc_layers:                                     # enc-dec decoder
+        return [LayerSpec("attn", "dense", cross_sub=True)], cfg.n_layers
+
     if cfg.family == "hybrid":                             # jamba
         period = []
         for i in range(cfg.attn_period):
@@ -61,60 +58,105 @@ def layout(cfg: ModelConfig):
             period.append(LayerSpec(mixer, ffn))
         assert cfg.n_layers % cfg.attn_period == 0
         return period, cfg.n_layers // cfg.attn_period
+
     if cfg.family == "ssm":                                # xlstm
         sp = cfg.slstm_period
         period = [LayerSpec("mlstm", "none") for _ in range(sp - 1)]
         period.append(LayerSpec("slstm", "none"))
         assert cfg.n_layers % sp == 0
         return period, cfg.n_layers // sp
-    if cfg.family == "vlm":
-        raise not_ported("cross")
-    if cfg.attn_type == "mla":
-        raise not_ported("mla")
-    if cfg.is_moe:
-        raise not_ported("moe")
-    return [LayerSpec("attn", "dense")], cfg.n_layers
+
+    if cfg.family == "vlm":                                # llama-vision
+        cp = cfg.cross_attn_period
+        period = [LayerSpec("attn", "dense") for _ in range(cp)]
+        period[cp - 2] = LayerSpec("cross", "dense")
+        assert cfg.n_layers % cp == 0
+        return period, cfg.n_layers // cp
+
+    mixer = "mla" if cfg.attn_type == "mla" else "attn"
+    ffn = "moe" if (cfg.is_moe and cfg.moe_period == 1) else "dense"
+    if cfg.is_moe and cfg.moe_period > 1:
+        period = [LayerSpec(mixer, "moe" if i % cfg.moe_period == 1
+                            else "dense")
+                  for i in range(cfg.moe_period)]
+        return period, cfg.n_layers // cfg.moe_period
+    return [LayerSpec(mixer, ffn)], cfg.n_layers
 
 
-def _check(cfg: ModelConfig, spec: LayerSpec) -> None:
-    if spec.mixer not in ("attn", "mamba", "mlstm", "slstm"):
-        raise not_ported(spec.mixer)
-    if spec.ffn not in ("dense", "moe", "none"):
-        raise not_ported(spec.ffn)
-    if spec.cross_sub:
-        raise not_ported("cross")
-    if cfg.norm != "rmsnorm" or cfg.family == "audio":
-        raise not_ported("layernorm")
+def norm_template(cfg):
+    return (layernorm_template if cfg.norm == "layernorm"
+            else rmsnorm_template)(cfg.d_model)
+
+
+def norm(cfg, params, x):
+    """The config's norm: LayerNorm (the audio family) or RMS norm."""
+    return (layernorm if cfg.norm == "layernorm" else rmsnorm)(params, x)
 
 
 def block_template(cfg: ModelConfig, spec: LayerSpec,
                    n_experts_padded: int | None = None):
-    _check(cfg, spec)
     mixer = {"attn": attn_mod.gqa_template,
+             "cross": attn_mod.gqa_template,
+             "mla": mla_mod.mla_template,
              "mamba": ssm_mod.mamba_template,
              "mlstm": xlstm_mod.mlstm_template,
              "slstm": xlstm_mod.slstm_template}[spec.mixer]
-    t = {"norm1": rmsnorm_template(cfg.d_model), "mixer": mixer(cfg)}
+    t = {"norm1": norm_template(cfg), "mixer": mixer(cfg)}
+    if spec.cross_sub:
+        t["norm_x"] = norm_template(cfg)
+        t["cross"] = attn_mod.gqa_template(cfg)
     if spec.ffn != "none":
-        t["norm2"] = rmsnorm_template(cfg.d_model)
-        t["ffn"] = (moe_mod.moe_template(cfg, n_experts_padded)
-                    if spec.ffn == "moe"
-                    else swiglu_template(cfg.d_model, cfg.d_ff))
+        t["norm2"] = norm_template(cfg)
+        if spec.ffn == "moe":
+            t["ffn"] = moe_mod.moe_template(cfg, n_experts_padded)
+        elif cfg.family == "audio":
+            t["ffn"] = gelu_mlp_template(cfg.d_model, cfg.d_ff)
+        else:
+            t["ffn"] = swiglu_template(cfg.d_model, cfg.d_ff)
     return t
 
 
 def block_cache_template(cfg, spec: LayerSpec, batch: int, max_len: int,
-                         dtype=None):
+                         kv_source_len: int, dtype=None):
     """Per-layer decode cache matching block_template's spec: the KV cache
-    of an attention layer, the recurrent state of a Mamba or xLSTM
+    of an attention layer, the latent of an MLA layer, the encoder's (or
+    the vision embeddings') keys and values of a cross layer or sublayer
+    (``kv_source_len`` rows), the recurrent state of a Mamba or xLSTM
     layer."""
-    _check(cfg, spec)
+    c = {}
     if spec.mixer == "attn":
-        return {"self": attn_mod.cache_template(cfg, batch, max_len, dtype)}
-    state = {"mamba": ssm_mod.mamba_state_template,
-             "mlstm": xlstm_mod.mlstm_state_template,
-             "slstm": xlstm_mod.slstm_state_template}[spec.mixer]
-    return {"state": state(cfg, batch, dtype)}
+        c["self"] = attn_mod.cache_template(cfg, batch, max_len, dtype)
+    elif spec.mixer == "mla":
+        c["self"] = mla_mod.mla_cache_template(cfg, batch, max_len, dtype)
+    elif spec.mixer == "cross":
+        c["enc"] = attn_mod.cache_template(cfg, batch, kv_source_len, dtype)
+    else:
+        state = {"mamba": ssm_mod.mamba_state_template,
+                 "mlstm": xlstm_mod.mlstm_state_template,
+                 "slstm": xlstm_mod.slstm_state_template}[spec.mixer]
+        c["state"] = state(cfg, batch, dtype)
+    if spec.cross_sub:
+        c["enc"] = attn_mod.cache_template(cfg, batch, kv_source_len, dtype)
+    return c
+
+
+def _write_enc(cache, params, cfg, kv_embeds) -> None:
+    """Write the cross-attention keys and values of ``kv_embeds`` into the
+    layer's ``enc`` cache in place. The JAX package replaces the cache
+    entry whatever its length; in place, the cache must have been made
+    with one row per source position (``kv_source_len``)."""
+    if kv_embeds is None:
+        raise ValueError("a cross-attention cache needs the source "
+                         "embeddings (vision_embeds or the encoder's output)")
+    k, v = attn_mod.encode_kv(params, cfg, kv_embeds)
+    enc = cache["enc"]
+    if enc["k"].shape != k.shape:
+        raise ValueError(f"cross-attention cache {tuple(enc['k'].shape)} "
+                         f"does not fit the source's keys {tuple(k.shape)}: "
+                         "make the cache with kv_source_len (enc_len) equal "
+                         "to the source length")
+    enc["k"].copy_(k)
+    enc["v"].copy_(v)
 
 
 def _ffn(params, x, cfg, spec: LayerSpec, *, decode: bool = False):
@@ -123,29 +165,40 @@ def _ffn(params, x, cfg, spec: LayerSpec, *, decode: bool = False):
     (``n_experts / top_k``)."""
     if spec.ffn == "none":
         return x, None
-    h = rmsnorm(params["norm2"], x)
+    h = norm(cfg, params["norm2"], x)
     if spec.ffn == "dense":
-        return x + swiglu(params["ffn"], h), None
+        mlp = gelu_mlp if cfg.family == "audio" else swiglu
+        return x + mlp(params["ffn"], h), None
     out, aux = moe_mod.moe_apply(
         params["ffn"], h, cfg,
         capacity_factor=cfg.n_experts / max(cfg.top_k, 1) if decode else None)
     return x + out, aux
 
 
-def block_apply(params, x, cfg, spec: LayerSpec, *, impl: str = "auto",
-                cache=None):
-    """Causal full-sequence block (training, or prefill when ``cache`` is
-    given; the prefill writes the cache in place).
+def block_apply(params, x, cfg, spec: LayerSpec, *, causal: bool = True,
+                kv_embeds=None, impl: str = "auto", cache=None):
+    """Full-sequence block (training, or prefill when ``cache`` is given;
+    the prefill writes the cache in place). ``causal=False`` is the
+    encoder's self-attention; ``kv_embeds`` [b, t, d] is the source of the
+    cross-attention layers and sublayers.
 
     Residual adds promote as ``jnp`` does (a bf16 stream plus an f32
     sublayer output is f32). Returns (x, cache, aux): aux is the MoE's
     load-balancing loss (0 for other FFNs)."""
-    _check(cfg, spec)
-    h = rmsnorm(params["norm1"], x)
+    h = norm(cfg, params["norm1"], x)
     if spec.mixer == "attn":
         out = attn_mod.gqa_apply(
-            params["mixer"], h, cfg, impl=impl,
+            params["mixer"], h, cfg, causal=causal, impl=impl,
             cache=None if cache is None else cache["self"])
+    elif spec.mixer == "mla":
+        out = mla_mod.mla_apply(
+            params["mixer"], h, cfg, causal=causal,
+            cache=None if cache is None else cache["self"])
+    elif spec.mixer == "cross":
+        out = attn_mod.gqa_apply(params["mixer"], h, cfg, kv_x=kv_embeds,
+                                 impl=impl)
+        if cache is not None:
+            _write_enc(cache, params["mixer"], cfg, kv_embeds)
     elif spec.mixer == "mamba":
         out = ssm_mod.mamba_apply(
             params["mixer"], h, cfg, impl=impl,
@@ -158,9 +211,16 @@ def block_apply(params, x, cfg, spec: LayerSpec, *, impl: str = "auto",
         out = xlstm_mod.slstm_apply(
             params["mixer"], h, cfg,
             state=None if cache is None else cache["state"])
-    if cache is not None:
+    if cache is not None and spec.mixer != "cross":
         out = out[0]
-    x, aux = _ffn(params, x + out, cfg, spec)
+    x = x + out
+    if spec.cross_sub:
+        h = norm(cfg, params["norm_x"], x)
+        x = x + attn_mod.gqa_apply(params["cross"], h, cfg, kv_x=kv_embeds,
+                                   impl=impl)
+        if cache is not None:
+            _write_enc(cache, params["cross"], cfg, kv_embeds)
+    x, aux = _ffn(params, x, cfg, spec)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, cache, aux
@@ -169,12 +229,18 @@ def block_apply(params, x, cfg, spec: LayerSpec, *, impl: str = "auto",
 def block_decode(params, x, cfg, spec: LayerSpec, cache, lens, *,
                  impl: str = "auto"):
     """Single-token decode through one block. x: [b, 1, d]; the cache is
-    updated in place."""
-    _check(cfg, spec)
-    h = rmsnorm(params["norm1"], x)
+    updated in place (a cross layer's encoder cache is only read)."""
+    h = norm(cfg, params["norm1"], x)
     if spec.mixer == "attn":
         out, _ = attn_mod.gqa_decode(params["mixer"], h, cfg, cache["self"],
                                      lens, impl=impl)
+    elif spec.mixer == "mla":
+        out, _ = mla_mod.mla_decode(params["mixer"], h, cfg, cache["self"],
+                                    lens)
+    elif spec.mixer == "cross":
+        out = attn_mod.cross_decode(params["mixer"], h, cfg,
+                                    cache["enc"]["k"], cache["enc"]["v"],
+                                    impl=impl)
     elif spec.mixer == "mamba":
         out, _ = ssm_mod.mamba_decode(params["mixer"], h, cfg,
                                       cache["state"])
@@ -184,7 +250,13 @@ def block_decode(params, x, cfg, spec: LayerSpec, cache, lens, *,
     else:
         out, _ = xlstm_mod.slstm_decode(params["mixer"], h, cfg,
                                         cache["state"])
-    return _ffn(params, x + out, cfg, spec, decode=True)[0], cache
+    x = x + out
+    if spec.cross_sub:
+        h = norm(cfg, params["norm_x"], x)
+        x = x + attn_mod.cross_decode(params["cross"], h, cfg,
+                                      cache["enc"]["k"], cache["enc"]["v"],
+                                      impl=impl)
+    return _ffn(params, x, cfg, spec, decode=True)[0], cache
 
 
 def _period(tree, li: int):
@@ -200,22 +272,23 @@ def _n_periods(stacked) -> int:
     return stacked.shape[0]
 
 
-def stack_apply(stacked, x, cfg, period, *, impl: str = "auto",
-                caches=None):
+def stack_apply(stacked, x, cfg, period, *, causal: bool = True,
+                kv_embeds=None, impl: str = "auto", caches=None):
     """Run the period stack. ``stacked``/``caches``: {"p{i}": tree} with a
     leading n_periods dim on every leaf; caches are written in place.
     Returns (x, caches, aux), aux the sum of the MoE layers' losses."""
     if cfg.remat != "none" and torch.is_grad_enabled():
         # Rematerialisation only changes what a backward pass keeps; an
         # inference run (no autograd) computes the same without it.
-        raise not_ported("remat")
+        raise remat_not_ported()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in range(_n_periods(stacked)):
         layer = _period(stacked, li)
         layer_cache = None if caches is None else _period(caches, li)
         for i, spec in enumerate(period):
             x, _, a = block_apply(
-                layer[f"p{i}"], x, cfg, spec, impl=impl,
+                layer[f"p{i}"], x, cfg, spec, causal=causal,
+                kv_embeds=kv_embeds, impl=impl,
                 cache=None if layer_cache is None else layer_cache[f"p{i}"])
             aux = aux + a
     return x, caches, aux

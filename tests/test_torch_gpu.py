@@ -1002,6 +1002,138 @@ def test_gpu_reduced_jamba_kernels_match_torch(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The rest of the LM ladder: the attention kernels at its shapes and modes,
+# and each reduced architecture's kernel run against its plain run
+# ---------------------------------------------------------------------------
+
+# (b, s, t, h, kvh, d, causal): llama-3.2-vision's cross-attention (512
+# and 6 queries against 1,601 vision tokens, the last KV tile ragged),
+# seamless-m4t's encoder (d = 64, one query head per KV head), and causal
+# prefills at yi-34b's (GQA group 7) and dbrx's (group 6) widths.
+LADDER_PREFILL = [(2, 512, 1601, 32, 8, 128, False),
+                  (2, 6, 1601, 32, 8, 128, False),
+                  (2, 1024, 1024, 16, 16, 64, False),
+                  (1, 300, 300, 56, 8, 128, True),
+                  (1, 300, 300, 48, 8, 128, True)]
+# (b, t, h, kvh, d, lens): the cross cache read whole on every lane, and
+# ragged caches at groups 6 and 7.
+LADDER_DECODE = [(2, 1601, 32, 8, 128, "full"),
+                 (4, 1280, 48, 8, 128, "ragged"),
+                 (4, 1280, 56, 8, 128, "ragged"),
+                 (2, 1024, 16, 16, 64, "full")]
+LADDER = ["yi-6b", "yi-34b", "qwen2-moe-a2.7b", "dbrx-132b", "minicpm3-4b",
+          "llama-3.2-vision-11b", "seamless-m4t-large-v2"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LADDER_PREFILL)
+def test_gpu_flash_attention_at_ladder_shapes(cuda, shape, dtype):
+    b, s, t, h, kvh, d, causal = shape
+    q = _normal((b, s, h, d), dtype, cuda, 40)
+    k = _normal((b, t, kvh, d), dtype, cuda, 41)
+    v = _normal((b, t, kvh, d), dtype, cuda, 42)
+    fa_ops.reset_launches()
+    out = fa_ops.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.launches["flash_attention"] == 1
+    _close(out, fa_ref.mha_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LADDER_DECODE)
+def test_gpu_flash_decode_at_ladder_shapes(cuda, shape, dtype):
+    b, t, h, kvh, d, fill = shape
+    q = _normal((b, h, d), dtype, cuda, 43)
+    kc = _normal((b, t, kvh, d), dtype, cuda, 44)
+    vc = _normal((b, t, kvh, d), dtype, cuda, 45)
+    lens = [t] * b if fill == "full" else [1, 255, 513, t][:b]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    dec_ops.reset_launches()
+    out = dec_ops.decode_attention(q, kc, vc, kv_len)
+    torch.cuda.synchronize()
+    assert dec_ops.launches["flash_decode"] == 1
+    _close(out, dec_ref.decode_ref(q, kc, vc, kv_len), dtype)
+
+
+def _attention_launches(model):
+    """(flash_attention per prefill, flash_decode per decode step) of a
+    model: one per self-attention, cross-attention and encoder layer in a
+    prefill, one per self- and cross-attention layer in a step; MLA
+    launches none."""
+    if isinstance(model, models.EncDecLM):
+        return model.enc_n + 2 * model.dec_n, 2 * model.dec_n
+    n = model.n_periods * sum(spec.mixer in ("attn", "cross")
+                              for spec in model.period)
+    return n, n
+
+
+@pytest.mark.parametrize("arch", LADDER)
+def test_gpu_reduced_ladder_kernels_match_torch(cuda, arch):
+    """Each reduced architecture of the ladder on the card: the kernel run
+    against the impl="torch" run on the same parameters, teacher-forced on
+    the kernel run's tokens, with the attention kernels launched exactly as
+    its layers ask. The decoder-only models run through the Engine; the VLM
+    and the encoder-decoder, which the Engine does not feed embeddings,
+    through prefill / decode_step."""
+    cfg = configs.get(arch).reduced()
+    mk, mp = models.build(cfg), models.build(cfg, impl="torch")
+    params = models.common.init_params(
+        mk.template(), torch.Generator(device=cuda).manual_seed(0),
+        device=cuda)
+    per_prefill, per_step = _attention_launches(mk)
+    fa_ops.reset_launches()
+    dec_ops.reset_launches()
+    rng = np.random.default_rng(46)
+    steps = 6
+    if cfg.family in ("vlm", "audio"):
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab, (2, 7)).astype(np.int32), device=cuda)}
+        kw = {}
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = _normal(
+                (2, cfg.n_vision_tokens, cfg.d_model), torch.float32, cuda,
+                47) * 0.3
+        else:
+            batch["audio_embeds"] = _normal((2, 9, cfg.d_model),
+                                            torch.float32, cuda, 47)
+            kw = {"enc_len": 9}
+        caches = [models.common.init_params(
+            m.cache_template(2, 16, **kw), torch.Generator(device=cuda),
+            device=cuda) for m in (mk, mp)]
+        with torch.no_grad():
+            lk, ck = mk.prefill(params, batch, caches[0])
+            lp, cp = mp.prefill(params, batch, caches[1])
+            torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+            tok = torch.argmax(lk[:, -1], -1).to(torch.int32)
+            for _ in range(steps):
+                lk, ck = mk.decode_step(params, tok, ck)
+                lp, cp = mp.decode_step(params, tok, cp)
+                torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+                tok = torch.argmax(lk, -1).to(torch.int32)
+        n_prefills = 1
+    else:
+        eng_k = Engine(mk, params, n_lanes=3, max_len=64, device=cuda)
+        eng_p = Engine(mp, params, n_lanes=3, max_len=64, device=cuda)
+        prompts = [np.arange(2, 9), np.arange(40, 61), np.arange(100, 106)]
+        last = np.zeros(3, np.int32)
+        for lane, toks in enumerate(prompts):
+            lk = eng_k.prefill_lane(toks, lane)
+            lp = eng_p.prefill_lane(toks, lane)
+            torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+            last[lane] = int(torch.argmax(lk))
+        for _ in range(steps):
+            lk = eng_k.decode_logits(last)
+            lp = eng_p.decode_logits(last)
+            torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+            last = torch.argmax(lk, -1).cpu().numpy().astype(np.int32)
+        n_prefills = len(prompts)
+    assert fa_ops.launches["flash_attention"] == n_prefills * per_prefill
+    assert dec_ops.launches["flash_decode"] == steps * per_step
+    if arch == "minicpm3-4b":
+        assert per_prefill == per_step == 0
+
+
+# ---------------------------------------------------------------------------
 # The scenario sweep: kernels against the plain path, obs on the card
 # ---------------------------------------------------------------------------
 

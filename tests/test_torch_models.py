@@ -39,27 +39,27 @@ def _tree_np(tree):
 
 
 def test_configs_copy_the_reference():
-    for name in ("qwen2.5-3b", "xlstm-1.3b", "jamba-1.5-large-398b"):
+    """All ten architectures of the JAX package, full and reduced, equal
+    the port's copies, and ``build`` takes each of them."""
+    assert set(t_configs.ARCHS) == set(j_configs.ARCHS)
+    assert len(t_configs.ARCHS) == 10
+    for name in j_configs.ARCHS:
         j, t = j_configs.get(name), t_configs.get(name)
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
         assert (dataclasses.asdict(j.reduced())
                 == dataclasses.asdict(t.reduced()))
         assert t.padded_vocab == j.padded_vocab
-    assert set(t_configs.ARCHS) == {"qwen2.5-3b", "xlstm-1.3b",
-                                    "jamba-1.5-large-398b"}
-    assert set(t_configs.ARCHS) | set(t_configs.NOT_PORTED) == set(
-        j_configs.ARCHS)
+        for cfg in (t, t.reduced()):
+            model = t_models.build(cfg)
+            assert isinstance(model, t_models.EncDecLM if cfg.enc_layers
+                              else t_models.TransformerLM)
     assert t_configs.get("qwen2.5-3b").padded_vocab == 152_064
-    for name in ("yi-6b", "yi-34b", "dbrx-132b", "qwen2-moe-a2.7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_configs.get(name)
     with pytest.raises(KeyError):
         t_configs.get("gpt-5")
-    for name in ("dbrx-132b", "qwen2-moe-a2.7b", "minicpm3-4b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_models.build(j_configs.get(name))
     assert t_models.build(j_configs.get("jamba-1.5-large-398b")).n_periods \
         == 9
+    assert t_models.build(j_configs.get("llama-3.2-vision-11b")).n_periods \
+        == 8
 
 
 # ---------------------------------------------------------------------------

@@ -225,6 +225,35 @@ Phases, each of which raises on failure (exit code non-zero):
                 exact (5 and 72 flash_attention a prefill, 5 and 48
                 flash_decode a step), teacher-forced at the same bars.
 
+ 11. training - (a) qwen2.5-3b at full width and depth (36 layers, bf16
+                parameters from a seeded torch.Generator, f32 AdamW state,
+                remat="full") through launch.train.run for 16 steps of 4 x
+                512 tokens from the Zipf pipeline: loss, grad norm and ms
+                per step; the median step over steps 3-16, tokens/s, peak
+                device memory and MFU (model FLOPs 6ND over the median
+                step x 989 TFLOP/s dense bf16); every loss and grad norm
+                finite, the mean of the last 4 losses below the first 4's,
+                no kernel launched (the trainer runs the plain versions,
+                as repro's launcher does); (b) the same architecture cut
+                to 8 layers, in f32: one step at 2 microbatches against 1
+                on the same parameters and batch (loss within 1e-4
+                relative, parameters within atol 2e-5); (c) on (b)'s
+                model, the loss and gradients under remat "dots" and
+                "full" against "none" (loss bitwise, gradients within
+                1e-6 x each leaf's max |g|), the peak memory of each,
+                which must fall from "none" to "dots" to "full"; (d) on
+                (b)'s trained parameters, make_eval_step with the kernels
+                (exactly 8 flash_attention launches) against impl="torch"
+                (within 1e-5 relative), and a loss through the kernels
+                under grad refused (RuntimeError naming impl="torch");
+                (e) one make_train_step step of reduced qwen2.5-3b, jamba
+                and xlstm-1.3b on the card against the CPU (loss within
+                1e-5 relative, parameters within atol 2e-5); (f) reduced
+                qwen2.5-3b: run(steps=6) against a run stopped after its
+                checkpoint at step 3 and resumed (losses of steps 3-5 and
+                the final parameters within 1e-6 relative), a corrupted
+                leaf refused on restore, the temporary directory removed.
+
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit``, and ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository beside it, the script exits non-zero and
@@ -3569,6 +3598,407 @@ def ladder_phase(dev, smi):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: training
+# ---------------------------------------------------------------------------
+
+# (a): qwen2.5-3b at full width and depth through launch.train.run.
+TRAIN_STEPS = 16
+TRAIN_BATCH = 4
+TRAIN_SEQ = 512
+TRAIN_MEDIAN_FROM = 2            # the median step over steps 3-16
+# (b)-(d): the same architecture cut to 8 layers at full width, in f32.
+TRAIN_CUT = dict(n_layers=8, dtype="float32")
+# (e): the reduced architectures stepped on the card and on the CPU.
+TRAIN_PARITY = ("qwen2.5-3b", "jamba-1.5-large-398b", "xlstm-1.3b")
+
+
+def _all_counters():
+    """(reset, counts) over every kernel library's launch counter."""
+    from repro_torch.kernels.dataplane import ops as dp_ops
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mlstm import ops as ml_ops
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.slot_solver import ops as sl_ops
+    mods = (sl_ops, fa_ops, dec_ops, ml_ops, ss_ops, dp_ops)
+
+    def reset():
+        for m in mods:
+            m.reset_launches()
+
+    def counts():
+        return {k: v for m in mods for k, v in m.launches.items()}
+    return reset, counts
+
+
+def _tree_close(name, got, want, rtol, atol=0.0):
+    """Max |got - want| over the leaves against atol + rtol x each leaf's
+    max |want|; raises past it. Returns the largest error."""
+    from repro_torch.models.common import tree_leaves
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        err = float((a.float() - b.float()).abs().max())
+        bar = atol + rtol * float(b.float().abs().max())
+        if not err <= bar:
+            raise AssertionError(f"{name}: a leaf differs by {err:.3e} "
+                                 f"(bar {bar:.3e})")
+        worst = max(worst, err)
+    return worst
+
+
+def train_full_width(dev, smi):
+    """(a) qwen2.5-3b, 36 layers at full width, bf16 parameters, f32 AdamW
+    state, remat="full", TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+    tokens from the Zipf pipeline, through launch.train.run; no kernel may
+    launch (the trainer runs the plain versions, as repro's does)."""
+    import math
+    import statistics as st
+
+    import torch
+    from repro_torch import configs, models
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.launch import roofline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as ts_mod
+    cfg = configs.get("qwen2.5-3b")
+    reset, counts = _all_counters()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # The optimizer's share of a step: each update timed between two
+    # synchronisations (one more host wait a step than the step has).
+    real_update, update_s = opt_mod.update, []
+
+    def timed_update(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = real_update(*a, **k)
+        torch.cuda.synchronize()
+        update_s.append(time.perf_counter() - t)
+        return r
+    reset()
+    t0 = time.perf_counter()
+    opt_mod.update = timed_update
+    try:
+        out = train_mod.run(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                            seq=TRAIN_SEQ, log_every=0, device=dev)
+    finally:
+        opt_mod.update = real_update
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in tree_leaves(out["params"]))
+    log(f"  (a) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}; {n_params / 1e9:.4f} B parameters in "
+        f"{cfg.dtype}, AdamW state float32, remat {cfg.remat}; "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+        f"{wall:.2f} s")
+    for i, (loss, gn, s, u) in enumerate(zip(
+            out["losses"], out["grad_norms"], out["step_s"], update_s)):
+        log(f"    step {i:2d}: loss {loss:.6f}, grad norm {gn:.6f}, "
+            f"{1e3 * s:.2f} ms (AdamW update {1e3 * u:.2f} ms)")
+    med = st.median(out["step_s"][TRAIN_MEDIAN_FROM:])
+    med_update = st.median(update_s[TRAIN_MEDIAN_FROM:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    shape = configs.InputShape("phase11", TRAIN_SEQ, TRAIN_BATCH, "train")
+    flops = roofline.model_flops(cfg, shape)
+    mfu = flops / (med * roofline.PEAK_FLOPS_BF16)
+    first = sum(out["losses"][:4]) / 4
+    last = sum(out["losses"][-4:]) / 4
+    res = dict(params=n_params, step_ms=[1e3 * s for s in out["step_s"]],
+               losses=out["losses"], grad_norms=out["grad_norms"],
+               median_step_ms=1e3 * med, tokens_per_s=tokens / med,
+               median_update_ms=1e3 * med_update,
+               peak_gb=peak_gb, model_flops=flops, mfu=mfu,
+               first4=first, last4=last, launches=launches, card=smi)
+    log(f"  (a) median step (steps {TRAIN_MEDIAN_FROM + 1}-{TRAIN_STEPS}) "
+        f"{1e3 * med:.2f} ms (AdamW update {1e3 * med_update:.2f} ms, "
+        f"{med_update / med:.4f} of it), {tokens / med:,.1f} tokens/s, "
+        "peak device "
+        f"memory {peak_gb:.2f} GB, model FLOPs {flops:.4e} a step "
+        f"(6ND), MFU {mfu:.4f} of {roofline.PEAK_FLOPS_BF16:.3g} FLOP/s "
+        f"bf16 ({smi}); mean loss of the first 4 steps {first:.6f}, of the "
+        f"last 4 {last:.6f}; launches {launches}")
+    if not all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]):
+        raise AssertionError("training: a loss or grad norm is not finite")
+    if not last < first:
+        raise AssertionError(f"training: the last 4 losses ({last:.6f}) "
+                             f"are not below the first 4 ({first:.6f})")
+    if any(launches.values()):
+        raise AssertionError(f"training launched kernels: {launches}")
+    # Where a step's time goes: one more step of the trained state,
+    # profiled (device time by kernel, the device's busy share).
+    step_fn = ts_mod.make_train_step(
+        models.build(cfg, impl="torch"),
+        dataclasses.replace(opt_mod.AdamWConfig(), total_steps=TRAIN_STEPS),
+        donate=True)
+    pipe = TokenPipeline(PipelineConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH))
+    batch = train_mod.device_batch(pipe, cfg, TRAIN_STEPS, TRAIN_SEQ, dev)
+    state = [out["params"], out["opt_state"]]
+
+    def one_step():
+        state[0], state[1], m = step_fn(state[0], state[1], batch)
+        float(m["loss"])
+    wall, busy = profile_slot(one_step, "one train step (qwen2.5-3b, full "
+                              "width)", watch=("gemm", "nvjet",
+                                               "elementwise", "reduce"))
+    res.update(profiled_step_ms=1e3 * wall, device_busy_ms=busy)
+    del out, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_cut(dev):
+    """(b)-(d) on qwen2.5-3b cut to 8 layers at full width in f32: one step
+    with 2 microbatches against 1; loss and gradients under the three remat
+    policies and their peak memory; the eval step with the kernels against
+    the plain one, and the repair's refusal."""
+    import torch
+    from repro_torch import configs, models
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as ts_mod
+    cfg = dataclasses.replace(configs.get("qwen2.5-3b"), **TRAIN_CUT)
+    plain = models.build(cfg, impl="torch")
+    params = models.common.init_params(
+        plain.template(), torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    pipe = TokenPipeline(PipelineConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
+                                        seed=0))
+    batch = train_mod.device_batch(pipe, cfg, 0, TRAIN_SEQ, dev)
+    ocfg = opt_mod.AdamWConfig(lr=1e-3)
+    res = {}
+
+    # (b) microbatch accumulation (tests/test_training.py's bars).
+    steps = {}
+    for n in (1, 2):
+        p0 = tree_map(lambda t: t.clone(), params)
+        t0 = time.perf_counter()
+        steps[n] = ts_mod.make_train_step(plain, ocfg, n_microbatches=n)(
+            p0, opt_mod.init(p0, ocfg), batch)
+        torch.cuda.synchronize()
+        log(f"  (b) {cfg.n_layers} of 36 layers, f32, remat {cfg.remat}: "
+            f"one step at {n} microbatch(es): loss "
+            f"{float(steps[n][2]['loss']):.7f}, grad norm "
+            f"{float(steps[n][2]['grad_norm']):.6f}, "
+            f"{time.perf_counter() - t0:.2f} s")
+    l1, l2 = float(steps[1][2]["loss"]), float(steps[2][2]["loss"])
+    rel = abs(l2 - l1) / abs(l1)
+    perr = _tree_close("microbatches: parameters after the step",
+                       steps[2][0], steps[1][0], rtol=0.0, atol=2e-5)
+    log(f"  (b) 2 microbatches against 1: loss rel {rel:.3e} (bar 1e-4), "
+        f"parameters max abs {perr:.3e} (bar 2e-5)")
+    if rel > 1e-4:
+        raise AssertionError("microbatches: loss outside 1e-4 relative")
+    trained = steps[1][0]
+    del steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["microbatch"] = dict(loss_rel=rel, param_max_abs=perr)
+
+    # (c) remat: the same loss and gradients, less memory kept.
+    out, peaks = {}, {}
+    for remat in ("none", "dots", "full"):
+        model = models.build(dataclasses.replace(cfg, remat=remat),
+                             impl="torch")
+        gp = tree_map(lambda t: t.detach().requires_grad_(True), trained)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = model.loss(gp, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(gp))
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        out[remat] = (loss.detach(), grads)
+        log(f"  (c) remat {remat}: loss {float(loss.detach()):.7f}, loss + "
+            "backward "
+            f"{time.perf_counter() - t0:.2f} s, peak above the parameters "
+            f"{peaks[remat]:.3f} GB")
+        del gp, loss, grads
+    worst = {}
+    for remat in ("dots", "full"):
+        if not torch.equal(out[remat][0], out["none"][0]):
+            raise AssertionError(f"remat {remat}: loss differs from none")
+        worst[remat] = _tree_close(
+            f"remat {remat}: gradients", dict(enumerate(out[remat][1])),
+            dict(enumerate(out["none"][1])), rtol=1e-6)
+    log(f"  (c) losses bitwise; gradients max abs diff against none: "
+        f"dots {worst['dots']:.3e}, full {worst['full']:.3e} (bar 1e-6 x "
+        "each leaf's max |g|)")
+    if not peaks["none"] > peaks["dots"] > peaks["full"]:
+        raise AssertionError(f"remat: peak memory does not fall from none "
+                             f"to dots to full: {peaks}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["remat"] = dict(peak_gb=peaks, max_grad_diff=worst)
+
+    # (d) the eval step on the kernels, and the repair's refusal.
+    reset, counts = _all_counters()
+    auto = models.build(cfg)
+    reset()
+    t0 = time.perf_counter()
+    got = ts_mod.make_eval_step(auto)(trained, batch)
+    torch.cuda.synchronize()
+    t_auto = time.perf_counter() - t0
+    launches = counts()
+    t0 = time.perf_counter()
+    want = ts_mod.make_eval_step(plain)(trained, batch)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    rel = abs(float(got) - float(want)) / abs(float(want))
+    log(f"  (d) eval step impl='auto' {float(got):.7f} ({t_auto:.3f} s) "
+        f"against impl='torch' {float(want):.7f} ({t_plain:.3f} s): rel "
+        f"{rel:.3e} (bar 1e-5); launches {launches}")
+    if rel > 1e-5:
+        raise AssertionError("eval step: kernels outside 1e-5 relative")
+    want_launches = {k: 0 for k in launches}
+    want_launches["flash_attention"] = cfg.n_layers
+    _need_exact("eval step", launches, want_launches)
+    gp = tree_map(lambda t: t.detach().requires_grad_(True), trained)
+    try:
+        auto.loss(gp, batch)
+    except RuntimeError as e:
+        if 'impl="torch"' not in str(e):
+            raise
+        log(f"  (d) loss with impl='auto' under grad refused: {e}")
+    else:
+        raise AssertionError("a loss through the kernels under grad was "
+                             "not refused")
+    res["eval"] = dict(rel=rel, launches=launches, auto_s=t_auto,
+                       plain_s=t_plain)
+    del gp, trained, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_parity(dev):
+    """(e) one make_train_step step of each TRAIN_PARITY architecture at
+    reduced() on the card against the same step on the CPU: loss within
+    1e-5 relative, parameters within atol 2e-5."""
+    import torch
+    from repro_torch import configs, models
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.common import tree_map
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as ts_mod
+    res = {}
+    for name in TRAIN_PARITY:
+        cfg = configs.get(name).reduced()
+        model = models.build(cfg, impl="torch")
+        p_cpu = models.common.init_params(
+            model.template(), torch.Generator().manual_seed(0), device="cpu")
+        pipe = TokenPipeline(PipelineConfig(cfg.vocab, 32, 2, seed=0))
+        ocfg = opt_mod.AdamWConfig(lr=1e-3)
+        out = {}
+        for d in ("cpu", dev):
+            p = tree_map(lambda t: t.to(d), p_cpu)
+            out[str(d)] = ts_mod.make_train_step(model, ocfg)(
+                p, opt_mod.init(p, ocfg),
+                train_mod.device_batch(pipe, cfg, 0, 32, d))
+        card = out[str(dev)]
+        lc, lg = float(out["cpu"][2]["loss"]), float(card[2]["loss"])
+        rel = abs(lg - lc) / abs(lc)
+        perr = _tree_close(f"{name} card against CPU: parameters",
+                           tree_map(lambda t: t.cpu(), card[0]),
+                           out["cpu"][0], rtol=0.0, atol=2e-5)
+        log(f"  (e) {name} reduced: loss card {lg:.7f} CPU {lc:.7f} rel "
+            f"{rel:.3e} (bar 1e-5), parameters max abs {perr:.3e} (bar "
+            "2e-5)")
+        if rel > 1e-5:
+            raise AssertionError(f"{name}: card loss outside 1e-5 of CPU")
+        res[name] = dict(loss_rel=rel, param_max_abs=perr)
+    return res
+
+
+class _StopAfterSave(Exception):
+    """Raised after the first checkpoint of a run, as a crash would."""
+
+
+def train_resume(dev):
+    """(f) reduced qwen2.5-3b: run(steps=6) against run(steps=6,
+    ckpt_every=3) stopped after its first save, then run(steps=6,
+    resume=True), in a temporary directory removed afterwards; steps 3-5's
+    losses and the final parameters within 1e-6 relative, and a corrupted
+    leaf refused on restore."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.launch import train as train_mod
+    from repro_torch.training import checkpoint as ckpt
+    cfg = configs.get("qwen2.5-3b").reduced()
+    kw = dict(steps=6, batch=4, seq=64, log_every=0, device=dev)
+    whole = train_mod.run(cfg, **kw)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    real_save = ckpt.save
+
+    def save_then_stop(*a, **k):
+        real_save(*a, **k)
+        raise _StopAfterSave
+    try:
+        ckpt.save = save_then_stop
+        try:
+            train_mod.run(cfg, ckpt_dir=tmp, ckpt_every=3, **kw)
+        except _StopAfterSave:
+            pass
+        else:
+            raise AssertionError("resume: the run did not save at step 3")
+        ckpt.save = real_save
+        if ckpt.latest_step(tmp) != 3:
+            raise AssertionError("resume: no checkpoint at step 3")
+        resumed = train_mod.run(cfg, ckpt_dir=tmp, ckpt_every=3,
+                                resume=True, **kw)
+        errs = [abs(a - b) / abs(b) for a, b in
+                zip(resumed["losses"], whole["losses"][3:])]
+        perr = _tree_close("resume: final parameters", resumed["params"],
+                           whole["params"], rtol=1e-6)
+        log(f"  (f) resumed at step 3: losses of steps 3-5 "
+            f"{resumed['losses']} against {whole['losses'][3:]} (max rel "
+            f"{max(errs):.3e}, bar 1e-6); final parameters max abs diff "
+            f"{perr:.3e} (bar 1e-6 x each leaf's max)")
+        if len(errs) != 3 or max(errs) > 1e-6:
+            raise AssertionError("resume: losses after the restart differ")
+        d = Path(tmp) / "step_000000006"
+        leaf = d / "leaf_00000.npy"
+        data = bytearray(leaf.read_bytes())
+        data[-1] ^= 0xFF
+        leaf.write_bytes(bytes(data))
+        try:
+            ckpt.restore(tmp, (whole["params"], whole["opt_state"]),
+                         device=dev)
+        except IOError as e:
+            log(f"  (f) a corrupted leaf refused on restore: {e}")
+        else:
+            raise AssertionError("resume: a corrupted leaf was restored")
+    finally:
+        ckpt.save = real_save
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(loss_rel=max(errs), param_max_abs=perr)
+
+
+def training_phase(dev, smi):
+    """Phase 11: (a)-(f) of the docstring. Returns their results."""
+    t_phase = time.perf_counter()
+    res = {"full": train_full_width(dev, smi)}
+    res.update(train_cut(dev))
+    res["parity"] = train_parity(dev)
+    res["resume"] = train_resume(dev)
+    log(f"  phase 11 {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3861,6 +4291,15 @@ def main() -> int:
         "minicpm3-4b, llama-3.2-vision-11b, seamless-m4t-large-v2)")
     ladder = ladder_phase(dev, smi)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== phase 11 (at {time.perf_counter() - t_start:.0f} s): training "
+        "(qwen2.5-3b at full width through launch.train; microbatches, "
+        "remat, the eval step and the kernels' refusal under grad on 8 "
+        "layers; card against CPU; resume); "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+    training = training_phase(dev, smi)
+
     for module in ("repro_torch.obs", "repro_torch.obs.report",
                    "repro_torch.training.failure",
                    "repro_torch.launch.serve",
@@ -3868,7 +4307,12 @@ def main() -> int:
                    "repro_torch.serving.service",
                    "repro_torch.serving.replay",
                    "repro_torch.serving.tick_plane",
-                   "repro_torch.core.threefry"):
+                   "repro_torch.core.threefry",
+                   "repro_torch.data.pipeline",
+                   "repro_torch.launch.train",
+                   "repro_torch.launch.roofline",
+                   "repro_torch.training.checkpoint",
+                   "repro_torch.training.train_step"):
         if module not in sys.modules:
             raise AssertionError(f"{module} was not imported")
     if "jax" in sys.modules or any(m.split(".")[0] == "repro"
@@ -4008,6 +4452,12 @@ def main() -> int:
         f"N={CHECK_WINDOW[1]} F={CHECK_WINDOW[2]} f64 (a sweep cell's "
         f"window), tick_scan at S={CHECK_EPOCH[0]} F={CHECK_EPOCH[1]} "
         "(the engine rung's shortest epoch)")
+    # Phase 11: the launches of the training run (a), none since the
+    # trainer runs the plain versions as repro's does, and of the eval
+    # step (d), flash_attention once per layer.
+    for k in kernels:
+        k["training_launches"] = training["full"]["launches"][k["name"]]
+        k["eval_launches"] = training["eval"]["launches"][k["name"]]
     log(f"  chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
         "build included")
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,9 @@
 ``impl`` is ``"auto"`` (the CUDA kernel for CUDA tensors, the plain
 version for CPU tensors) or ``"torch"`` (the plain version on any device:
 the comparison runs on the card use it). There is no fallback from the
-kernel to the plain version.
+kernel to the plain version. The kernels have no backward pass: under
+autograd, a launch on an operand that requires grad raises
+(``refuse_grad``) instead of returning a result with no ``grad_fn``.
 """
 from __future__ import annotations
 
@@ -31,6 +33,23 @@ def use_kernel(impl: str, *tensors: torch.Tensor) -> bool:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"attention: unsupported device {dev}")
     return impl == "auto" and dev.type == "cuda"
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a kernel would launch on operands that autograd tracks.
+    The kernels write their outputs through ctypes into fresh tensors, so
+    a result would carry no ``grad_fn`` and a loss taken through it would
+    silently lose every gradient that flows through the kernel. Training
+    runs the plain versions (``impl="torch"``), which are differentiable;
+    serving runs under ``torch.no_grad()``, where nothing is refused."""
+    if not torch.is_grad_enabled():
+        return
+    if any(t is not None and t.is_floating_point() and t.requires_grad
+           for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward pass and an operand "
+            "requires grad; use impl=\"torch\" (the differentiable plain "
+            "version) to train, or run under torch.no_grad()")
 
 
 def check_head_dim(d: int) -> None:

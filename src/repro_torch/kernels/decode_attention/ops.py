@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from ..attention_common import check_head_dim, check_operands, use_kernel
+from ..attention_common import (check_head_dim, check_operands,
+                                refuse_grad, use_kernel)
 from . import kernel, ref
 
 launches = {"flash_decode": 0}
@@ -29,6 +30,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
     [b, h, d] in q's dtype."""
     if not use_kernel(impl, q, k_cache, v_cache, kv_len):
         return ref.decode_ref(q, k_cache, v_cache, kv_len)
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     if (q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape
             or kv_len.shape != (q.shape[0],)):
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)}, "

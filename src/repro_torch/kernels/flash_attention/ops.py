@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..attention_common import (check_head_dim, check_impl, check_operands,
-                                use_kernel)
+                                refuse_grad, use_kernel)
 from . import kernel, ref
 
 launches = {"flash_attention": 0}
@@ -37,6 +37,7 @@ def attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     if kv_len is not None or not use_kernel(impl, q, k, v):
         return ref.mha_ref(q, k, v, causal=causal, scale=scale,
                            q_offset=q_offset, kv_len=kv_len)
+    refuse_grad("attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"attention: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")

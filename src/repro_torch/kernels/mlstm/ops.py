@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..attention_common import check_operands, use_kernel
+from ..attention_common import check_operands, refuse_grad, use_kernel
 from . import kernel, ref
 
 launches = {"mlstm_chunkwise": 0}
@@ -38,6 +38,7 @@ def mlstm(q, k, v, i_gate, f_gate, *, impl: str = "auto") -> torch.Tensor:
     [b, s, h, d] in q's dtype. See ``ref.mlstm_parallel_ref``."""
     if not use_kernel(impl, q, k, v, i_gate, f_gate):
         return ref.mlstm_parallel_ref(q, k, v, i_gate, f_gate)
+    refuse_grad("mlstm", q, k, v, i_gate, f_gate)
     if (q.dim() != 4 or k.shape != q.shape or v.shape != q.shape
             or i_gate.shape != q.shape[:3] or f_gate.shape != q.shape[:3]):
         raise ValueError(f"mlstm: shapes q {tuple(q.shape)}, k "

@@ -119,3 +119,66 @@ def mlstm_final_state(k, v, i_gate, f_gate):
     C = torch.matmul(wv, kp.permute(0, 2, 1, 3))               # [b, h, d, d]
     n = torch.einsum("bsh,bshd->bhd", w, kp)
     return C, n, m
+
+
+def mlstm_chunkwise_xla(q, k, v, i_gate, f_gate, chunk: int = 256):
+    """The chunkwise-parallel mLSTM in plain PyTorch: the JAX package's
+    ``mlstm_chunkwise_xla`` (its ``mlstm_impl="chunkwise"``), with its
+    operation order. The parallel form within each chunk of ``chunk``
+    tokens, and the running state (C, n, m) carried from chunk to chunk
+    (a Python loop where the JAX package scans), entering each query with
+    the decay exp(F_t + m0). s * (chunk + 2 d) work per head instead of
+    s^2, and a [chunk, chunk] decay matrix at most. A sequence that is no
+    multiple of ``chunk``, or no longer than one chunk, takes
+    ``mlstm_parallel_ref``, as in the JAX package. Same shapes as
+    ``mlstm_parallel_ref``; differentiable (no in-place op)."""
+    b, s, h, d = q.shape
+    if s % chunk != 0 or s <= chunk:
+        return mlstm_parallel_ref(q, k, v, i_gate, f_gate)
+    scale = d ** -0.5
+    logf = F.logsigmoid(f_gate.float())
+    logi = i_gate.float()
+    tpos = torch.arange(chunk, device=q.device)
+    causal = tpos[:, None] >= tpos[None, :]
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
+
+    C0 = torch.zeros((b, h, d, d), dtype=torch.float32, device=q.device)
+    n0 = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
+    m0 = torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device)
+    outs = []
+    for c in range(s // chunk):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        lf, li = logf[:, rows], logi[:, rows]                 # [b, L, h]
+        cum = torch.cumsum(lf, dim=1)
+        # Intra-chunk decay, and the carried state's decay F_t + m0.
+        dtil = cum[:, :, None, :] - cum[:, None, :, :] + li[:, None, :, :]
+        dtil = torch.where(causal[None, :, :, None], dtil, neg)
+        m_intra = torch.amax(dtil, dim=2)                     # [b, t, h]
+        m_inter = cum + m0[:, None, :]
+        m_t = torch.maximum(m_intra, m_inter)
+
+        qf = q[:, rows].float()
+        kf = k[:, rows].float() * scale
+        vf = v[:, rows].float()
+        S = torch.einsum("bthd,bshd->btsh", qf, kf) * \
+            torch.exp(dtil - m_t[:, :, None, :])
+        num = torch.einsum("btsh,bshd->bthd", S, vf)
+        den = torch.sum(S, dim=2)
+        qw = qf * torch.exp(m_inter - m_t)[..., None]
+        # C0[d, e] = v_d k'_e: the query contracts the key index (e).
+        num = num + torch.einsum("bthe,bhde->bthd", qw, C0)
+        den = den + torch.einsum("bthd,bhd->bth", qw, n0)
+        out = num / torch.maximum(torch.abs(den), torch.exp(-m_t))[..., None]
+        outs.append(out.to(q.dtype))
+
+        # The state at the chunk's end (position chunk - 1).
+        fc = cum[:, -1, :]                                    # [b, h]
+        m1 = torch.maximum(fc + m0, torch.amax(fc[:, None, :] - cum + li,
+                                               dim=1))
+        wv = torch.exp(fc[:, None, :] - cum + li - m1[:, None, :])
+        carry = torch.exp(fc + m0 - m1)
+        C0 = C0 * carry[..., None, None] + torch.einsum(
+            "bshd,bshe->bhde", wv[..., None] * vf, kf)
+        n0 = n0 * carry[..., None] + torch.einsum("bsh,bshd->bhd", wv, kf)
+        m0 = m1
+    return torch.cat(outs, dim=1)

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from ..attention_common import DTYPES, check_operands, use_kernel
+from ..attention_common import (DTYPES, check_operands, refuse_grad,
+                                use_kernel)
 from . import kernel, ref
 
 launches = {"selective_scan": 0}
@@ -40,6 +41,7 @@ def selective_scan(x, dt, A, B, C, D, h0=None, *, impl: str = "auto"):
     tensors = [x, dt, A, B, C, D] + ([] if h0 is None else [h0])
     if not use_kernel(impl, *tensors):
         return ref.selective_scan_ref(x, dt, A, B, C, D, h0)
+    refuse_grad("selective_scan", *tensors)
     if x.dim() != 3 or A.dim() != 2:
         raise ValueError(f"selective_scan: shapes x {tuple(x.shape)}, A "
                          f"{tuple(A.shape)}")

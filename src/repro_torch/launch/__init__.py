@@ -1,2 +1,3 @@
-"""Command-line entry points of the port. Only ``serve`` (the
-LBCD-controlled analytics service) is ported."""
+"""Command-line entry points of the port: ``serve`` (the LBCD-controlled
+analytics service), ``train`` (the training launcher) and ``roofline``'s
+analytic half (active parameters, model FLOPs)."""

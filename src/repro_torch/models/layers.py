@@ -1,5 +1,5 @@
 """Primitive layers: RMS and layer norms, rotary embeddings, SwiGLU and
-GELU MLPs, embeddings.
+GELU MLPs, embeddings, and the training loss (``softmax_xent``).
 
 Dtypes follow the JAX package's promotion: the norms compute in f32
 and return their input's dtype, and a product of a bf16 activation with an
@@ -114,3 +114,27 @@ def unembed_template(d: int, vocab: int):
 
 def unembed(params, x: torch.Tensor) -> torch.Tensor:
     return einsum("...d,dv->...v", x, params["w"])
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 vocab_real: int, z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean per-token cross-entropy with padded-vocabulary masking and a
+    z-loss (``z_loss * logz**2``), in f32.
+
+    ``vocab_real``: the true vocabulary size; logit columns at or beyond it
+    (padding for divisibility) are set to -1e30 before the logsumexp, as
+    the JAX package masks them (in the logits' dtype, then cast to
+    f32)."""
+    v = logits.shape[-1]
+    if vocab_real < v:
+        mask = torch.arange(v, device=logits.device) < vocab_real
+        logits = torch.where(mask, logits,
+                             torch.tensor(-1e30, dtype=logits.dtype,
+                                          device=logits.device))
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
+    loss = logz - ll
+    if z_loss:
+        loss = loss + z_loss * torch.square(logz)
+    return torch.mean(loss)

@@ -8,6 +8,7 @@ tree passed to every call, not module state.
 
     template() / cache_template()      -> P-trees (see models.common)
     forward(params, batch)             -> (logits, aux)
+    loss(params, batch)                -> scalar (cross-entropy + 0.01 aux)
     prefill(params, batch, cache)      -> (last_logits [b, 1, V], cache)
     decode_step(params, tokens, cache) -> (logits [b, V], cache)
 
@@ -33,12 +34,22 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..kernels.attention_common import check_impl
 from .common import P, count_params, stack_template
-from .layers import (einsum, embed, embedding_template, unembed,
-                     unembed_template)
+from .layers import (einsum, embed, embedding_template, softmax_xent,
+                     unembed, unembed_template)
 from .transformer import (block_cache_template, block_template, layout,
                           norm, norm_template, stack_apply, stack_decode)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# The mLSTM prefill mixer's plain forms (the JAX package's ``mlstm_impl``
+# values that run no kernel): "ref", the parallel form (or, under
+# impl="auto" on the card, the kernel of the same function), and
+# "chunkwise", ``mlstm_chunkwise_xla``.
+MLSTM_IMPLS = ("ref", "chunkwise")
+
+
+def _check_mlstm_impl(mlstm_impl: str) -> None:
+    if mlstm_impl not in MLSTM_IMPLS:
+        raise ValueError(f"mlstm_impl={mlstm_impl!r} not in {MLSTM_IMPLS}")
 
 
 def _stacked_block_template(cfg, period, n_periods, ep_pad):
@@ -68,10 +79,13 @@ class TransformerLM(nn.Module):
     padded as the reference pads them for an expert-parallel degree of
     1."""
 
-    def __init__(self, cfg: ModelConfig, impl: str = "auto"):
+    def __init__(self, cfg: ModelConfig, impl: str = "auto",
+                 mlstm_impl: str = "ref"):
         super().__init__()
+        _check_mlstm_impl(mlstm_impl)
         self.cfg = cfg
         self.impl = impl
+        self.mlstm_impl = mlstm_impl
         self.period, self.n_periods = layout(cfg)
         self.dtype = DTYPES[cfg.dtype]
         self.ep_pad = cfg.padded_experts(1) or None
@@ -111,8 +125,15 @@ class TransformerLM(nn.Module):
         x = embed(params["embed"], batch["tokens"]).to(self.dtype)
         x, _, aux = stack_apply(params["blocks"], x, self.cfg, self.period,
                                 kv_embeds=self._vision(batch),
-                                impl=self.impl)
+                                impl=self.impl, mlstm_impl=self.mlstm_impl)
         return self._logits(params, x), aux
+
+    def loss(self, params, batch):
+        """Cross-entropy over the real vocabulary (``batch["labels"]``)
+        plus 0.01 times the MoE layers' load-balancing loss."""
+        logits, aux = self.forward(params, batch)
+        return softmax_xent(logits, batch["labels"], self.cfg.vocab) \
+            + 0.01 * aux
 
     def prefill(self, params, batch, cache):
         """Prefill ``batch["tokens"]`` [b, s] into ``cache`` (written in
@@ -124,7 +145,9 @@ class TransformerLM(nn.Module):
         x, blocks, _ = stack_apply(params["blocks"], x, self.cfg,
                                    self.period,
                                    kv_embeds=self._vision(batch),
-                                   impl=self.impl, caches=cache["blocks"])
+                                   impl=self.impl,
+                                   mlstm_impl=self.mlstm_impl,
+                                   caches=cache["blocks"])
         new_cache = {"blocks": blocks,
                      "len": torch.full_like(cache["len"], tokens.shape[1])}
         return self._logits(params, x[:, -1:]), new_cache
@@ -202,6 +225,14 @@ class EncDecLM(nn.Module):
                                 impl=self.impl)
         return self._logits(params, x), aux
 
+    def loss(self, params, batch):
+        """Cross-entropy over the real vocabulary (``batch["labels"]``)
+        plus 0.01 times the aux loss (0: the encoder-decoder has no
+        MoE)."""
+        logits, aux = self.forward(params, batch)
+        return softmax_xent(logits, batch["labels"], self.cfg.vocab) \
+            + 0.01 * aux
+
     def prefill(self, params, batch, cache):
         """Encode ``batch["audio_embeds"]``, then prefill ``batch["tokens"]``
         [b, s] into ``cache`` (in place: the self-attention caches at
@@ -229,13 +260,18 @@ class EncDecLM(nn.Module):
         return self._logits(params, x)[:, 0], new_cache
 
 
-def build(cfg: ModelConfig, impl: str = "auto"):
+def build(cfg: ModelConfig, impl: str = "auto", mlstm_impl: str = "ref"):
     """The model of ``cfg``: an ``EncDecLM`` when it has encoder layers,
     else a ``TransformerLM``. ``impl`` picks the path of the kernels
     (attention, the mLSTM's prefill and the Mamba layers' selective scan):
     ``auto`` (the CUDA kernels on CUDA tensors, the plain versions on CPU
-    ones) or ``torch`` (the plain versions on any device)."""
+    ones) or ``torch`` (the plain versions on any device). The kernels
+    have no backward pass: train with ``impl="torch"``. ``mlstm_impl``
+    (``MLSTM_IMPLS``) is the JAX package's argument of that name:
+    ``"chunkwise"`` runs the mLSTM prefill as ``mlstm_chunkwise_xla``
+    whatever ``impl`` is."""
     check_impl(impl)
+    _check_mlstm_impl(mlstm_impl)
     if cfg.enc_layers:
         return EncDecLM(cfg, impl=impl)
-    return TransformerLM(cfg, impl=impl)
+    return TransformerLM(cfg, impl=impl, mlstm_impl=mlstm_impl)

@@ -8,12 +8,19 @@ repeated n_periods times; its parameters and caches are stacked along a
 leading LAYERS dim. The JAX package drives the stack with ``lax.scan`` (or
 unrolls it at <= 2 periods); here it is a Python loop over the periods,
 which computes the same thing. Caches are written in place.
+
+Under autograd each period body is rematerialised as the config's
+``remat`` says (``_remat``), as the JAX package wraps its scan body in
+``jax.checkpoint``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from . import attention as attn_mod
@@ -21,15 +28,12 @@ from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
+from .common import tree_leaves
 from .layers import (gelu_mlp, gelu_mlp_template, layernorm,
                      layernorm_template, rmsnorm, rmsnorm_template, swiglu,
                      swiglu_template)
 
-
-def remat_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "rematerialisation for training is not ported yet (run under "
-        "torch.no_grad() to serve): ROADMAP queue 1 entry 5 (training)")
+REMATS = ("none", "full", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,7 +180,8 @@ def _ffn(params, x, cfg, spec: LayerSpec, *, decode: bool = False):
 
 
 def block_apply(params, x, cfg, spec: LayerSpec, *, causal: bool = True,
-                kv_embeds=None, impl: str = "auto", cache=None):
+                kv_embeds=None, impl: str = "auto", mlstm_impl: str = "ref",
+                cache=None):
     """Full-sequence block (training, or prefill when ``cache`` is given;
     the prefill writes the cache in place). ``causal=False`` is the
     encoder's self-attention; ``kv_embeds`` [b, t, d] is the source of the
@@ -205,7 +210,7 @@ def block_apply(params, x, cfg, spec: LayerSpec, *, causal: bool = True,
             state=None if cache is None else cache["state"])
     elif spec.mixer == "mlstm":
         out = xlstm_mod.mlstm_apply(
-            params["mixer"], h, cfg, impl=impl,
+            params["mixer"], h, cfg, impl=impl, mlstm_impl=mlstm_impl,
             state=None if cache is None else cache["state"])
     else:
         out = xlstm_mod.slstm_apply(
@@ -260,44 +265,115 @@ def block_decode(params, x, cfg, spec: LayerSpec, cache, lens, *,
 
 
 def _period(tree, li: int):
-    """Period ``li`` of a stacked tree: a view of every leaf's row li."""
+    """Period ``li`` of a stacked cache: a view of every leaf's row li
+    (written in place; a view of ``_periods`` may not be, under
+    autograd)."""
     if isinstance(tree, dict):
         return {k: _period(v, li) for k, v in tree.items()}
     return tree[li]
 
 
-def _n_periods(stacked) -> int:
-    while isinstance(stacked, dict):
-        stacked = next(iter(stacked.values()))
-    return stacked.shape[0]
+def _periods(tree) -> list:
+    """Every period of a stacked parameter tree, each leaf unbound along
+    its leading dim once. Under autograd one unbind per leaf gathers the
+    periods' gradients with a single stack, where indexing each period
+    apart (``_period``) would add a zero-filled gradient of the whole
+    stacked leaf per period."""
+    if isinstance(tree, dict):
+        parts = {k: _periods(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[li] for k, v in parts.items()} for li in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+# The matrix products that the "dots" policy may keep. torch.einsum and
+# torch.matmul are composite ops: below autograd, where the policy sees
+# them, they arrive as these.
+_PRODUCTS = frozenset(getattr(torch.ops.aten, name).default for name in
+                      ("mm", "bmm", "addmm", "baddbmm", "mv", "dot"))
+
+
+def _dots_policy(weights: frozenset, ctx, op, *args, **kwargs):
+    """Keep a product's output when one of its operands is a weight;
+    recompute everything else in the backward pass.
+
+    The counterpart of ``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``. The op's name cannot tell the two
+    kinds of product apart here: the port's ``einsum`` reaches ``bmm`` for
+    a weight product (``bsd,df->bsf``) as for attention's scores
+    (``bthd,bshd->btsh``). So an operand counts as a weight when its
+    storage is the storage of a parameter leaf of the stack (``weights``:
+    the parameters' storage addresses): einsum hands a weight to the
+    product as a view or reshape of the parameter, never as a copy, where
+    the parameter already has the product's dtype. Products of two
+    activations (attention's scores and values, the mLSTM's) are
+    recomputed. Unlike JAX's policy, a weight product with a batch dim
+    (the MoE's per-expert and the mLSTM's per-head projections) is kept
+    too."""
+    if op in _PRODUCTS and any(
+            isinstance(a, torch.Tensor)
+            and a.untyped_storage().data_ptr() in weights for a in args):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg, stacked):
+    """``fn`` (one period's body) under the config's rematerialisation
+    policy: ``"none"`` keeps every activation for the backward pass,
+    ``"full"`` keeps only the period's inputs and recomputes the body,
+    ``"dots"`` keeps the outputs of weight products as well
+    (``_dots_policy``). Gradients are the same under all three. Nothing
+    in the forward pass draws random numbers, so no RNG state is kept."""
+    if cfg.remat not in REMATS:
+        raise ValueError(f"remat={cfg.remat!r} not in {REMATS}")
+    if cfg.remat == "none":
+        return fn
+    kw = {"use_reentrant": False, "preserve_rng_state": False}
+    if cfg.remat == "dots":
+        weights = frozenset(t.untyped_storage().data_ptr()
+                            for t in tree_leaves(stacked))
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(_dots_policy, weights))
+    return functools.partial(checkpoint, fn, **kw)
 
 
 def stack_apply(stacked, x, cfg, period, *, causal: bool = True,
-                kv_embeds=None, impl: str = "auto", caches=None):
+                kv_embeds=None, impl: str = "auto", mlstm_impl: str = "ref",
+                caches=None):
     """Run the period stack. ``stacked``/``caches``: {"p{i}": tree} with a
     leading n_periods dim on every leaf; caches are written in place.
-    Returns (x, caches, aux), aux the sum of the MoE layers' losses."""
-    if cfg.remat != "none" and torch.is_grad_enabled():
-        # Rematerialisation only changes what a backward pass keeps; an
-        # inference run (no autograd) computes the same without it.
-        raise remat_not_ported()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for li in range(_n_periods(stacked)):
-        layer = _period(stacked, li)
-        layer_cache = None if caches is None else _period(caches, li)
+    Returns (x, caches, aux), aux the sum of the periods' MoE losses.
+
+    Under autograd and without caches (training), each period body runs
+    under ``_remat``. A prefill (caches given) is not rematerialised: a
+    recomputed body would write its cache a second time, from a state the
+    first pass has already overwritten."""
+
+    def body(layer, layer_cache, x):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, spec in enumerate(period):
             x, _, a = block_apply(
                 layer[f"p{i}"], x, cfg, spec, causal=causal,
-                kv_embeds=kv_embeds, impl=impl,
+                kv_embeds=kv_embeds, impl=impl, mlstm_impl=mlstm_impl,
                 cache=None if layer_cache is None else layer_cache[f"p{i}"])
             aux = aux + a
-    return x, caches, aux
+        return x, aux
+
+    if caches is None and torch.is_grad_enabled():
+        body = _remat(body, cfg, stacked)
+    auxs = []
+    for li, layer in enumerate(_periods(stacked)):
+        x, a = body(layer, None if caches is None else _period(caches, li),
+                    x)
+        auxs.append(a)
+    return x, caches, torch.sum(torch.stack(auxs))
 
 
 def stack_decode(stacked, x, cfg, period, caches, lens, *,
                  impl: str = "auto"):
-    for li in range(_n_periods(stacked)):
-        layer, layer_cache = _period(stacked, li), _period(caches, li)
+    for li, layer in enumerate(_periods(stacked)):
+        layer_cache = _period(caches, li)
         for i, spec in enumerate(period):
             x, _ = block_decode(layer[f"p{i}"], x, cfg, spec,
                                 layer_cache[f"p{i}"], lens, impl=impl)

@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.mlstm import mlstm, mlstm_final_state, mlstm_step
+from ..kernels.mlstm import (mlstm, mlstm_chunkwise_xla, mlstm_final_state,
+                             mlstm_step)
 from .common import EMBED, HEAD_DIM, HEADS, MLP, SSM_INNER, P
 from .layers import einsum, rmsnorm, rmsnorm_template
 
@@ -81,8 +82,16 @@ def _mlstm_out(params, h, z, x):
     return einsum("bsi,id->bsd", h, params["down_proj"])
 
 
-def mlstm_apply(params, x, cfg, *, impl: str = "auto", state=None):
-    """Full-sequence mLSTM block. x: [b, s, d].
+# The chunk of ``mlstm_impl="chunkwise"`` (the JAX package's
+# ``kernels.mlstm.ops.mlstm`` default).
+CHUNK = 512
+
+
+def mlstm_apply(params, x, cfg, *, impl: str = "auto",
+                mlstm_impl: str = "ref", state=None):
+    """Full-sequence mLSTM block. x: [b, s, d]. ``mlstm_impl="chunkwise"``
+    runs the mixer as ``mlstm_chunkwise_xla`` (chunks of ``CHUNK``), else
+    ``impl`` picks the kernel or the parallel form.
 
     With ``state`` (prefill), the state after the last token is written
     into it in closed form (``kernels.mlstm.mlstm_final_state``) from the
@@ -92,7 +101,10 @@ def mlstm_apply(params, x, cfg, *, impl: str = "auto", state=None):
     b, s, _ = x.shape
     xu, z = _mlstm_in(params, x)
     q, k, v, ig, fg = (t.contiguous() for t in _mlstm_qkvif(params, xu))
-    h = mlstm(q, k, v, ig, fg, impl=impl)                     # [b,s,h,hd]
+    if mlstm_impl == "chunkwise":
+        h = mlstm_chunkwise_xla(q, k, v, ig, fg, chunk=CHUNK)
+    else:
+        h = mlstm(q, k, v, ig, fg, impl=impl)                 # [b,s,h,hd]
     y = _mlstm_out(params, h.reshape(b, s, -1), z, x)
     if state is None:
         return y

@@ -6,6 +6,8 @@ only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1492,3 +1494,174 @@ def test_gpu_launcher_mm1(cuda, capsys):
     assert np.isfinite(meas).all()
     assert meas.mean() == pytest.approx(pred.mean(), rel=0.15)
     assert svc.plan_failures == [] and svc.fallbacks == []
+
+
+# ---------------------------------------------------------------------------
+# Training (the plain versions under autograd) and the wrappers' refusal
+# ---------------------------------------------------------------------------
+
+from repro_torch.data import PipelineConfig, TokenPipeline  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.training import checkpoint as ckpt  # noqa: E402
+from repro_torch.training import optimizer as opt_mod  # noqa: E402
+from repro_torch.training import train_step as ts_mod  # noqa: E402
+
+
+def _train_batch(cfg, b, s, dev, step=0):
+    return train_launch.device_batch(
+        TokenPipeline(PipelineConfig(cfg.vocab, s, b, seed=1)), cfg, step,
+        s, dev)
+
+
+@pytest.mark.parametrize("arch", sorted(configs.ARCHS))
+def test_gpu_train_step_matches_cpu(cuda, arch):
+    """One train step of the reduced architecture on the card against the
+    same step on the CPU: loss within 1e-5 relative, parameters within
+    atol 2e-5."""
+    cfg = configs.get(arch).reduced()
+    model = models.build(cfg, impl="torch")
+    p_cpu = models.common.init_params(
+        model.template(), torch.Generator().manual_seed(0), device="cpu")
+    ocfg = opt_mod.AdamWConfig(lr=1e-3)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), p_cpu)
+        b = _train_batch(cfg, 2, 16, dev)
+        out[str(dev)] = ts_mod.make_train_step(model, ocfg)(
+            p, opt_mod.init(p, ocfg), b)
+    (pc, _, mc), (pg, _, mg) = out["cpu"], out["cuda"]
+    assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-5)
+    for a, b in zip(tree_leaves(pc), tree_leaves(pg)):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=2e-5,
+                                   rtol=0)
+
+
+def _grad_inputs(dev, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    return g, r
+
+
+def test_gpu_wrappers_refuse_operands_that_require_grad(cuda):
+    """Each LM kernel wrapper raises under autograd when an operand
+    requires grad (naming impl="torch"), and runs under no_grad or on
+    operands that require none."""
+    _, r = _grad_inputs(cuda)
+    q, k, v = r(1, 64, 4, 32), r(1, 64, 2, 32), r(1, 64, 2, 32)
+    cache_k, cache_v = r(2, 64, 2, 32), r(2, 64, 2, 32)
+    qd = r(2, 4, 32)
+    kv_len = torch.tensor([5, 64], dtype=torch.int32, device=cuda)
+    mq, mk, mv = r(1, 32, 2, 32), r(1, 32, 2, 32), r(1, 32, 2, 32)
+    ig, fg = r(1, 32, 2), r(1, 32, 2)
+    x, dt = r(1, 16, 32), r(1, 16, 32).abs()
+    A, B, C, D = -r(32, 4).abs(), r(1, 16, 4), r(1, 16, 4), r(32)
+    calls = {
+        "attention": (lambda *t: fa_ops.attention(*t), (q, k, v)),
+        "decode_attention": (
+            lambda a, b, c: dec_ops.decode_attention(a, b, c, kv_len),
+            (qd, cache_k, cache_v)),
+        "mlstm": (lambda *t: ml_ops.mlstm(*t), (mq, mk, mv, ig, fg)),
+        "selective_scan": (lambda *t: ss_ops.selective_scan(*t),
+                           (x, dt, A, B, C, D)),
+    }
+    for name, (fn, args) in calls.items():
+        for i in range(len(args)):
+            leaf = args[i].detach().requires_grad_(True)
+            with pytest.raises(RuntimeError, match='impl="torch"'):
+                fn(*args[:i], leaf, *args[i + 1:])
+            with torch.no_grad():
+                fn(*args[:i], leaf, *args[i + 1:])
+        fn(*args)                    # nothing requires grad: launches
+
+
+def test_gpu_model_loss_refuses_the_kernels_under_grad(cuda):
+    """A model built with impl="auto" refuses a loss under autograd on the
+    card; its eval step (no_grad) launches flash_attention once per
+    layer and equals the plain model's within 1e-5 relative."""
+    cfg = configs.get("qwen2.5-3b").reduced()
+    auto = models.build(cfg)
+    params = models.common.init_params(
+        auto.template(), torch.Generator(device=cuda).manual_seed(0),
+        device=cuda)
+    b = _train_batch(cfg, 2, 32, cuda)
+    fa_ops.reset_launches()
+    got = ts_mod.make_eval_step(auto)(params, b)
+    assert fa_ops.launches["flash_attention"] == cfg.n_layers
+    want = ts_mod.make_eval_step(models.build(cfg, impl="torch"))(params, b)
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
+    gparams = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    with pytest.raises(RuntimeError, match='impl="torch"'):
+        auto.loss(gparams, b)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "jamba-1.5-large-398b",
+                                  "xlstm-1.3b"])
+def test_gpu_remat_policies_give_equal_gradients(cuda, arch):
+    """Loss bitwise and every gradient within 1e-6 x its leaf's max |g|
+    under "full" and "dots" against "none" on the card (the embedding's
+    backward adds with atomics, so gradients are not held bitwise)."""
+    base = configs.get(arch).reduced()
+    params = None
+    res = {}
+    for remat in ("none", "full", "dots"):
+        cfg = dataclasses.replace(base, remat=remat)
+        model = models.build(cfg, impl="torch")
+        if params is None:
+            params = models.common.init_params(
+                model.template(), torch.Generator(device=cuda).manual_seed(0),
+                device=cuda)
+        gp = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss = model.loss(gp, _train_batch(cfg, 2, 32, cuda))
+        res[remat] = (loss.detach(),
+                      torch.autograd.grad(loss, tree_leaves(gp)))
+    for remat in ("full", "dots"):
+        assert torch.equal(res[remat][0], res["none"][0])
+        for a, b in zip(res[remat][1], res["none"][1]):
+            assert float((a - b).abs().max()) <= 1e-6 * float(
+                b.abs().max()) + 1e-12
+
+
+def test_gpu_checkpoint_restores_onto_cuda(cuda, tmp_path):
+    tree = {"w": torch.randn(8, 4, device=cuda),
+            "h": torch.randn(3, device=cuda).bfloat16(),
+            "step": torch.tensor(2, dtype=torch.int32, device=cuda)}
+    ckpt.save(str(tmp_path), 5, tree)
+    got, step = ckpt.restore(str(tmp_path), tree)    # cuda by default
+    assert step == 5
+    for a, b in zip(tree_leaves(tree), tree_leaves(got)):
+        assert b.device.type == "cuda" and b.dtype == a.dtype
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a, b.view(torch.int16)
+                           if b.dtype == torch.bfloat16 else b)
+
+
+class _StopRun(Exception):
+    pass
+
+
+def test_gpu_launcher_resumes(cuda, tmp_path, monkeypatch):
+    """run(steps=6) against a run stopped after its save at step 3 and
+    resumed: steps 3-5's losses and the final parameters within 1e-6
+    relative."""
+    cfg = configs.get("qwen2.5-3b").reduced()
+    kw = dict(steps=6, batch=4, seq=32, log_every=0)
+    whole = train_launch.run(cfg, **kw)
+    real_save = ckpt.save
+
+    def save_then_stop(*a, **k):
+        real_save(*a, **k)
+        raise _StopRun
+    monkeypatch.setattr(ckpt, "save", save_then_stop)
+    with pytest.raises(_StopRun):
+        train_launch.run(cfg, ckpt_dir=str(tmp_path), ckpt_every=3, **kw)
+    monkeypatch.setattr(ckpt, "save", real_save)
+    resumed = train_launch.run(cfg, ckpt_dir=str(tmp_path), ckpt_every=3,
+                               resume=True, **kw)
+    np.testing.assert_allclose(resumed["losses"], whole["losses"][3:],
+                               rtol=1e-6)
+    for a, b in zip(tree_leaves(whole["params"]),
+                    tree_leaves(resumed["params"])):
+        assert float((a - b).abs().max()) <= 1e-6 * float(a.abs().max())

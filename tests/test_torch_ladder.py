@@ -476,14 +476,21 @@ def test_engine_matches_reference(arch):
 
 
 def test_remat_under_autograd_is_not_ported():
-    """Training is not ported: a config with remat raises under autograd
-    (naming the ROADMAP entry), and runs under torch.no_grad()."""
+    """Remat under autograd, which raised while training was not ported,
+    now runs: a config with remat="full" gives the same logits under
+    autograd as under torch.no_grad(), and gradients flow to its
+    parameters (tests/test_torch_train_grads.py holds them to the JAX
+    package's)."""
     _, ct = _cfgs("yi-6b")
     mt = t_models.build(dataclasses.replace(ct, remat="full"))
     pt = t_common.init_params(mt.template(), torch.Generator().manual_seed(0),
                               device="cpu")
     batch = {"tokens": torch.zeros((1, 3), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="entry 5"):
-        mt.forward(pt, batch)
     with torch.no_grad():
-        assert mt.forward(pt, batch)[0].shape == (1, 3, ct.padded_vocab)
+        want = mt.forward(pt, batch)[0]
+    assert want.shape == (1, 3, ct.padded_vocab)
+    w = pt["blocks"]["p0"]["ffn"]["wo"].requires_grad_(True)
+    got = mt.forward(pt, batch)[0]
+    assert torch.equal(got.detach(), want)
+    got.sum().backward()
+    assert w.grad is not None and torch.isfinite(w.grad).all()

@@ -20,9 +20,12 @@ import torch  # noqa: E402
 from repro import configs as j_configs  # noqa: E402
 from repro.kernels.mlstm import kernel as j_kernel  # noqa: E402
 from repro.kernels.mlstm import ref as j_ref  # noqa: E402
+from repro.models import build as j_build  # noqa: E402
 from repro.models import transformer as j_tr  # noqa: E402
 from repro.models import xlstm as j_xlstm  # noqa: E402
 from repro.models.common import init_params as j_init  # noqa: E402
+from repro_torch import configs as t_configs  # noqa: E402
+from repro_torch import models as t_models  # noqa: E402
 from repro_torch.kernels.mlstm import ops, ref  # noqa: E402
 from repro_torch.models import xlstm as t_xlstm  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
@@ -225,3 +228,66 @@ def test_cluster_plan_covers_every_head_dim():
     assert t_kernel.cluster_plan(4096) == (8, 512)
     assert [t_kernel.slice_width(256, r) for r in (1, 2, 4, 8)] == [
         256, 128, 64, 32]
+
+
+# ---------------------------------------------------------------------------
+# mlstm_chunkwise_xla: the reference's mlstm_impl="chunkwise"
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s,chunk", [(256, 64), (256, 128), (384, 64),
+                                     (200, 64), (64, 64), (32, 64)])
+def test_chunkwise_xla_matches_reference(s, chunk):
+    """Two chunk sizes; a sequence that is no multiple of the chunk (a
+    ragged last chunk), or no longer than one chunk, takes the parallel
+    form in both packages."""
+    xs = _inputs(2, s, 2, 32, seed=s + chunk)
+    got = ref.mlstm_chunkwise_xla(*_t(xs), chunk=chunk)
+    want = np.asarray(j_ref.mlstm_chunkwise_xla(*_j(xs), chunk=chunk))
+    np.testing.assert_allclose(got.numpy(), want, **PLAIN_TOL)
+    # Chunked or not, the function is the parallel form's.
+    np.testing.assert_allclose(got, ref.mlstm_parallel_ref(*_t(xs)),
+                               **PLAIN_TOL)
+    if s % chunk or s <= chunk:
+        assert torch.equal(got, ref.mlstm_parallel_ref(*_t(xs)))
+
+
+def test_chunkwise_xla_bf16_and_gradients():
+    """bf16 inputs come back in bf16; the function is differentiable and
+    its gradients are the parallel form's, each leaf within 1e-4 x its max
+    |g| + 1e-6 (test_torch_train_grads.py's bar: the gates' gradients
+    pass through the clamped denominator, summed in another order)."""
+    xs = _inputs(1, 128, 2, 32, seed=3)
+    out = ref.mlstm_chunkwise_xla(*[t.bfloat16() for t in _t(xs)], chunk=32)
+    assert out.dtype == torch.bfloat16
+    grads = []
+    for fn in (lambda *a: ref.mlstm_chunkwise_xla(*a, chunk=32),
+               ref.mlstm_parallel_ref):
+        ts = [t.requires_grad_(True) for t in _t(xs)]
+        fn(*ts).square().sum().backward()
+        grads.append([t.grad for t in ts])
+    for a, b in zip(*grads):
+        bar = 1e-4 * float(b.abs().max()) + 1e-6
+        assert float((a - b).abs().max()) <= bar
+
+
+def test_model_chunkwise_matches_reference():
+    """xlstm-1.3b at reduced() with mlstm_impl="chunkwise" (chunks of
+    512, two of them at s = 1,024) against the JAX package's model with
+    the same argument."""
+    cj = dataclasses.replace(j_configs.get("xlstm-1.3b").reduced(),
+                             n_layers=2, slstm_period=2)
+    ct = dataclasses.replace(t_configs.get("xlstm-1.3b").reduced(),
+                             n_layers=2, slstm_period=2)
+    mj = j_build(cj, mlstm_impl="chunkwise")
+    mt = t_models.build(ct, mlstm_impl="chunkwise")
+    pj = jax.jit(lambda k: j_init(mj.template(), k))(jax.random.PRNGKey(0))
+    toks = np.random.default_rng(1).integers(0, cj.vocab, (1, 1024),
+                                             dtype=np.int32)
+    want, _ = jax.jit(mj.forward)(pj, {"tokens": jnp.asarray(toks)})
+    with torch.no_grad():
+        got, _ = mt.forward(params_from_numpy(jax.tree.map(np.asarray, pj),
+                                              "cpu"),
+                            {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **PLAIN_TOL)
+    with pytest.raises(ValueError, match="mlstm_impl"):
+        t_models.build(ct, mlstm_impl="interpret")

@@ -253,6 +253,36 @@ Phases, each of which raises on failure (exit code non-zero):
                 checkpoint at step 3 and resumed (losses of steps 3-5 and
                 the final parameters within 1e-6 relative), a corrupted
                 leaf refused on restore, the temporary directory removed.
+ 12. the multi-device half - one rank per visible card (up to 4; one on
+                a machine of one card: a real NCCL group of one), each
+                started as ``chip_smoke.py --mesh-rank RANK WORLD DIR``
+                (a FileStore rendezvous in DIR), on make_host_mesh():
+                (a) qwen2.5-3b at full width cut to 8 layers (f32):
+                prefill of 2 x 1,024 tokens and 16 greedy decode steps
+                through launch.specs.plan_cell on the kernels, held
+                teacher-forced against the same plans with impl="torch"
+                (logits within 2e-3, >= 99% of the argmax tokens equal)
+                and bitwise equal to the unsharded model on the same
+                parameters and tokens, with exactly 8 flash_attention and 128
+                flash_decode launches on the planned path; (b) the planned
+                train step (phase 11 (b)'s cut and batch, 2 microbatches,
+                the FSDP gather hoisted) against make_train_step: bitwise
+                on one rank, else within 1e-5 (loss) and 2e-5
+                (parameters); (c) compressed_psum at 64, 1,000 and 2^20 + 3
+                elements, bitwise its formula computed on one card from
+                every rank's input and within one int8 step of each
+                block's scale of the exact mean; (d) the sweep's
+                shard_map over the world, and once the ranks have exited,
+                loop and fleet (one block per card, two on one card) run
+                here against its series, on a 3-scenario suite with a
+                churn mask (N=30, S=3, 6 slots): bitwise; each
+                with its seconds and the collectives by kind, calls and
+                bytes (sharding.ctx.counts); and here (e) every
+                architecture's per-device GiB (bf16 parameters, with the
+                AdamW moments) under the production rules on the 16x16
+                mesh, each within the card's 80 GB. Each kernel's entry
+                on the JSON line gains ``mesh_launches`` (rank 0's
+                launches on the planned paths of (a), (b) and (d)).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit``, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -3999,6 +4029,444 @@ def training_phase(dev, smi):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the multi-device half
+# ---------------------------------------------------------------------------
+
+# One rank per visible card, up to this many.
+MESH_MAX_RANKS = 4
+# (a), (b): qwen2.5-3b at full width cut to 8 of 36 layers, in f32 (phase
+# 11 (b)'s cut); (a) prefills 2 x 1,024 tokens and decodes 16 steps.
+MESH_CUT = TRAIN_CUT
+MESH_PROMPT = (2, 1024)
+MESH_STEPS = 16
+# (c): compressed_psum at these lengths (the last a 4 MB gradient leaf).
+PSUM_LENGTHS = (64, 1000, (1 << 20) + 3)
+# (d): a small suite with a churn mask: 3 scenarios, N=30, S=3, 6 slots.
+MESH_SUITE = dict(names=["steady_ar1", "camera_churn", "server_outage"],
+                  dims=dict(n_cameras=30, n_servers=3, n_slots=6, seed=0,
+                            churn_t0=1))
+MESH_TIMEOUT_S = 600
+
+
+def _mesh_gather(t, axes, shape, mesh, rules):
+    """The full tensor of global ``shape`` from this rank's slice."""
+    from repro_torch.models.common import P, gather_tree
+    return gather_tree({"x": t}, {"x": P(tuple(shape), tuple(axes))}, rules,
+                       mesh)["x"]
+
+
+def _collectives():
+    from repro_torch.sharding import ctx
+    out = {k: dict(v) for k, v in ctx.counts.items()}
+    ctx.reset_counts()
+    return out
+
+
+def mesh_serve(mesh, dev):
+    """(a) qwen2.5-3b's prefill and greedy decode through plan_cell on the
+    host mesh (the kernels): teacher-forced against the same plans on the
+    plain versions (phase 10's bars), and against the unsharded model on
+    the same parameters and tokens: bitwise."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.specs import plan_cell
+    from repro_torch.models.common import init_params
+    reset, counts = _all_counters()
+    cfg = dataclasses.replace(configs.get("qwen2.5-3b"), **MESH_CUT)
+    gb, s = MESH_PROMPT
+    max_len = s + MESH_STEPS
+    pre = plan_cell(cfg, InputShape("mesh-prefill", max_len, gb, "prefill"),
+                    mesh)
+    dec = plan_cell(cfg, InputShape("mesh-decode", max_len, gb, "decode"),
+                    mesh)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(pre.model.template(), gen, device=dev)
+    toks = torch.randint(0, cfg.vocab, (gb, s), generator=gen, device=dev,
+                         dtype=torch.int32)
+    rules, shape = pre.spmd.model_rules, (gb, cfg.padded_vocab)
+    p_l, b_l, _ = pre.shard(params, {"tokens": toks}, None)
+    pre.step_fn(p_l, b_l, pre.cache())           # warm-up, not counted
+    cache = pre.cache()
+    _collectives()
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = pre.step_fn(p_l, b_l, cache)
+    planned = [_mesh_gather(logits[:, 0], ("batch", "vocab"), shape, mesh,
+                            rules)]
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    chosen = []
+    t0 = time.perf_counter()
+    for _ in range(MESH_STEPS):
+        nxt = torch.argmax(planned[-1], dim=-1).to(torch.int32)
+        chosen.append(nxt)
+        _, tok_l, _ = dec.shard(None, nxt, None)
+        logits, cache = dec.step_fn(p_l, tok_l, cache)
+        planned.append(_mesh_gather(logits, ("batch", "vocab"), shape, mesh,
+                                    rules))
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = counts()
+    coll = _collectives()
+    # The same plans on the plain versions (impl="torch"), teacher-forced
+    # on the chosen tokens: the kernels at phase 10's bars.
+    pre_t, dec_t = (plan_cell(cfg, InputShape(f"mesh-{k}", max_len, gb, k),
+                              mesh, impl="torch")
+                    for k in ("prefill", "decode"))
+    logits, cache = pre_t.step_fn(p_l, b_l, pre_t.cache())
+    forced = [_mesh_gather(logits[:, 0], ("batch", "vocab"), shape, mesh,
+                           rules)]
+    for nxt in chosen:
+        _, tok_l, _ = dec_t.shard(None, nxt, None)
+        logits, cache = dec_t.step_fn(p_l, tok_l, cache)
+        forced.append(_mesh_gather(logits, ("batch", "vocab"), shape, mesh,
+                                   rules))
+    errs = [float((a - b).abs().max()) for a, b in zip(planned, forced)]
+    n_same = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                 for a, b in zip(planned, forced))
+    plain_bar = _teacher_forced_bar("(a) qwen2.5-3b planned", errs, n_same,
+                                    gb * len(planned))
+    _collectives()
+    del p_l, cache
+    model = pre.model
+    full = init_params(model.cache_template(gb, max_len),
+                       torch.Generator(device=dev), device=dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, full = model.prefill(params, {"tokens": toks}, full)
+        plain = [logits[:, 0]]
+        torch.cuda.synchronize()
+        u_prefill = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for nxt in chosen:
+            logits, full = model.decode_step(params, nxt, full)
+            plain.append(logits)
+        torch.cuda.synchronize()
+        u_decode = time.perf_counter() - t0
+    worst = max(float((a - b).abs().max()) for a, b in zip(planned, plain))
+    same = all(torch.equal(a, b) for a, b in zip(planned, plain))
+    n_layers = cfg.n_layers
+    want = {"flash_attention": n_layers,
+            "flash_decode": n_layers * MESH_STEPS}
+    got = {k: launches[k] for k in want}
+    log(f"  (a) qwen2.5-3b {n_layers} of 36 layers, f32, mesh {mesh.shape}: "
+        f"prefill {gb} x {s} in {t_prefill * 1e3:.1f} ms, {MESH_STEPS} "
+        f"decode steps in {t_decode * 1e3:.1f} ms (unsharded: "
+        f"{u_prefill * 1e3:.1f}, {u_decode * 1e3:.1f}); launches on the "
+        f"planned path {got} (want {want}); planned against unsharded: "
+        f"bitwise "
+        f"{same}, max abs {worst:.3e}; collectives {coll}")
+    if not same:
+        raise AssertionError("(a) the planned steps differ from the "
+                             f"unsharded model (max abs {worst:.3e})")
+    if got != want:
+        raise AssertionError(f"(a) kernel launches {got}, want {want}")
+    return dict(bitwise=same, max_abs=worst, launches=launches,
+                plain=plain_bar,
+                prefill_ms=t_prefill * 1e3, decode_ms=t_decode * 1e3,
+                unsharded_prefill_ms=u_prefill * 1e3,
+                unsharded_decode_ms=u_decode * 1e3, collectives=coll)
+
+
+def mesh_train(mesh, dev):
+    """(b) the planned train step (2 microbatches, the FSDP gather hoisted
+    by plan_cell's rule) against make_train_step on phase 11 (b)'s cut and
+    batch: bitwise on a mesh of one rank, else within 1e-5 (loss) and 2e-5
+    (parameters)."""
+    import torch
+    from repro_torch import configs, models
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.specs import plan_cell
+    from repro_torch.models.common import gather_tree, tree_leaves, tree_map
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as ts_mod
+    reset, counts = _all_counters()
+    cfg = dataclasses.replace(configs.get("qwen2.5-3b"), **MESH_CUT)
+    ocfg = opt_mod.AdamWConfig(lr=1e-3)
+    dp = mesh.shape["data"]
+    nm = 2 if (TRAIN_BATCH // min(dp, TRAIN_BATCH)) % 2 == 0 else 1
+    plan = plan_cell(cfg, InputShape("mesh-train", TRAIN_SEQ, TRAIN_BATCH,
+                                     "train"), mesh, n_microbatches=nm)
+    # The plan's step with lr 1e-3 (opt_config's warm-up would move the
+    # parameters by ~3e-6 in one step, below the bar of 2e-5).
+    step = ts_mod.make_train_step(plan.model, ocfg, n_microbatches=nm,
+                                  donate=True, spmd=plan.spmd)
+    params = models.common.init_params(
+        plan.model.template(), torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    pipe = TokenPipeline(PipelineConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
+                                        seed=0))
+    batch = train_mod.device_batch(pipe, cfg, 0, TRAIN_SEQ, dev)
+    p0 = tree_map(lambda t: t.clone(), params)
+    want = ts_mod.make_train_step(plan.model, ocfg, n_microbatches=nm)(
+        p0, opt_mod.init(p0, ocfg), batch)
+    del p0
+    args = plan.shard(params, opt_mod.init(params, ocfg), batch)
+    del params
+    _collectives()
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = step(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    coll = _collectives()
+    launches = counts()
+    del args
+    tmpl = plan.model.template()
+    state_t = {"m": tmpl, "v": tmpl,
+               "step": models.common.P((), ())}
+    p_full = gather_tree(got[0], tmpl, plan.rules, mesh)
+    s_full = gather_tree(got[1], state_t, plan.rules, mesh)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves({"p": p_full, "s": s_full}),
+        tree_leaves({"p": want[0], "s": want[1]}))) \
+        and all(torch.equal(got[2][k], want[2][k])
+                for k in ("loss", "grad_norm", "lr"))
+    lg, lw = float(got[2]["loss"]), float(want[2]["loss"])
+    rel = abs(lg - lw) / abs(lw)
+    gg, gw = float(got[2]["grad_norm"]), float(want[2]["grad_norm"])
+    errs = [(a.float() - b.float()).abs()
+            for a, b in zip(tree_leaves(p_full), tree_leaves(want[0]))]
+    perr = max(float(e.max()) for e in errs)
+    # Adam's first step moves a parameter by ~lr g / (|g| + eps): where
+    # |g| is near eps its rounding shows; count those elements.
+    n_over = sum(int((e > 1e-6).sum()) for e in errs)
+    n_all = sum(e.numel() for e in errs)
+    log(f"  (b) train step, {cfg.n_layers} layers f32, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, {nm} microbatch(es), FSDP gather hoisted "
+        f"{plan.spmd.hoist}, mesh {mesh.shape}: {step_s:.2f} s; against "
+        f"make_train_step: bitwise {same}, loss rel {rel:.3e}, grad norm "
+        f"rel {abs(gg - gw) / gw:.3e}, parameters max abs {perr:.6e} "
+        f"({n_over} of {n_all} elements beyond 1e-6); kernel launches "
+        f"{sum(launches.values())}; collectives {coll}")
+    if mesh.size == 1 and not same:
+        raise AssertionError("(b) the planned step differs from "
+                             "make_train_step on one rank")
+    if rel > 1e-5 or perr > 2e-5:
+        raise AssertionError(f"(b) loss rel {rel:.3e} / parameters "
+                             f"{perr:.3e} outside 1e-5 / 2e-5")
+    return dict(bitwise=same, loss_rel=rel, param_max_abs=perr,
+                grad_norm_rel=abs(gg - gw) / gw, params_beyond_1e6=n_over,
+                step_s=step_s, hoisted=plan.spmd.hoist, collectives=coll,
+                launches=launches)
+
+
+def mesh_psum(mesh, dev):
+    """(c) compressed_psum over the world against its formula computed on
+    one card from every rank's input (bitwise), and within one int8 step
+    of each block's shared scale of the exact mean."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.training.compression import _blockwise, compressed_psum
+    world, rank = dist.get_world_size(), dist.get_rank()
+    res = {}
+    for n in PSUM_LENGTHS:
+        xs = [torch.randn(n, generator=torch.Generator(device=dev)
+                          .manual_seed(100 + r), device=dev) * (r + 1)
+              for r in range(world)]
+        _collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = compressed_psum(xs[rank])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        coll = _collectives()
+        blocks = [_blockwise(x, 256)[0] for x in xs]
+        gmax = torch.stack([b.abs().amax(1, keepdim=True)
+                            for b in blocks]).amax(0)
+        scale = torch.clamp(gmax / 127.0, min=1e-12)
+        total = sum(torch.clamp(torch.round(b / scale), -127, 127).to(
+            torch.int8).to(torch.int32) for b in blocks)
+        want = (total.float() * scale / float(world)).reshape(-1)[:n]
+        exact = torch.stack(xs).mean(0)
+        bar = scale.expand(-1, 256).reshape(-1)[:n]
+        same = torch.equal(got, want)
+        inside = bool(((got - exact).abs() <= bar).all())
+        log(f"  (c) compressed_psum n={n} over {world} rank(s): "
+            f"{ms:.3f} ms, bitwise the plain formula {same}, within one "
+            f"int8 step of the exact mean {inside}; collectives {coll}")
+        if not (same and inside):
+            raise AssertionError(f"(c) compressed_psum n={n}")
+        res[n] = dict(ms=ms, collectives=coll)
+    return res
+
+
+def mesh_sweep(mesh, dev):
+    """(d), on each rank: the sweep's shard_map over the world; rank 0
+    returns the series for ``mesh_sweep_check``."""
+    import torch
+    from repro_torch import scenarios
+    reset, counts = _all_counters()
+    st = scenarios.suite(MESH_SUITE["names"], device=dev,
+                         **MESH_SUITE["dims"])
+    _collectives()
+    reset()
+    t0 = time.perf_counter()
+    sharded = scenarios.sweep(st, backend="shard_map", device=dev)
+    torch.cuda.synchronize()
+    t_sharded = time.perf_counter() - t0
+    return dict(shard_map_s=t_sharded, launches=counts(),
+                collectives=_collectives(), backend=sharded.backend,
+                series={f"{p}/{key}": getattr(sharded, key)[p].tolist()
+                        for p in sharded.policies
+                        for key in ("aopi", "acc", "q")})
+
+
+def mesh_sweep_check(res, world: int, dev):
+    """(d), here once the ranks have exited (no rank spins in a collective
+    on a card the fleet uses): loop on this card and fleet with one block
+    per card of the world (two blocks on one card at world 1), each
+    against the ranks' shard_map series: bitwise."""
+    import numpy as np
+    from repro_torch import scenarios
+    st = scenarios.suite(MESH_SUITE["names"], device=dev,
+                         **MESH_SUITE["dims"])
+    devices = ([f"cuda:{i}" for i in range(world)] if world > 1
+               else [str(dev)] * 2)
+    t0 = time.perf_counter()
+    runs = {"loop": scenarios.sweep(st, backend="loop", device=dev),
+            "fleet": scenarios.sweep(st, backend="fleet", device=dev,
+                                     devices=devices)}
+    t_runs = time.perf_counter() - t0
+    for label, other in runs.items():
+        for p in other.policies:
+            for key in ("aopi", "acc", "q"):
+                a = np.asarray(res["series"][f"{p}/{key}"],
+                               dtype=getattr(other, key)[p].dtype)
+                b = getattr(other, key)[p]
+                if not (np.all(np.isfinite(a)) and np.array_equal(a, b)):
+                    raise AssertionError(f"(d) {res['backend']} and "
+                                         f"{other.backend} differ: {p} "
+                                         f"{key}")
+    log(f"  (d) sweep of {len(st.names)} scenarios ({st.names}), "
+        f"N={MESH_SUITE['dims']['n_cameras']}, "
+        f"{MESH_SUITE['dims']['n_slots']} slots: {res['backend']} "
+        f"{res['shard_map_s']:.2f} s on the ranks; then here "
+        f"{runs['loop'].backend} and {runs['fleet'].backend} "
+        f"({devices}) in {t_runs:.2f} s, both bitwise the ranks' series; "
+        f"launches {res['launches']}; collectives {res['collectives']}")
+    return {label: r.backend for label, r in runs.items()}
+
+
+def mesh_rank(rank: int, world: int, tmp: str) -> int:
+    """One rank of phase 12 (``chip_smoke.py --mesh-rank RANK WORLD DIR``):
+    joins the NCCL group through a FileStore in DIR, runs (a)-(d) on the
+    host mesh, and rank 0 writes DIR/result.json."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels.decode_attention import kernel as dec_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.slot_solver import kernel as sl_kernel
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    for lib in (sl_kernel, fa_kernel, dec_kernel):
+        lib.load()                       # built by the parent: no nvcc
+    dev = init_distributed("cuda", rank=rank, world_size=world,
+                           store=dist.FileStore(str(Path(tmp) / "store"),
+                                                world), local_rank=rank)
+    mesh = make_host_mesh()
+    res = {"world": world, "mesh": mesh.shape, "device": str(dev)}
+    t0 = time.perf_counter()
+    res["serve"] = mesh_serve(mesh, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["train"] = mesh_train(mesh, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["psum"] = mesh_psum(mesh, dev)
+    res["sweep"] = mesh_sweep(mesh, dev)
+    res["rank_s"] = time.perf_counter() - t0
+    if "jax" in sys.modules or any(m.split(".")[0] == "repro"
+                                   for m in sys.modules):
+        raise AssertionError("a mesh rank imported jax or repro")
+    dist.barrier()
+    if rank == 0:
+        (Path(tmp) / "result.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_roofline():
+    """(e) the per-device GiB of each architecture's parameters and AdamW
+    moments under the production rules on the 16x16 mesh (bf16
+    parameters, opt_config's moments), against the card's 80 GB."""
+    from repro_torch import configs
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import opt_config
+    sizes = make_production_mesh().shape
+    res = {}
+    for name in sorted(configs.ARCHS):
+        cfg = configs.get(name)
+        p = roofline.device_gib(cfg, sizes, 2)
+        st = 4 if opt_config(cfg).state_dtype == "float32" else 2
+        total = p + 2 * roofline.device_gib(cfg, sizes, st)
+        res[name] = dict(params_gib=p, with_moments_gib=total)
+        if total * 2**30 > roofline.HBM_BYTES:
+            raise AssertionError(f"(e) {name}: {total:.2f} GiB a device")
+    log("  (e) per-device GiB on the 16x16 mesh (bf16 parameters; with "
+        "the AdamW moments), card 80 GB: " + ", ".join(
+            f"{k} {v['params_gib']:.3f} ({v['with_moments_gib']:.3f})"
+            for k, v in res.items()))
+    return res
+
+
+def mesh_phase(dev):
+    """Phase 12: one rank per visible card (up to MESH_MAX_RANKS) in a
+    real NCCL group, each running (a)-(d) (``mesh_rank``); (e) here."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.sharding import ctx, rules, spec  # noqa: F401
+    t_phase = time.perf_counter()
+    world = min(torch.cuda.device_count(), MESH_MAX_RANKS)
+    tmp = tempfile.mkdtemp(prefix="mesh-")
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            logs.append(open(Path(tmp) / f"rank{r}.log", "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--mesh-rank", str(r), str(world), tmp],
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    try:
+        for r, (p, f) in enumerate(zip(procs, logs)):
+            f.seek(0)
+            text = f.read()
+            f.close()
+            for line in text.splitlines():
+                log(f"  [rank {r}] {line}" if r else line)
+            if p.returncode != 0:
+                raise AssertionError(f"phase 12: rank {r} exited "
+                                     f"{p.returncode}")
+        res = json.loads((Path(tmp) / "result.json").read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["sweep"].update(mesh_sweep_check(res["sweep"], world, dev))
+    res["roofline"] = mesh_roofline()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 12: world {res['world']}, mesh {res['mesh']}, "
+        f"{res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4300,6 +4768,14 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
     training = training_phase(dev, smi)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== phase 12 (at {time.perf_counter() - t_start:.0f} s): the "
+        "multi-device half (plan_cell's prefill, decode and train step on "
+        "the host mesh of one rank per card, compressed_psum, the sweep's "
+        "shard_map and fleet, the per-device roofline)")
+    mesh = mesh_phase(dev)
+
     for module in ("repro_torch.obs", "repro_torch.obs.report",
                    "repro_torch.training.failure",
                    "repro_torch.launch.serve",
@@ -4312,7 +4788,11 @@ def main() -> int:
                    "repro_torch.launch.train",
                    "repro_torch.launch.roofline",
                    "repro_torch.training.checkpoint",
-                   "repro_torch.training.train_step"):
+                   "repro_torch.training.train_step",
+                   "repro_torch.training.compression",
+                   "repro_torch.sharding.spec", "repro_torch.sharding.rules",
+                   "repro_torch.sharding.ctx", "repro_torch.launch.mesh",
+                   "repro_torch.launch.specs"):
         if module not in sys.modules:
             raise AssertionError(f"{module} was not imported")
     if "jax" in sys.modules or any(m.split(".")[0] == "repro"
@@ -4458,6 +4938,10 @@ def main() -> int:
     for k in kernels:
         k["training_launches"] = training["full"]["launches"][k["name"]]
         k["eval_launches"] = training["eval"]["launches"][k["name"]]
+        # Phase 12: rank 0's launches on the planned paths ((a) prefill
+        # and decode, (b) the train step, (d) the sweep's shard_map).
+        k["mesh_launches"] = sum(mesh[part]["launches"][k["name"]]
+                                 for part in ("serve", "train", "sweep"))
     log(f"  chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
         "build included")
     print(json.dumps({"kernels": kernels}))
@@ -4469,4 +4953,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -1,0 +1,405 @@
+#!/usr/bin/env python3
+"""The port's multi-device half on four cards of one host (NCCL).
+
+    python3 scripts/mesh_cards.py [--only yi34b,train,dbrx,launcher,phase12]
+
+Spawns one rank per card (four; a FileStore rendezvous, no port), each
+on its card, and runs:
+
+  yi34b     mesh (1, 4): yi-34b at full width and depth (60 layers, f32,
+            137.6 GB, which no one card holds: 34.4 GB a card), its
+            slices drawn on each card (``models.common.init_sharded``),
+            served in ``plan_cell``'s serving layout (no FSDP split): a
+            prefill of 2 x
+            1,024 tokens and 16 greedy decode steps through ``plan_cell``
+            on the kernels, teacher-forced against ``impl="torch"`` on
+            the same mesh (phase 10's bars: logits within 2e-3, >= 99% of
+            the argmax tokens equal); launches of both attention kernels;
+  train     mesh (2, 2): qwen2.5-3b cut to 8 layers in f32 (phase 11 (b)'s
+            cut, batch 4 x 512, 2 microbatches, the FSDP gather hoisted):
+            the planned train step against ``make_train_step`` on one
+            card (loss within 1e-5 relative, parameters within 2e-5);
+  dbrx      mesh (2, 2): dbrx-132b at full width cut to 2 of 40 layers
+            (all 16 experts, f32) on the all-to-all MoE path: prefill of 4
+            x 256 tokens and 8 decode steps against the same model on one
+            card, teacher-forced (2e-3, >= 99% tokens), the routing
+            decisions that differ counted;
+  launcher  ``torchrun --standalone --nproc-per-node 4 -m
+            repro_torch.launch.train --arch qwen2.5-3b --steps 16 --batch
+            8 --seq 512`` (full width, bf16, FSDP over data 4);
+  phase12   ``chip_smoke.py``'s phase 12 alone on its world of four ranks
+            (``chip_smoke.mesh_phase``): the planned serving and train
+            step, ``compressed_psum`` and the sweep's shard_map over four
+            ranks, then loop and fleet over the four cards from this
+            process.
+
+Each part prints its times, launches and the collectives by kind and
+bytes (``sharding.ctx.counts``, rank 0); the last line is one JSON object
+of the results. A part that misses its bar is reported and the script
+exits 1 after the others have run. Needs four cards; raises on fewer.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import gc
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke as cs  # noqa: E402
+
+WORLD = 4
+PARTS = ("yi34b", "train", "dbrx", "launcher", "phase12")
+# Parts run here, not on the ranks this script spawns.
+HERE = ("launcher", "phase12")
+YI_PROMPT = (2, 1024)
+DBRX_CUT = dict(n_layers=2, dtype="float32")
+DBRX_PROMPT = (4, 256)
+DECODE_STEPS = 16
+LOGIT_ATOL = 2e-3
+ARGMAX_SHARE = 0.99
+LAUNCHER = ["--arch", "qwen2.5-3b", "--steps", "16", "--batch", "8",
+            "--seq", "512"]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _teacher_forced(label, mesh, kernel_plans, plain_plans, params, toks,
+                    n_steps, counts, reset):
+    """Prefill and greedy decode on the kernels' plans, the plain plans
+    fed the same tokens; returns the worst logit gap, the share of equal
+    argmax tokens, launches and times."""
+    import torch
+    pre, dec = kernel_plans
+    rules = pre.spmd.model_rules
+    shape = (toks.shape[0], pre.cfg.padded_vocab)
+    _, batch, _ = pre.shard(None, {"tokens": toks}, None)
+    runs = {}
+    for name, (p_plan, d_plan) in (("kernels", kernel_plans),
+                                   ("plain", plain_plans)):
+        cache = p_plan.cache()
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = p_plan.step_fn(params, batch, cache)
+        steps = [cs._mesh_gather(logits[:, 0], ("batch", "vocab"), shape,
+                                 mesh, rules)]
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        forced = name == "plain"
+        fed = runs["kernels"]["tokens"] if forced else []
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            if forced:
+                nxt = fed[i]
+            else:
+                nxt = torch.argmax(steps[-1], -1).to(torch.int32)
+                fed.append(nxt)
+            _, tok_l, _ = d_plan.shard(None, nxt, None)
+            logits, cache = d_plan.step_fn(params, tok_l, cache)
+            steps.append(cs._mesh_gather(logits, ("batch", "vocab"), shape,
+                                         mesh, rules))
+        torch.cuda.synchronize()
+        runs[name] = dict(logits=steps, tokens=fed, prefill_ms=t_pre * 1e3,
+                          ms_per_step=(time.perf_counter() - t0) * 1e3
+                          / n_steps, launches=counts())
+        del cache
+    gaps = [float((a - b).abs().max()) for a, b in
+            zip(runs["kernels"]["logits"], runs["plain"]["logits"])]
+    same = sum(int((torch.argmax(a, -1) == torch.argmax(b, -1)).sum())
+               for a, b in zip(runs["kernels"]["logits"],
+                               runs["plain"]["logits"]))
+    total = sum(a.shape[0] for a in runs["kernels"]["logits"])
+    res = dict(max_abs=max(gaps), argmax_share=same / total,
+               **{f"{k}_{n}": runs[n][k] for n in runs
+                  for k in ("prefill_ms", "ms_per_step", "launches")})
+    log(f"  {label}: kernels prefill {res['prefill_ms_kernels']:.1f} ms, "
+        f"{res['ms_per_step_kernels']:.2f} ms a decode step (plain "
+        f"{res['prefill_ms_plain']:.1f}, {res['ms_per_step_plain']:.2f}); "
+        f"logits within {res['max_abs']:.3e} (bar {LOGIT_ATOL}), argmax "
+        f"share {res['argmax_share']:.4f}; launches "
+        f"{ {k: v for k, v in res['launches_kernels'].items() if v} }")
+    if not (res["max_abs"] <= LOGIT_ATOL
+            and res["argmax_share"] >= ARGMAX_SHARE):
+        raise AssertionError(f"{label}: outside the bars")
+    return res
+
+
+def part_yi34b(dev):
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import plan_cell
+    from repro_torch.models.common import init_sharded, tree_leaves
+    reset, counts = cs._all_counters()
+    mesh = make_mesh((1, WORLD), ("data", "model"), device=dev.type)
+    cfg = dataclasses.replace(configs.get("yi-34b"), dtype="float32")
+    b, s = YI_PROMPT
+    max_len = s + DECODE_STEPS
+    plans = {impl: tuple(plan_cell(cfg, InputShape(kind, max_len, b, kind),
+                                   mesh, impl=impl)
+                         for kind in ("prefill", "decode"))
+             for impl in ("auto", "torch")}
+    pre = plans["auto"][0]
+    t0 = time.perf_counter()
+    params = init_sharded(pre.model.template(), pre.rules, mesh, seed=0)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(params))
+    log(f"  yi-34b: {cfg.n_layers} layers, this rank's slices "
+        f"{n_bytes / 1e9:.2f} GB, drawn in {time.perf_counter() - t0:.1f} "
+        f"s; peak {_peak_gb():.2f} GB")
+    toks = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                         dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    cs._collectives()
+    res = _teacher_forced("yi-34b on (1, 4)", mesh, plans["auto"],
+                          plans["torch"], params, toks, DECODE_STEPS, counts,
+                          reset)
+    res["collectives"] = cs._collectives()
+    res["rank_gb"] = n_bytes / 1e9
+    res["peak_gb"] = _peak_gb()
+    want = {"flash_attention": cfg.n_layers,
+            "flash_decode": cfg.n_layers * DECODE_STEPS}
+    got = {k: res["launches_kernels"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"yi-34b: launches {got}, want {want}")
+    return res
+
+
+def _peak_gb() -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 1e9 \
+        if torch.cuda.is_available() else 0.0
+
+
+def part_train(dev):
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev.type)
+    cs._collectives()
+    res = cs.mesh_train(mesh, dev)
+    return res
+
+
+def part_dbrx(dev):
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import plan_cell
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+    reset, counts = cs._all_counters()
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev.type)
+    cfg = dataclasses.replace(configs.get("dbrx-132b"), **DBRX_CUT)
+    b, s = DBRX_PROMPT
+    max_len = s + DECODE_STEPS
+    pre, dec = (plan_cell(cfg, InputShape(kind, max_len, b, kind), mesh)
+                for kind in ("prefill", "decode"))
+    params = init_params(pre.model.template(),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    toks = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                         dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    # The one-card run (every rank: the same model on its own card).
+    one = pre.model
+    routes = {"one": [], "mesh": []}
+    real = moe._routing
+    which = ["one"]
+
+    def record(*a, **k):
+        out = real(*a, **k)
+        routes[which[0]].append(torch.where(out[2], out[0], -1))
+        return out
+    moe._routing = record
+    cache = init_params(one.cache_template(b, max_len),
+                        torch.Generator(device=dev), device=dev)
+    with torch.no_grad():
+        logits, cache = one.prefill(params, {"tokens": toks}, cache)
+        want, chosen = [logits[:, 0]], []
+        for _ in range(DECODE_STEPS):
+            nxt = torch.argmax(want[-1], -1).to(torch.int32)
+            chosen.append(nxt)
+            logits, cache = one.decode_step(params, nxt, cache)
+            want.append(logits)
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    which[0] = "mesh"
+    p_l, batch, _ = pre.shard(params, {"tokens": toks}, None)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rules, shape = pre.spmd.model_rules, (b, cfg.padded_vocab)
+    cache = pre.cache()
+    cs._collectives()
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = pre.step_fn(p_l, batch, cache)
+    got = [cs._mesh_gather(logits[:, 0], ("batch", "vocab"), shape, mesh,
+                           rules)]
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for nxt in chosen:
+        _, tok_l, _ = dec.shard(None, nxt, None)
+        logits, cache = dec.step_fn(p_l, tok_l, cache)
+        got.append(cs._mesh_gather(logits, ("batch", "vocab"), shape, mesh,
+                                   rules))
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) / DECODE_STEPS
+    moe._routing = real
+    coll = cs._collectives()
+    gap = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    same = sum(int((torch.argmax(a, -1) == torch.argmax(w, -1)).sum())
+               for a, w in zip(got, want)) / sum(a.shape[0] for a in got)
+    # Routing decisions of this rank's rows against the one-card run's.
+    lo = mesh.coord("data") * (b // 2)
+    flips = total = 0
+    for r_one, r_mesh in zip(routes["one"], routes["mesh"]):
+        mine = r_one[lo:lo + r_mesh.shape[0]]
+        flips += int((mine != r_mesh).sum())
+        total += r_mesh.numel()
+    t = torch.tensor([flips, total], device=dev)
+    dist.all_reduce(t)
+    res = dict(max_abs=gap, argmax_share=same, prefill_ms=t_pre * 1e3,
+               ms_per_step=t_dec * 1e3, routing_flips=int(t[0]) // 2,
+               routing_decisions=int(t[1]) // 2, collectives=coll,
+               launches=counts())
+    log(f"  dbrx-132b {cfg.n_layers} of 40 layers on (2, 2), all-to-all: "
+        f"prefill {b} x {s} {t_pre * 1e3:.1f} ms, {t_dec * 1e3:.2f} ms a "
+        f"decode step; against one card: logits within {gap:.3e}, argmax "
+        f"share {same:.4f}, routing decisions that differ "
+        f"{res['routing_flips']} of {res['routing_decisions']}; "
+        f"collectives {coll}")
+    if not (gap <= LOGIT_ATOL and same >= ARGMAX_SHARE):
+        raise AssertionError("dbrx: outside the bars")
+    return res
+
+
+def rank_main(rank: int, world: int, tmp: str, parts) -> int:
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.decode_attention import kernel as dec_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.mesh import init_distributed
+    for lib in (fa_kernel, dec_kernel):
+        lib.load()
+    dev = init_distributed("cuda", rank=rank, world_size=world,
+                           store=dist.FileStore(str(Path(tmp) / "store"),
+                                                world), local_rank=rank)
+    if rank:
+        globals()["log"] = lambda msg: None
+        cs.log = lambda msg: None
+    res = {}
+    for part in parts:
+        t0 = time.perf_counter()
+        try:
+            res[part] = globals()[f"part_{part}"](dev)
+        except AssertionError as e:
+            # A missed bar is reported and fails the script at its end,
+            # after the other parts have run.
+            res[part] = {"failed": str(e)}
+            log(f"  {part}: FAILED: {e}")
+        res[part]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+    if rank == 0:
+        (Path(tmp) / "result.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def launcher() -> dict:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(WORLD), "-m", "repro_torch.launch.train",
+         *LAUNCHER, "--log-every", "1"], env=env, capture_output=True,
+        text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    for line in out.splitlines():
+        log(f"  [torchrun] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun exited {proc.returncode}")
+    losses = [float(m) for m in re.findall(r"loss ([0-9.]+)", out)]
+    return dict(wall_s=wall, losses=losses)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=",".join(PARTS))
+    args = ap.parse_args(argv)
+    parts = [p for p in args.only.split(",") if p]
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    if torch.cuda.device_count() < WORLD:
+        raise SystemExit(f"needs {WORLD} cards; "
+                         f"{torch.cuda.device_count()} visible")
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as dec_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.slot_solver import kernel as sl_kernel
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(f"cards:\n{smi}\ntorch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        for f in [pool.submit(_build.build, name, lib.SOURCES, flags)
+                  for name, lib, flags in (
+                      ("flash_attention", fa_kernel, _build.ATTENTION_FLAGS),
+                      ("flash_decode", dec_kernel, _build.ATTENTION_FLAGS),
+                      ("slot_solver", sl_kernel, _build.NVCC_FLAGS))]:
+            f.result()
+    log(f"build {time.perf_counter() - t0:.1f} s")
+    res = {}
+    ranked = [p for p in parts if p not in HERE]
+    if ranked:
+        tmp = tempfile.mkdtemp(prefix="mesh-cards-")
+        procs = [subprocess.Popen([sys.executable, __file__, "--rank",
+                                   str(r), str(WORLD), tmp, ",".join(ranked)])
+                 for r in range(WORLD)]
+        codes = [p.wait(timeout=1800) for p in procs]
+        if any(codes):
+            raise SystemExit(f"ranks exited {codes}")
+        res = json.loads((Path(tmp) / "result.json").read_text())
+    if "launcher" in parts:
+        res["launcher"] = launcher()
+    if "phase12" in parts:
+        for lib in (sl_kernel, fa_kernel, dec_kernel):
+            lib.load()
+        res["phase12"] = cs.mesh_phase(torch.device("cuda", 0))
+    print(json.dumps(res, default=str))
+    failed = [p for p, r in res.items() if "failed" in r]
+    if failed:
+        log(f"bars missed: {failed}")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                           sys.argv[5].split(",")))
+    sys.exit(main())

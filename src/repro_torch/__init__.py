@@ -6,9 +6,10 @@ closed forms, profiles, allocators and Algorithms 1-3; ``configs``,
 batching ``serving.Engine`` over ``models.build(cfg)``); ``kernels`` holds
 the hand-written CUDA kernels (slot solver, flash attention, flash decode,
 the chunkwise mLSTM) beside their plain PyTorch versions; ``training``
-holds island failover, and ``launch.serve`` the serving launcher
-(``python -m repro_torch.launch.serve``). Importing this package imports
-neither JAX nor ``repro``.
+holds the optimizer, the train step and island failover; ``sharding`` and
+``launch.{mesh,specs}`` run the models over meshes of ranks
+(``torch.distributed``); ``launch.serve`` and ``launch.train`` are the
+launchers. Importing this package imports neither JAX nor ``repro``.
 """
 from .device import DEFAULT_DEVICE, resolve_device
 

@@ -298,7 +298,11 @@ def replay_graph(key, fn, tensors) -> SlotDecision:
             fn(*static)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # Captured on the side stream of the current card: the default
+        # capture stream is made once per process, on the card current at
+        # the first capture, and a later capture on another card would use
+        # it (the sweep's fleet runs several cards from one process).
+        with torch.cuda.graph(graph, stream=side):
             out = fn(*static)
         entry = _GRAPHS[key] = (graph, static, out)
     graph, static, out = entry

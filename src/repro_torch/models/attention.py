@@ -5,6 +5,14 @@ The KV cache is updated in place (the JAX package returns a new cache
 tree): the prefill writes the new keys and values at offset 0 of the cache
 it is given, and a decode step writes one row per sequence. Each function
 still returns the cache, so callers read as in the JAX package.
+
+Under a mesh (``sharding.ctx``) each rank computes its local heads: the
+query heads split over the heads' mesh axis, the kv heads too when they
+divide it. Otherwise the kv projections are replicated and each rank keeps
+the kv heads its query heads read (whole groups, or one kv head shared
+with other ranks). The cache holds the rank's kv heads, the attention
+kernels run on the local heads, and the output product's partial sum is
+all-reduced over the axis.
 """
 from __future__ import annotations
 
@@ -12,6 +20,7 @@ import torch
 
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import attention as attn_op
+from ..sharding import ctx as shard_ctx
 from .common import CACHE_SEQ, EMBED, HEAD_DIM, HEADS, KV_HEADS, P
 from .layers import apply_rope, einsum
 
@@ -41,15 +50,62 @@ def cache_template(cfg, batch: int, max_len: int, dtype=None):
                    dtype=dtype)}
 
 
+def _heads(cfg):
+    """Under a mesh: (the mesh axis the query heads are split over, or
+    None, and the (first, count) of the kv heads this rank's query heads
+    read when the kv heads are replicated, else None). Outside a mesh:
+    (None, None)."""
+    h, kvh = cfg.padded_heads, cfg.n_kv_heads
+    axis = shard_ctx.axis_for(HEADS, h)
+    if axis is None or shard_ctx.axis_for(KV_HEADS, kvh) is not None:
+        return axis, None
+    m = shard_ctx.mesh()
+    hl, group = h // m.extent(axis), h // kvh
+    first = m.coord(axis) * hl
+    if hl % group == 0:
+        return axis, (first // group, hl // group)
+    if group % hl == 0:
+        return axis, (first // group, 1)
+    raise NotImplementedError(
+        f"{h} query heads over {m.extent(axis)} ranks split the groups of "
+        f"{kvh} replicated kv heads unevenly")
+
+
 def _qkv(params, x, kv_x, cfg):
+    """q, k, v of the rank's heads (all kv heads when they are
+    replicated: the cache keeps them all)."""
+    axis, kv_part = _heads(cfg)
+    if axis is not None:
+        x = shard_ctx.enter(x, axis)
+        kv_x = x if kv_x is None else shard_ctx.enter(kv_x, axis)
     q = einsum("bsd,dhk->bshk", x, params["wq"])
     if cfg.qkv_bias:
         q = q + params["bq"]
-    return (q,) + encode_kv(params, cfg, kv_x)
+    shard_ctx.constrain(q, ("batch", None, HEADS, HEAD_DIM),
+                        (None, None, cfg.padded_heads, q.shape[-1]))
+    kv_params = params
+    if kv_part is not None:
+        # Each rank's query heads read a part of the replicated kv heads:
+        # the weights' gradients are partial sums over the heads' axis.
+        kv_params = {key: shard_ctx.enter(params[key], axis)
+                     for key in ("wk", "wv", "bk", "bv") if key in params}
+    return (q,) + encode_kv(kv_params, cfg, x if kv_x is None else kv_x)
 
 
-def _out(params, ctx):
-    return einsum("bshk,hkd->bsd", ctx, params["wo"])
+def _kv_heads(cfg, k, v):
+    """The kv heads this rank's query heads read, contiguous."""
+    _, kv_part = _heads(cfg)
+    if kv_part is None:
+        return k, v
+    lo, n = kv_part
+    return (k[:, :, lo:lo + n].contiguous(),
+            v[:, :, lo:lo + n].contiguous())
+
+
+def _out(params, ctx, cfg=None):
+    y = einsum("bshk,hkd->bsd", ctx, params["wo"])
+    axis = None if cfg is None else _heads(cfg)[0]
+    return y if axis is None else shard_ctx.psum(y, axis)
 
 
 def gqa_apply(params, x, cfg, *, causal: bool = True, kv_x=None,
@@ -66,14 +122,15 @@ def gqa_apply(params, x, cfg, *, causal: bool = True, kv_x=None,
     """
     s = x.shape[1]
     cross = kv_x is not None
-    q, k, v = _qkv(params, x, kv_x if cross else x, cfg)
+    q, k, v = _qkv(params, x, kv_x, cfg)
     if not cross:
         positions = torch.arange(s, device=x.device)[None, :]
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    out = attn_op(q.contiguous(), k.contiguous(), v.contiguous(),
+    ka, va = _kv_heads(cfg, k, v)
+    out = attn_op(q.contiguous(), ka.contiguous(), va.contiguous(),
                   causal=causal and not cross, impl=impl)
-    y = _out(params, out)
+    y = _out(params, out, cfg)
     if cache is None:
         return y
     if s > cache["k"].shape[1]:
@@ -105,29 +162,34 @@ def gqa_decode(params, x, cfg, cache, lens, *, impl: str = "auto"):
 
     Writes the new key and value at ``lens`` in place and attends over the
     ``lens + 1`` first cache rows. Returns (y [b, 1, d], cache)."""
-    q, k, v = _qkv(params, x, x, cfg)
+    q, k, v = _qkv(params, x, None, cfg)
     pos = lens[:, None]                                   # [b, 1]
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     scatter_kv(cache["k"], k[:, 0], lens)
     scatter_kv(cache["v"], v[:, 0], lens)
-    out = decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
+    ck, cv = _kv_heads(cfg, cache["k"], cache["v"])
+    out = decode_attention(q[:, 0].contiguous(), ck, cv,
                            (lens + 1).to(torch.int32), impl=impl)
-    return _out(params, out[:, None]), cache
+    return _out(params, out[:, None], cfg), cache
 
 
 def cross_decode(params, x, cfg, enc_k, enc_v, *, impl: str = "auto"):
     """Cross-attention during decode: x [b, 1, d] against all t rows of
     the static encoder keys and values [b, t, kvh, hd]; nothing is
     written."""
+    axis, _ = _heads(cfg)
+    if axis is not None:
+        x = shard_ctx.enter(x, axis)
     q = einsum("bsd,dhk->bshk", x, params["wq"])
     if cfg.qkv_bias:
         q = q + params["bq"]
     lens = torch.full((x.shape[0],), enc_k.shape[1], dtype=torch.int32,
                       device=x.device)
+    enc_k, enc_v = _kv_heads(cfg, enc_k, enc_v)
     out = decode_attention(q[:, 0].contiguous(), enc_k, enc_v, lens,
                            impl=impl)
-    return _out(params, out[:, None])
+    return _out(params, out[:, None], cfg)
 
 
 def encode_kv(params, cfg, kv_x):

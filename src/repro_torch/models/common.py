@@ -12,6 +12,11 @@ parameter tree made there carries over leaf by leaf
 initializer kinds and scales as the JAX package; the values differ from
 threefry's, so parity between the two packages comes from converting one
 tree, never from initialising twice.
+
+Under a mesh a template is also *placed* (``pspec_tree``: a ``spec_dims``
+list per leaf), *sliced* (``shard_tree``: the rank's part of a full tree;
+``gather_tree`` undoes it), *allocated locally* (``local_template``,
+``init_sharded``) or *abstracted* (``abstract_params``: meta tensors).
 """
 from __future__ import annotations
 
@@ -24,8 +29,8 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 
-# Logical axis vocabulary (the JAX package's names; the port shards
-# nothing yet, the names only document the layouts).
+# Logical axis vocabulary (the JAX package's names; ``sharding.rules`` maps
+# them onto mesh axes).
 EMBED = "embed"
 HEADS = "heads"
 KV_HEADS = "kv_heads"
@@ -143,3 +148,105 @@ def stack_template(template, n: int):
         lambda p: P((n,) + tuple(p.shape), (LAYERS,) + tuple(p.axes),
                     p.init, p.scale, p.dtype), template)
 
+
+
+def abstract_params(template, dtype: torch.dtype = torch.float32):
+    """Meta tensors of every leaf's global shape: the dry-run's stand-in,
+    no allocation."""
+    return tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype or dtype,
+                                          device="meta"), template)
+
+
+def pspec_tree(template, rules: dict):
+    """Logical axes -> a placement per leaf (``spec_dims`` lists: a mesh
+    axis, a tuple of them, or None per dim). Dims whose size does not
+    divide the mapped extent stay unsharded."""
+    from ..sharding.spec import spec_dims
+    return tree_map(lambda p: spec_dims(p.shape, p.axes, rules), template)
+
+
+def local_template(template, rules: dict):
+    """The template of one rank's slices under ``rules`` (every dim cut by
+    its placement's extent), for allocating caches and parameters
+    locally."""
+    from ..sharding.spec import local_shape, spec_dims
+    sizes = rules.get("_mesh_sizes", {})
+
+    def loc(p: P):
+        shape = local_shape(p.shape, spec_dims(p.shape, p.axes, rules),
+                            sizes)
+        return dataclasses.replace(p, shape=shape)
+    return tree_map(loc, template)
+
+
+def _slice_leaf(t: torch.Tensor, dims, mesh) -> torch.Tensor:
+    from ..sharding.spec import axes_of
+    for d, entry in enumerate(dims):
+        axes = axes_of(entry)
+        if axes:
+            n = t.shape[d] // mesh.extent(axes)
+            t = t.narrow(d, mesh.coord(axes) * n, n)
+    return t
+
+
+def shard_by(tree, placements, mesh):
+    """This rank's slice of every leaf of a full tree (tensors on any
+    device) under a placement tree: contiguous copies on
+    ``mesh.device``."""
+    return tree_map(lambda t, s: _slice_leaf(t, s, mesh).to(
+        mesh.device).contiguous().clone(), tree, placements)
+
+
+def shard_tree(tree, template, rules: dict, mesh):
+    """``shard_by`` with the placements of ``template`` under ``rules``
+    (the carry-over of a full tree: ``convert.params_from_numpy`` then
+    ``shard_tree``)."""
+    return shard_by(tree, pspec_tree(template, rules), mesh)
+
+
+def gather_tree(tree, template, rules: dict, mesh):
+    """The full leaves from every rank's slices (``shard_tree``'s inverse;
+    a collective: every rank calls it and gets the whole tree)."""
+    from ..sharding import ctx
+    from ..sharding.spec import axes_of
+
+    def gather(t, dims):
+        for d, entry in enumerate(dims):
+            # Ranks of an axis hold consecutive blocks within the block of
+            # the axes before it: gather the innermost axis first.
+            for a in reversed(axes_of(entry)):
+                t = ctx.gather_dim(t, a, d, mesh)
+        return t.contiguous()
+    return tree_map(gather, tree, pspec_tree(template, rules))
+
+
+def init_sharded(template, rules: dict, mesh, seed: int,
+                 dtype: torch.dtype = torch.float32):
+    """Materialise only this rank's slices on ``mesh.device``, each leaf
+    drawn from a generator seeded by (``seed``, the leaf's index, the
+    slice's index): ranks that hold the same slice hold the same values,
+    so replicated leaves agree and the ranks together hold one model. The
+    initializer's scale is the full leaf's (fan-in over the global
+    shape). For models no card can hold whole; the values differ from
+    ``init_params``'s."""
+    from ..sharding.spec import axes_of, local_shape, spec_dims
+    sizes = rules.get("_mesh_sizes", {})
+    out = []
+    for i, p in enumerate(tree_leaves(template)):
+        dims = spec_dims(p.shape, p.axes, rules)
+        shard = 0
+        for entry in dims:
+            axes = axes_of(entry)
+            if axes:
+                shard = shard * mesh.extent(axes) + mesh.coord(axes)
+        gen = torch.Generator(device=mesh.device).manual_seed(
+            (seed * 1_000_003 + i) * 4099 + shard)
+        q = dataclasses.replace(p, shape=local_shape(p.shape, dims, sizes))
+        if p.init == "fan_in":
+            scale = p.scale if p.scale is not None else 1.0
+            q = dataclasses.replace(q, init="normal",
+                                    scale=scale / math.sqrt(
+                                        max(_fan_in(p), 1)))
+        out.append(_initializer(q, gen, dtype, mesh.device))
+    out.reverse()
+    return tree_map(lambda p: out.pop(), template)

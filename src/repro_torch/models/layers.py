@@ -6,12 +6,21 @@ and return their input's dtype, and a product of a bf16 activation with an
 f32 weight is taken in f32 (``jnp.promote_types``). ``torch.einsum``
 refuses mixed dtypes instead of promoting, so :func:`einsum` casts both
 operands to their promoted type first.
+
+Under a mesh (``sharding.ctx``) the layers run on this rank's slices and
+issue the tensor-parallel collectives GSPMD inserts in the JAX package:
+the vocab-sharded embedding is a masked local lookup summed over
+``model``; ``unembed`` keeps the local vocab columns and ``softmax_xent``
+reduces its max, sum of exponentials and label logit over ``model``; the
+MLPs' output products are partial sums all-reduced over ``model`` (a bias
+added once, after). A dim split over no mesh axis runs as on one card.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..sharding import ctx
 from .common import EMBED, MLP, VOCAB, P
 
 
@@ -78,11 +87,18 @@ def swiglu_template(d: int, ff: int):
             "wo": P((ff, d), (MLP, EMBED))}
 
 
-def swiglu(params, x: torch.Tensor) -> torch.Tensor:
+def swiglu(params, x: torch.Tensor, width: int | None = None
+           ) -> torch.Tensor:
+    """``width``: the global MLP width, needed under a mesh whose model
+    axis has extent > 1 (``ctx.split``)."""
+    axis, _ = ctx.split(MLP, params["wi_gate"].shape[-1], width)
+    if axis:
+        x = ctx.enter(x, axis)
     gate = einsum("...d,df->...f", x, params["wi_gate"])
     up = einsum("...d,df->...f", x, params["wi_up"])
     h = F.silu(gate.float()).to(x.dtype) * up
-    return einsum("...f,fd->...d", h, params["wo"])
+    y = einsum("...f,fd->...d", h, params["wo"])
+    return ctx.psum(y, axis) if axis else y
 
 
 def gelu_mlp_template(d: int, ff: int):
@@ -92,48 +108,88 @@ def gelu_mlp_template(d: int, ff: int):
             "bo": P((d,), (EMBED,), init="zeros")}
 
 
-def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(params, x: torch.Tensor, width: int | None = None
+             ) -> torch.Tensor:
     """The audio family's FFN: ``jax.nn.gelu``'s default, the tanh
     approximation, taken in f32 and cast back to the stream's dtype."""
+    axis, _ = ctx.split(MLP, params["wi"].shape[-1], width)
+    if axis:
+        x = ctx.enter(x, axis)
     h = einsum("...d,df->...f", x, params["wi"]) + params["bi"]
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return einsum("...f,fd->...d", h, params["wo"]) + params["bo"]
+    y = einsum("...f,fd->...d", h, params["wo"])
+    return (ctx.psum(y, axis) if axis else y) + params["bo"]
 
 
 def embedding_template(vocab: int, d: int):
     return {"table": P((vocab, d), (VOCAB, EMBED), init="embed", scale=0.02)}
 
 
-def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens.long()]
+def embed(params, tokens: torch.Tensor, vocab: int | None = None
+          ) -> torch.Tensor:
+    """Rows of the table for ``tokens``; over a vocab-sharded table, a
+    lookup of the local rows (zeros for tokens held elsewhere) summed over
+    the vocab axis. ``vocab``: the table's global rows (the padded
+    vocabulary), needed under a mesh (``ctx.split``)."""
+    table = params["table"]
+    axis, lo = ctx.split(VOCAB, table.shape[0], vocab)
+    if axis is None:
+        return table[tokens.long()]
+    ids = tokens.long() - lo
+    mine = (ids >= 0) & (ids < table.shape[0])
+    rows = table[ids.clamp(0, table.shape[0] - 1)]
+    out = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return ctx.psum(out, axis)
 
 
 def unembed_template(d: int, vocab: int):
     return {"w": P((d, vocab), (EMBED, VOCAB), init="fan_in")}
 
 
-def unembed(params, x: torch.Tensor) -> torch.Tensor:
+def unembed(params, x: torch.Tensor, vocab: int | None = None
+            ) -> torch.Tensor:
+    """Logits over this rank's vocab columns (all of them on one card)."""
+    axis, _ = ctx.split(VOCAB, params["w"].shape[-1], vocab)
+    if axis:
+        x = ctx.enter(x, axis)
     return einsum("...d,dv->...v", x, params["w"])
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 vocab_real: int, z_loss: float = 1e-4) -> torch.Tensor:
+                 vocab_real: int, z_loss: float = 1e-4,
+                 vocab: int | None = None) -> torch.Tensor:
     """Mean per-token cross-entropy with padded-vocabulary masking and a
     z-loss (``z_loss * logz**2``), in f32.
 
     ``vocab_real``: the true vocabulary size; logit columns at or beyond it
     (padding for divisibility) are set to -1e30 before the logsumexp, as
     the JAX package masks them (in the logits' dtype, then cast to
-    f32)."""
+    f32). The logsumexp is ``torch.logsumexp``'s own decomposition (the
+    max, an infinite max taken as 0, the sum of exponentials): over
+    vocab-sharded logits (``unembed`` under a mesh) the padding mask reads
+    the global column index, and the max, the sum and the label's logit
+    are reduced over the vocab axis, so every rank of it holds the whole
+    loss. ``vocab``: the global (padded) columns, needed under a mesh."""
     v = logits.shape[-1]
-    if vocab_real < v:
-        mask = torch.arange(v, device=logits.device) < vocab_real
-        logits = torch.where(mask, logits,
+    axis, lo = ctx.split(VOCAB, v, vocab)
+    cols = torch.arange(lo, lo + v, device=logits.device)
+    if vocab_real < lo + v:
+        logits = torch.where(cols < vocab_real, logits,
                              torch.tensor(-1e30, dtype=logits.dtype,
                                           device=logits.device))
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    if axis:
+        m = ctx.pmax(m, axis)
+    m = m.masked_fill(m.abs() == float("inf"), 0.0)
+    sumexp = torch.sum(torch.exp(logits - m), dim=-1)
+    ids = labels.long()[..., None] - lo
+    ll = torch.gather(logits, -1, ids.clamp(0, v - 1)).squeeze(-1)
+    if axis:
+        sumexp = ctx.psum(sumexp, axis)
+        mine = ((ids >= 0) & (ids < v)).squeeze(-1)
+        ll = ctx.psum(torch.where(mine, ll, torch.zeros_like(ll)), axis)
+    logz = torch.log(sumexp) + m.squeeze(-1)
     loss = logz - ll
     if z_loss:
         loss = loss + z_loss * torch.square(logz)

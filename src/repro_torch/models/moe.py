@@ -1,4 +1,4 @@
-"""Mixture-of-experts FFN with GShard-style capacity, on one card.
+"""Mixture-of-experts FFN with GShard-style capacity.
 
 The JAX package's ``models/moe.py``: a router picks each token's top-k
 experts, each expert takes at most ``capacity`` tokens per sequence (per
@@ -13,12 +13,22 @@ the top k come from a stable descending sort (``jax.lax.top_k`` puts the
 lower index first on a tie; ``torch.topk`` promises no order), and an
 expert's slot is the count of earlier choices of it over the flattened
 [s * k] axis, token-major.
+
+Under a mesh whose expert axis has extent > 1 (and is a data axis, as the
+JAX package requires) ``moe_apply`` takes ``_moe_apply_a2a``, the JAX
+package's ``shard_map`` path written with explicit collectives: a local
+dispatch, an all-to-all onto the rank's experts, the experts over the
+local expert-MLP columns, a reduce-scatter over ``model`` on d, the
+all-to-all back, the combine, an all-gather over ``model`` and the aux
+loss averaged over the data axes. Otherwise the experts are local and the
+expert-MLP columns' partial sums are all-reduced over ``model``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..sharding import ctx
 from .common import EMBED, EXPERT_MLP, EXPERTS, P
 from .layers import einsum, swiglu, swiglu_template
 
@@ -83,45 +93,119 @@ def _experts(params, xin, dtype):
         xin.shape[:-1] + (-1,))
 
 
-def moe_apply(params, x, cfg, *, capacity_factor: float | None = None):
-    """x: [b, s, d] -> ([b, s, d], aux loss). ``capacity_factor`` defaults
-    to the config's; decode passes ``n_experts / top_k`` (dropless)."""
-    b0, s0, d = x.shape
-    if s0 > MOE_GROUP and s0 % MOE_GROUP == 0:
-        x = x.reshape(b0 * s0 // MOE_GROUP, MOE_GROUP, d)
-    b, s, _ = x.shape
-    e = params["router"].shape[1]
-    k = cfg.top_k
-    cap_f = capacity_factor or cfg.capacity_factor
-    capacity = min(max(int(cap_f * s * k / e), 1), s * k)
-    expert, slot, kept, gate, aux = _routing(params, x, cfg, capacity)
-
-    # Dispatch: slot c of expert e's buffer for sequence b holds the token
-    # that took it; a dropped choice writes to a spare slot past the last.
+def _dispatch(x, expert, slot, kept, capacity: int, e: int):
+    """[b, s, d] -> the experts' buffers [e, b, capacity, d]: slot c of
+    expert e's buffer for sequence b holds the token that took it; a
+    dropped choice writes to a spare slot past the last."""
+    b, s, d = x.shape
+    k = expert.shape[-1]
     rows = torch.arange(b, device=x.device)[:, None, None]
     dest = ((expert * b + rows) * (capacity + 1)
             + torch.where(kept, slot, torch.full_like(slot, capacity)))
     src = x[:, :, None, :].expand(b, s, k, d).reshape(-1, d)
     buf = x.new_zeros((e * b * (capacity + 1), d))
     buf.index_copy_(0, dest.reshape(-1), src)
-    xin = buf.view(e, b, capacity + 1, d)[:, :, :capacity]
-    yout = _experts(params, xin, x.dtype)                    # [e, b, c, d]
+    return buf.view(e, b, capacity + 1, d)[:, :, :capacity]
 
-    # Combine: each token's kept choices, weighted by their gates (cast to
-    # x's dtype first, as the reference casts its combine tensor).
+
+def _combine(yout, expert, slot, kept, gate, dtype):
+    """Each token's kept choices of ``yout`` [e, b, c, d], weighted by
+    their gates (cast to the stream's dtype first, as the reference casts
+    its combine tensor)."""
+    rows = torch.arange(expert.shape[0], device=yout.device)[:, None, None]
     picked = yout[expert, rows, torch.where(kept, slot,
                                             torch.zeros_like(slot))]
-    y = torch.sum(gate.to(x.dtype)[..., None] * picked, dim=2)
+    return torch.sum(gate.to(dtype)[..., None] * picked, dim=2)
+
+
+def _shared(params, x, cfg):
+    return swiglu(params["shared"], x,
+                  width=cfg.n_shared_experts * cfg.expert_d_ff)
+
+
+def moe_apply(params, x, cfg, *, capacity_factor: float | None = None):
+    """x: [b, s, d] -> ([b, s, d], aux loss). ``capacity_factor`` defaults
+    to the config's; decode passes ``n_experts / top_k`` (dropless).
+    Under a mesh the model must have been built with the mesh's
+    expert-parallel degree (``build(cfg, ep_degree=...)``)."""
+    b0, s0, d = x.shape
+    if s0 > MOE_GROUP and s0 % MOE_GROUP == 0:
+        x = x.reshape(b0 * s0 // MOE_GROUP, MOE_GROUP, d)
+    b, s, _ = x.shape
+    ep_axis, ff_axis, e = None, None, params["router"].shape[1]
+    m = ctx.mesh()
+    if m is not None:
+        rule = ctx.current().get(EXPERTS)
+        e = cfg.padded_experts(m.extent(rule) if rule else 1)
+        ep_axis, _ = ctx.split(EXPERTS, params["router"].shape[1], e)
+        ff_axis, _ = ctx.split(EXPERT_MLP, params["wi_gate"].shape[-1],
+                               cfg.expert_d_ff)
+    k = cfg.top_k
+    cap_f = capacity_factor or cfg.capacity_factor
+    capacity = min(max(int(cap_f * s * k / e), 1), s * k)
+
+    def ungroup(out):
+        y, aux = out
+        return (y.reshape(b0, s0, d), aux) if s != s0 else (y, aux)
+
+    dp_axes = ctx.current().get("batch") if m is not None else None
+    dp_axes = (dp_axes,) if isinstance(dp_axes, str) else tuple(dp_axes or ())
+    if ep_axis is not None and m.extent(ep_axis) > 1:
+        if ep_axis not in dp_axes:
+            raise NotImplementedError(
+                f"experts over {ep_axis!r}, not a data axis {dp_axes}: "
+                "only the all-to-all path is ported")
+        return ungroup(_moe_apply_a2a(params, x, cfg, capacity, ep_axis,
+                                      ff_axis, dp_axes))
+
+    expert, slot, kept, gate, aux = _routing(params, x, cfg, capacity)
+    xe = x if ff_axis is None else ctx.enter(x, ff_axis)
+    yout = _experts(params, _dispatch(xe, expert, slot, kept, capacity, e),
+                    x.dtype)                                 # [e, b, c, d]
+    if ff_axis is not None:
+        # Each rank's outputs are partial sums over its expert-MLP
+        # columns, so the gates' gradients are too.
+        gate = ctx.enter(gate, ff_axis)
+    y = _combine(yout, expert, slot, kept, gate, x.dtype)
+    if ff_axis is not None:
+        y = ctx.psum(y, ff_axis)
+    if dp_axes:
+        aux = ctx.pmean(aux, dp_axes)
     if "shared" in params:
-        y = y + swiglu(params["shared"], x)
-    if s != s0:
-        y = y.reshape(b0, s0, d)
+        y = y + _shared(params, x, cfg)
+    return ungroup((y, aux))
+
+
+def _moe_apply_a2a(params, x, cfg, capacity: int, ep_axis: str, ff_axis,
+                   dp_axes: tuple):
+    """Expert parallelism with explicit all-to-alls (the JAX package's
+    ``shard_map`` path): x is this rank's batch rows [b_loc, s, d]; the
+    router is gathered whole (its gradient reduce-scattered back), the
+    routing is per sequence and so the same decisions as on one card."""
+    dtype = x.dtype
+    router = ctx.all_gather(params["router"], ep_axis, dim=1)
+    e = router.shape[1]
+    expert, slot, kept, gate, aux = _routing({"router": router}, x, cfg,
+                                             capacity)
+    xin = _dispatch(x, expert, slot, kept, capacity, e)  # [E, b_loc, c, d]
+    # [E, b_loc, c, d] -> [E/ep, b_loc*ep, c, d]: the EP all-to-all.
+    xin = ctx.all_to_all(xin, ep_axis, 0, 1)
+    if ff_axis is not None:
+        xin = ctx.enter(xin, ff_axis)
+    yo = _experts(params, xin, dtype)
+    if ff_axis is not None:
+        # The partial sums over the expert-MLP columns, reduce-scattered
+        # on d: the return all-to-all and the combine run on d/TP.
+        yo = ctx.reduce_scatter(yo, ff_axis, dim=3)
+    yo = ctx.all_to_all(yo, ep_axis, 1, 0)          # [E, b_loc, c, d/TP]
+    if ff_axis is not None:
+        # The combine reads this rank's d/TP columns: the gates' gradients
+        # are partial sums over them.
+        gate = ctx.enter(gate, ff_axis)
+    y = _combine(yo, expert, slot, kept, gate, dtype)
+    if ff_axis is not None:
+        y = ctx.all_gather(y, ff_axis, dim=2, partial_grad=False)
+    aux = ctx.pmean(aux, dp_axes)
+    if "shared" in params:
+        y = y + _shared(params, x, cfg)
     return y, aux
-
-
-def _moe_apply_a2a(*args, **kwargs):
-    """Expert parallelism over a mesh (the JAX package's shard_map path
-    with all-to-alls): the port runs on one card."""
-    raise NotImplementedError("expert-parallel MoE over a mesh is not "
-                              "ported yet: ROADMAP queue 1 entry 5 "
-                              "(sharding/)")

@@ -25,6 +25,14 @@ vocabulary (``cfg.padded_vocab`` columns), as the reference's do.
 The models have no ``vocab`` attribute: the engine plane reads
 ``getattr(model, "vocab", 32)`` for its frame tokens, and the reference
 models have none either.
+
+Under a mesh (``sharding.ctx.activation_rules`` with a mesh, as
+``launch.specs.plan_cell`` runs them) every call takes this rank's slices
+of the parameters (the FSDP dims gathered: ``sharding.rules.gathered``),
+batch and cache, and returns its slice of the logits (the local vocab
+columns). The planned steps cover the dense and MoE GQA decoders; another
+family under a mesh with an axis of extent > 1 raises, as does a decode
+cache whose sequence the rules split.
 """
 from __future__ import annotations
 
@@ -33,7 +41,9 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels.attention_common import check_impl
-from .common import P, count_params, stack_template
+from ..sharding import ctx as shard_ctx
+from ..sharding.spec import mesh_dims
+from .common import CACHE_SEQ, VOCAB, P, count_params, stack_template
 from .layers import (einsum, embed, embedding_template, softmax_xent,
                      unembed, unembed_template)
 from .transformer import (block_cache_template, block_template, layout,
@@ -70,17 +80,49 @@ def _len_template(batch: int):
     return P((batch,), ("batch",), init="zeros", dtype=torch.int32)
 
 
+# The families the planned (sharded) steps cover: the dense and MoE GQA
+# decoders.
+MESH_FAMILIES = ("dense", "moe")
+
+
+def _check_mesh(cfg) -> None:
+    """Refuse what the port does not shard: another family, or MLA,
+    under a mesh with an axis of extent > 1 (ROADMAP queue 1 entry 5)."""
+    m = shard_ctx.mesh()
+    if m is None or m.size == 1:
+        return
+    if cfg.family not in MESH_FAMILIES or cfg.attn_type != "gqa" \
+            or cfg.enc_layers:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}, {cfg.attn_type}) under a mesh of "
+            f"{m.shape}: only the dense and MoE GQA decoders are sharded "
+            "(ROADMAP queue 1 entry 5)")
+
+
+def _check_cache(cache) -> None:
+    """Refuse a cache whose sequence dim the rules split over an axis of
+    extent > 1 (the JAX package's sequence-sharded decode cache)."""
+    m = shard_ctx.mesh()
+    if m is None:
+        return
+    axis = mesh_dims((1 << 30,), (CACHE_SEQ,), shard_ctx.current())[0]
+    if axis is not None and m.extent(axis) > 1:
+        raise NotImplementedError(
+            f"the rules split the decode cache's sequence over {axis!r} "
+            f"(kv heads do not divide it): not ported (ROADMAP queue 1 "
+            "entry 5)")
+
+
 class TransformerLM(nn.Module):
     """Decoder-only LM: a dense or MoE GQA decoder, MLA, the VLM (periods
     of self-attention layers and one cross-attention layer to the vision
     embeddings), the xLSTM (periods of mLSTM layers and one sLSTM layer)
     or the hybrid (jamba: periods of one attention and Mamba layers, MoE
-    FFNs on every other layer). The port runs on one card, so experts are
-    padded as the reference pads them for an expert-parallel degree of
-    1."""
+    FFNs on every other layer). Experts are padded to a multiple of the
+    expert-parallel degree ``ep_degree``, as the reference pads them."""
 
     def __init__(self, cfg: ModelConfig, impl: str = "auto",
-                 mlstm_impl: str = "ref"):
+                 mlstm_impl: str = "ref", ep_degree: int = 1):
         super().__init__()
         _check_mlstm_impl(mlstm_impl)
         self.cfg = cfg
@@ -88,7 +130,7 @@ class TransformerLM(nn.Module):
         self.mlstm_impl = mlstm_impl
         self.period, self.n_periods = layout(cfg)
         self.dtype = DTYPES[cfg.dtype]
-        self.ep_pad = cfg.padded_experts(1) or None
+        self.ep_pad = cfg.padded_experts(ep_degree) or None
 
     def template(self):
         cfg = self.cfg
@@ -112,17 +154,28 @@ class TransformerLM(nn.Module):
         return count_params(self.template())
 
     def _logits(self, params, x):
-        x = norm(self.cfg, params["final_norm"], x)
-        if self.cfg.tie_embeddings:
-            return einsum("...d,vd->...v", x, params["embed"]["table"])
-        return unembed(params["unembed"], x)
+        cfg = self.cfg
+        x = norm(cfg, params["final_norm"], x)
+        if cfg.tie_embeddings:
+            table = params["embed"]["table"]
+            axis, _ = shard_ctx.split(VOCAB, table.shape[0],
+                                      cfg.padded_vocab)
+            if axis:
+                x = shard_ctx.enter(x, axis)
+            return einsum("...d,vd->...v", x, table)
+        return unembed(params["unembed"], x, vocab=cfg.padded_vocab)
+
+    def _embed(self, params, tokens):
+        _check_mesh(self.cfg)
+        return embed(params["embed"], tokens,
+                     vocab=self.cfg.padded_vocab).to(self.dtype)
 
     def _vision(self, batch):
         kv = batch.get("vision_embeds")
         return None if kv is None else kv.to(self.dtype)
 
     def forward(self, params, batch):
-        x = embed(params["embed"], batch["tokens"]).to(self.dtype)
+        x = self._embed(params, batch["tokens"])
         x, _, aux = stack_apply(params["blocks"], x, self.cfg, self.period,
                                 kv_embeds=self._vision(batch),
                                 impl=self.impl, mlstm_impl=self.mlstm_impl)
@@ -132,8 +185,8 @@ class TransformerLM(nn.Module):
         """Cross-entropy over the real vocabulary (``batch["labels"]``)
         plus 0.01 times the MoE layers' load-balancing loss."""
         logits, aux = self.forward(params, batch)
-        return softmax_xent(logits, batch["labels"], self.cfg.vocab) \
-            + 0.01 * aux
+        return softmax_xent(logits, batch["labels"], self.cfg.vocab,
+                            vocab=self.cfg.padded_vocab) + 0.01 * aux
 
     def prefill(self, params, batch, cache):
         """Prefill ``batch["tokens"]`` [b, s] into ``cache`` (written in
@@ -141,7 +194,8 @@ class TransformerLM(nn.Module):
         embeddings' keys and values); returns the last position's
         logits."""
         tokens = batch["tokens"]
-        x = embed(params["embed"], tokens).to(self.dtype)
+        _check_cache(cache)
+        x = self._embed(params, tokens)
         x, blocks, _ = stack_apply(params["blocks"], x, self.cfg,
                                    self.period,
                                    kv_embeds=self._vision(batch),
@@ -155,7 +209,8 @@ class TransformerLM(nn.Module):
     def decode_step(self, params, tokens, cache):
         """tokens: [b] -> (logits [b, V], cache); the cache is written in
         place and its ``len`` advanced by one."""
-        x = embed(params["embed"], tokens[:, None]).to(self.dtype)
+        _check_cache(cache)
+        x = self._embed(params, tokens[:, None])
         lens = cache["len"]
         x, blocks = stack_decode(params["blocks"], x, self.cfg, self.period,
                                  cache["blocks"], lens, impl=self.impl)
@@ -207,6 +262,7 @@ class EncDecLM(nn.Module):
     def encode(self, params, audio_embeds):
         """audio_embeds [b, frames, d] -> the encoder's output [b, frames,
         d]: self-attention over all frames (non-causal)."""
+        _check_mesh(self.cfg)
         x = einsum("bsd,de->bse", audio_embeds.to(self.dtype),
                    params["enc_in"]["w"])
         x, _, _ = stack_apply(params["enc_blocks"], x, self.cfg,
@@ -215,11 +271,15 @@ class EncDecLM(nn.Module):
 
     def _logits(self, params, x):
         x = norm(self.cfg, params["final_norm"], x)
-        return unembed(params["unembed"], x)
+        return unembed(params["unembed"], x, vocab=self.cfg.padded_vocab)
+
+    def _embed(self, params, tokens):
+        return embed(params["embed"], tokens,
+                     vocab=self.cfg.padded_vocab).to(self.dtype)
 
     def forward(self, params, batch):
         enc = self.encode(params, batch["audio_embeds"])
-        x = embed(params["embed"], batch["tokens"]).to(self.dtype)
+        x = self._embed(params, batch["tokens"])
         x, _, aux = stack_apply(params["dec_blocks"], x, self.cfg,
                                 self.dec_period, kv_embeds=enc,
                                 impl=self.impl)
@@ -230,8 +290,8 @@ class EncDecLM(nn.Module):
         plus 0.01 times the aux loss (0: the encoder-decoder has no
         MoE)."""
         logits, aux = self.forward(params, batch)
-        return softmax_xent(logits, batch["labels"], self.cfg.vocab) \
-            + 0.01 * aux
+        return softmax_xent(logits, batch["labels"], self.cfg.vocab,
+                            vocab=self.cfg.padded_vocab) + 0.01 * aux
 
     def prefill(self, params, batch, cache):
         """Encode ``batch["audio_embeds"]``, then prefill ``batch["tokens"]``
@@ -240,7 +300,7 @@ class EncDecLM(nn.Module):
         position's logits."""
         enc = self.encode(params, batch["audio_embeds"])
         tokens = batch["tokens"]
-        x = embed(params["embed"], tokens).to(self.dtype)
+        x = self._embed(params, tokens)
         x, blocks, _ = stack_apply(params["dec_blocks"], x, self.cfg,
                                    self.dec_period, kv_embeds=enc,
                                    impl=self.impl, caches=cache["blocks"])
@@ -251,7 +311,8 @@ class EncDecLM(nn.Module):
     def decode_step(self, params, tokens, cache):
         """tokens: [b] -> (logits [b, V], cache); the cache is written in
         place and its ``len`` advanced by one."""
-        x = embed(params["embed"], tokens[:, None]).to(self.dtype)
+        _check_mesh(self.cfg)
+        x = self._embed(params, tokens[:, None])
         lens = cache["len"]
         x, blocks = stack_decode(params["dec_blocks"], x, self.cfg,
                                  self.dec_period, cache["blocks"], lens,
@@ -260,7 +321,8 @@ class EncDecLM(nn.Module):
         return self._logits(params, x)[:, 0], new_cache
 
 
-def build(cfg: ModelConfig, impl: str = "auto", mlstm_impl: str = "ref"):
+def build(cfg: ModelConfig, impl: str = "auto", mlstm_impl: str = "ref",
+          ep_degree: int = 1):
     """The model of ``cfg``: an ``EncDecLM`` when it has encoder layers,
     else a ``TransformerLM``. ``impl`` picks the path of the kernels
     (attention, the mLSTM's prefill and the Mamba layers' selective scan):
@@ -269,9 +331,12 @@ def build(cfg: ModelConfig, impl: str = "auto", mlstm_impl: str = "ref"):
     have no backward pass: train with ``impl="torch"``. ``mlstm_impl``
     (``MLSTM_IMPLS``) is the JAX package's argument of that name:
     ``"chunkwise"`` runs the mLSTM prefill as ``mlstm_chunkwise_xla``
-    whatever ``impl`` is."""
+    whatever ``impl`` is. ``ep_degree``: the expert-parallel degree the
+    experts are padded for (``cfg.padded_experts``; the mesh's data extent
+    under a plan)."""
     check_impl(impl)
     _check_mlstm_impl(mlstm_impl)
     if cfg.enc_layers:
         return EncDecLM(cfg, impl=impl)
-    return TransformerLM(cfg, impl=impl, mlstm_impl=mlstm_impl)
+    return TransformerLM(cfg, impl=impl, mlstm_impl=mlstm_impl,
+                         ep_degree=ep_degree)

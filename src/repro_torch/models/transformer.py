@@ -23,6 +23,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from ..sharding import ctx as shard_ctx
 from . import attention as attn_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
@@ -172,7 +173,7 @@ def _ffn(params, x, cfg, spec: LayerSpec, *, decode: bool = False):
     h = norm(cfg, params["norm2"], x)
     if spec.ffn == "dense":
         mlp = gelu_mlp if cfg.family == "audio" else swiglu
-        return x + mlp(params["ffn"], h), None
+        return x + mlp(params["ffn"], h, width=cfg.d_ff), None
     out, aux = moe_mod.moe_apply(
         params["ffn"], h, cfg,
         capacity_factor=cfg.n_experts / max(cfg.top_k, 1) if decode else None)
@@ -323,11 +324,23 @@ def _remat(fn, cfg, stacked):
     ``"full"`` keeps only the period's inputs and recomputes the body,
     ``"dots"`` keeps the outputs of weight products as well
     (``_dots_policy``). Gradients are the same under all three. Nothing
-    in the forward pass draws random numbers, so no RNG state is kept."""
+    in the forward pass draws random numbers, so no RNG state is kept.
+
+    The body runs under the sharding rules current when it is wrapped:
+    the backward pass recomputes it where they are not set (on the card,
+    in autograd's own thread), and without them a sharded body would
+    skip its collectives."""
     if cfg.remat not in REMATS:
         raise ValueError(f"remat={cfg.remat!r} not in {REMATS}")
     if cfg.remat == "none":
         return fn
+    rules = shard_ctx.current()
+    if rules is not None:
+        body = fn
+
+        def fn(*args):
+            with shard_ctx.activation_rules(rules):
+                return body(*args)
     kw = {"use_reentrant": False, "preserve_rng_state": False}
     if cfg.remat == "dots":
         weights = frozenset(t.untyped_storage().data_ptr()

@@ -1,12 +1,23 @@
-"""Fleet sweep runner: all policies x all scenarios on one card.
+"""Fleet sweep runner: all policies x all scenarios, on one card or many.
 
 The port of ``repro.scenarios.runner``. ``sweep`` runs the LBCD controller
 and the MIN/DOS/JCAB baselines over a stacked scenario axis (a
-:class:`registry.Suite` or raw stacked ``HorizonTables``). Its one backend,
-``"loop"``, runs each scenario's rollout in turn on ``device`` and reduces
-it there to per-slot fleet means (AoPI, accuracy, queue), so the host only
-sees ``[K, T]`` summaries. The reference's multi-device backends
-(``"shard_map"``, ``"fleet"``) wait for ``sharding/`` (ROADMAP queue 1).
+:class:`registry.Suite` or raw stacked ``HorizonTables``). Each scenario's
+rollout is reduced on its device to per-slot fleet means (AoPI, accuracy,
+queue), so the host only sees ``[K, T]`` summaries. Backends:
+
+  loop       every scenario in turn on ``device``;
+  shard_map  the scenario axis split over the ranks of a process group
+             (each rank runs its block on its own card), padded by
+             repeating the last scenario so K divides the ranks, the
+             ``[K, T]`` series all-gathered;
+  fleet      one block per device of ``devices``, every block launched
+             before any is read.
+
+Each scenario runs the same code on every backend, so all three give the
+same series bitwise. ``backend=None`` picks ``"shard_map"`` when the
+default group has two or more ranks, else ``"loop"``, as the reference
+picks by its device count.
 ``dataplane=True`` also replays every cell through the GI/G/1 data plane
 (``serving.replay.replay_suite``) for measured AoPI beside the closed form.
 
@@ -24,11 +35,13 @@ the live count wherever the suite carries a mask, as the reference's do.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import obs
 from ..core import baselines, lbcd, profiles
@@ -37,9 +50,8 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from .registry import Suite
 
 POLICIES = ("lbcd", "min", "dos", "jcab")
-BACKENDS = ("loop",)
-#: The reference's multi-device backends, not ported yet.
-NOT_PORTED_BACKENDS = ("shard_map", "fleet")
+BACKENDS = ("loop", "shard_map", "fleet")
+SERIES = ("aopi", "acc", "q")
 
 
 def divergence_series(measured: np.ndarray,
@@ -168,8 +180,8 @@ def _rollout(name: str, tables: HorizonTables, v, p_min, params: dict,
 
 
 def _reduced(res, active) -> dict:
-    """One rollout -> [T] fleet means on the host; under a suite mask the
-    means divide by the live count, as the reference's
+    """One rollout -> [T] fleet means on its device; under a suite mask
+    the means divide by the live count, as the reference's
     ``_reduced_policy`` does."""
     if active is not None:
         n_live = torch.clamp_min(active.sum(dim=-1), 1.0)
@@ -178,7 +190,89 @@ def _reduced(res, active) -> dict:
     else:
         out = {"aopi": res.aopi.mean(dim=-1), "acc": res.acc.mean(dim=-1)}
     out["q"] = res.q
-    return {k: x.cpu().numpy() for k, x in out.items()}
+    return out
+
+
+def _block(name, tables: HorizonTables, ks, v, p_min, knobs,
+           solver_backend, dev) -> dict:
+    """The series of scenarios ``ks`` of ``tables``, each rolled on
+    ``dev``: {key: [len(ks), T] tensors on ``dev``}. A card is made the
+    current device for the block: the kernels launch on the current
+    device's stream, and the plain solves' CUDA graphs capture there."""
+    out = []
+    guard = torch.cuda.device(dev) if dev.type == "cuda" else \
+        contextlib.nullcontext()
+    with guard:
+        for k in ks:
+            one = scenario(tables, k).to(dev)
+            active = None if tables.active is None \
+                else tables.active[k].to(dev)
+            out.append(_reduced(_rollout(name, one, v, p_min, knobs,
+                                         solver_backend, dev), active))
+        return {key: torch.stack([o[key] for o in out]) for key in SERIES}
+
+
+def _host(series: dict) -> dict:
+    return {k: x.cpu().numpy() for k, x in series.items()}
+
+
+def _padded(n_scenarios: int, n_blocks: int) -> list:
+    """The scenario index of each of the padded axis's entries, block
+    after block: the last scenario repeated so n_blocks divides it."""
+    n = -(-n_scenarios // n_blocks) * n_blocks
+    return [min(i, n_scenarios - 1) for i in range(n)]
+
+
+def _run_shard_map(name, tables, v, p_min, knobs, solver_backend, dev,
+                   group) -> dict:
+    """This rank's block of the padded scenario axis, then the [K, T]
+    series all-gathered over ``group``. A rank whose block raises sends
+    NaNs and a flag, so every rank reaches the gather and raises after
+    it."""
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    n_scenarios, n_slots = int(tables.acc.shape[0]), int(tables.acc.shape[1])
+    idx = _padded(n_scenarios, n)
+    block = len(idx) // n
+    try:
+        mine = _block(name, tables, idx[rank * block:(rank + 1) * block],
+                      v, p_min, knobs, solver_backend, dev)
+        failed = None
+    except Exception as e:  # noqa: BLE001 — re-raised after the gather
+        mine = {k: torch.full((block, n_slots), float("nan"),
+                              dtype=torch.float64, device=dev)
+                for k in SERIES}
+        failed = e
+    from ..sharding import ctx
+    flag = torch.tensor([float(failed is not None)], device=dev)
+    dist.all_reduce(flag, group=group)
+    ctx.count("all_reduce", flag)
+    out = {}
+    for key in SERIES:
+        # In f64: every rank's series fit it exactly, whatever its dtype.
+        x = mine[key].double().contiguous()
+        full = x.new_empty((n * block,) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(full, x, group=group)
+        ctx.count("all_gather", full)
+        out[key] = full.to(mine[key].dtype)[:n_scenarios]
+    if failed is not None:
+        raise failed
+    if float(flag) > 0:
+        raise RuntimeError(f"{name}: a block of the sweep failed on "
+                           f"{int(float(flag))} rank(s)")
+    return _host(out)
+
+
+def _run_fleet(name, tables, v, p_min, knobs, solver_backend,
+               devices) -> dict:
+    """One block per device, every block launched before any is read."""
+    n_scenarios = int(tables.acc.shape[0])
+    idx = _padded(n_scenarios, len(devices))
+    block = len(idx) // len(devices)
+    pending = [_block(name, tables, idx[i * block:(i + 1) * block], v,
+                      p_min, knobs, solver_backend, resolve_device(d))
+               for i, d in enumerate(devices)]
+    return {k: np.concatenate([x[k].cpu().numpy() for x in pending])[
+        :n_scenarios] for k in SERIES}
 
 
 def sweep(suite_or_tables: Suite | HorizonTables, v: float = 10.0,
@@ -187,10 +281,14 @@ def sweep(suite_or_tables: Suite | HorizonTables, v: float = 10.0,
           policy_params: Mapping | None = None,
           solver_backend: str = "auto", dataplane: bool = False,
           dataplane_params: Mapping | None = None,
-          device=DEFAULT_DEVICE) -> SweepResult:
-    """Run every policy over every stacked scenario on ``device``.
+          device=DEFAULT_DEVICE, devices: Sequence | None = None,
+          group=None) -> SweepResult:
+    """Run every policy over every stacked scenario.
 
-    ``backend`` is ``None`` or ``"loop"`` (the only one ported).
+    ``backend``: ``"loop"`` on ``device``; ``"shard_map"`` over the ranks
+    of ``group`` (the default group when None), each on its ``device``;
+    ``"fleet"`` over ``devices`` (default ``[device]``); None picks as the
+    module docstring says.
     ``solver_backend`` is the rollouts' (``"auto"``: the kernels on the
     card, the plain versions on the CPU; ``"torch"``: the plain versions;
     ``"cuda"`` refuses a suite with a churn mask, which no kernel takes).
@@ -204,11 +302,10 @@ def sweep(suite_or_tables: Suite | HorizonTables, v: float = 10.0,
     "mm1"), with the other ``dataplane_params`` (``DATAPLANE_PARAMS``)
     passed on, and fills the data-plane fields of the result.
     """
-    if backend in NOT_PORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend={backend!r} (the reference's multi-device sweep) is "
-            "not yet ported: it waits for sharding/ (ROADMAP queue 1)")
-    if backend is not None and backend not in BACKENDS:
+    if backend is None:
+        ranks = dist.get_world_size(group) if dist.is_initialized() else 1
+        backend = "shard_map" if ranks > 1 else "loop"
+    if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
     dp = dict(dataplane_params or {})
     unknown = sorted(set(dp) - DATAPLANE_PARAMS)
@@ -233,6 +330,10 @@ def sweep(suite_or_tables: Suite | HorizonTables, v: float = 10.0,
         fams = ["unknown"] * k
     tables = tables.to(dev)
     n_scenarios, n_slots = int(tables.acc.shape[0]), int(tables.acc.shape[1])
+    devices = [str(d) for d in (devices or [dev])]
+    n_devices = {"loop": 1, "fleet": len(devices)}.get(backend) or \
+        dist.get_world_size(group)
+    tag = backend if backend == "loop" else f"{backend}[{n_devices}]"
     params = dict(policy_params or {})
     knobs = {"iters": int(params.get("n_bcd_iters", 4)),
              "dos_weight": float(params.get("dos_weight", 1.0)),
@@ -249,21 +350,25 @@ def sweep(suite_or_tables: Suite | HorizonTables, v: float = 10.0,
         # One span per policy: every scenario's rollout and the host copy
         # of its fleet means.
         try:
-            with obs.span("sweep.policy", policy=name, backend="loop",
+            with obs.span("sweep.policy", policy=name, backend=backend,
                           solver_backend=str(solver_backend),
-                          n_scenarios=n_scenarios, n_devices=1):
-                out = [_reduced(_rollout(name, one, v, p_min, knobs,
-                                         solver_backend, dev),
-                                None if tables.active is None
-                                else tables.active[k])
-                       for k, one in enumerate(per_scenario)]
-                series[name] = {key: np.stack([o[key] for o in out])
-                                for key in ("aopi", "acc", "q")}
+                          n_scenarios=n_scenarios, n_devices=n_devices):
+                if backend == "shard_map":
+                    series[name] = _run_shard_map(
+                        name, tables, v, p_min, knobs, solver_backend, dev,
+                        group)
+                elif backend == "fleet":
+                    series[name] = _run_fleet(name, tables, v, p_min, knobs,
+                                              solver_backend, devices)
+                else:
+                    series[name] = _host(_block(
+                        name, tables, range(n_scenarios), v, p_min, knobs,
+                        solver_backend, dev))
         except Exception as e:  # noqa: BLE001 — isolate the policy cell
             # One failing policy must not abort the whole sweep: record
             # the failure, NaN-fill its series, and keep sweeping.
             errors[name] = f"{type(e).__name__}: {e}"
-            obs.event("sweep.policy_failed", policy=name, backend="loop")
+            obs.event("sweep.policy_failed", policy=name, backend=backend)
             nan = np.full((n_scenarios, n_slots), np.nan)
             series[name] = {"aopi": nan, "acc": nan.copy(),
                             "q": np.full((n_scenarios, n_slots), np.nan)}
@@ -277,7 +382,7 @@ def sweep(suite_or_tables: Suite | HorizonTables, v: float = 10.0,
 
     res = SweepResult(
         names=names, families=fams, policies=list(policies),
-        v=v, p_min=p_min, backend="loop",
+        v=v, p_min=p_min, backend=tag,
         aopi={p: s["aopi"] for p, s in series.items()},
         acc={p: s["acc"] for p, s in series.items()},
         q={p: s["q"] for p, s in series.items()},

@@ -5,13 +5,15 @@ package's ``training/compression.py``).
 format inside the train step: it models the numerics of a compressed
 data-parallel all-reduce. ``torch.round`` and ``jnp.round`` both round
 half to even, and the scales are the same f32 division, so the int8 codes
-are bitwise the JAX package's. The explicit compressed all-reduce
-(``compressed_psum``) needs a process group and waits for the port's
-``sharding/``.
+are bitwise the JAX package's. ``compressed_psum`` is the explicit
+compressed all-reduce over a process group (the JAX package's
+``shard_map`` building block): a MAX all-reduce of the block maxima, one
+shared scale per block, an int32 SUM of the int8 codes, the mean.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..models.common import tree_map
 
@@ -51,3 +53,32 @@ def compress_grads(grads, dp_axes, block: int = 256):
     """Round-trip int8 quantization over the gradient tree (``dp_axes``
     names the data-parallel axes the wire format would cross)."""
     return tree_map(lambda g: roundtrip(g, block), grads)
+
+
+def compressed_psum(x: torch.Tensor, group=None, block: int = 256
+                    ) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``group`` (the default group
+    when None) through the int8 wire format: the block maxima all-reduced
+    by MAX (f32, 1/block of the payload), the shared scale
+    ``max(gmax / 127, 1e-12)``, int8 codes rounded half to even and
+    clipped to [-127, 127], summed as int32, then ``total * scale / n``
+    with n the ranks counted by an int32 SUM, in the JAX package's order.
+    Every rank gets the same result, within max|x| / 127 of the exact
+    mean per block."""
+    from ..sharding import ctx
+    blocks, pad = _blockwise(x.float(), block)
+    gmax = torch.amax(torch.abs(blocks), dim=1, keepdim=True)
+    dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+    ctx.count("all_reduce", gmax)
+    scale = torch.clamp(gmax / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    total = q.to(torch.int32)
+    dist.all_reduce(total, group=group)
+    ctx.count("all_reduce", total)
+    n = torch.ones((), dtype=torch.int32, device=x.device)
+    dist.all_reduce(n, group=group)
+    ctx.count("all_reduce", n)
+    out = (total.float() * scale / n.float()).reshape(-1)
+    if pad:
+        out = out[:-pad]
+    return out.reshape(x.shape)

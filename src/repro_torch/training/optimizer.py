@@ -67,18 +67,34 @@ def init(params, cfg: AdamWConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """The f32 L2 norm over every leaf of ``tree``."""
+def global_norm(tree, placements=None, mesh=None) -> torch.Tensor:
+    """The f32 L2 norm over every leaf of ``tree``.
+
+    Over a mesh, ``tree`` holds this rank's slices and ``placements`` a
+    tree of their placements (``spec`` lists, mesh axes of extent 1
+    included): each leaf's squared norm is summed over the mesh axes that
+    leaf is sharded on, and only those, so a replicated leaf counts once.
+    The leaves are then summed in order, as on one card."""
+    from ..sharding import ctx
+    from ..sharding.spec import axes_of
+    specs = [None] * len(tree_leaves(tree)) if placements is None else \
+        tree_leaves(placements)
     total = None
-    for x in tree_leaves(tree):
+    for x, dims in zip(tree_leaves(tree), specs):
         sq = torch.sum(torch.square(x.float()))
+        axes = [a for entry in (dims or ()) for a in axes_of(entry)]
+        if axes:
+            sq = ctx.all_reduce(sq, axes, m=mesh)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
-def update(params, grads, state, cfg: AdamWConfig, *, donate: bool = False):
+def update(params, grads, state, cfg: AdamWConfig, *, donate: bool = False,
+           placements=None, mesh=None):
     """One AdamW step. Returns (params, state, metrics) with metrics
-    {"grad_norm", "lr"} (0-d f32 tensors).
+    {"grad_norm", "lr"} (0-d f32 tensors). Over a mesh every tree holds
+    this rank's slices, and ``placements`` and ``mesh`` reach the clip's
+    ``global_norm``.
 
     ``donate=True`` writes the new parameters, ``m`` and ``v`` into the
     given tensors leaf by leaf and returns those trees, as the JAX
@@ -86,7 +102,7 @@ def update(params, grads, state, cfg: AdamWConfig, *, donate: bool = False):
     f32 moments would not fit twice on the card. Otherwise new trees are
     returned and the inputs are left as they were."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, placements, mesh)
     if cfg.grad_clip:
         scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     else:

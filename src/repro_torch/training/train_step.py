@@ -12,14 +12,28 @@ backward pass and refuse to run under autograd.
 Optional int8 gradient compression (``training.compression``) models the
 data-parallel all-reduce's wire format; as in the JAX package it applies
 only when ``dp_axes`` names data-parallel axes.
+
+Over a mesh (``spmd``: a :class:`MeshStep`) every rank holds its slices
+of the parameters, optimizer state and batch rows. The model runs on the
+FSDP-gathered layout (gathered once before the microbatch loop when the
+gather is hoisted, per microbatch otherwise); gradients are summed over
+the data axes (an all-reduce, or a reduce-scatter onto the FSDP shards;
+a leaf whose forward layout is split over a data axis, like the experts,
+already holds the sum) and averaged; the loss is averaged over the data
+axes and the clip's norm reduces each leaf over its own mesh axes.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
 
 from ..models.common import tree_leaves, tree_map
+from ..sharding import ctx as shard_ctx
+from ..sharding import rules as rules_mod
+from ..sharding.spec import axes_of, mesh_dims
 from . import optimizer as opt_mod
 from .compression import compress_grads
 
@@ -48,11 +62,83 @@ def _value_and_grad(model, params, batch):
     return loss.detach(), tree_map(lambda p: grads.pop().float(), params)
 
 
+@dataclasses.dataclass
+class MeshStep:
+    """How a train step runs over a mesh: the stored layout (``rules``,
+    FSDP included) of ``template``'s leaves, the forward layout the model
+    runs on (``rules.gathered``), and whether the FSDP gather is hoisted
+    out of the microbatch loop."""
+    mesh: object
+    rules: dict
+    template: dict
+    hoist: bool = False
+
+    def __post_init__(self):
+        self.model_rules = rules_mod.gathered(self.rules)
+        self.dp_axes = tuple(axes_of(self.rules["batch"]))
+        self.dp = math.prod(self.mesh.shape.get(a, 1) for a in self.dp_axes)
+        self.stored = tree_map(lambda p: mesh_dims(p.shape, p.axes,
+                                                   self.rules), self.template)
+        self.forward = tree_map(lambda p: mesh_dims(p.shape, p.axes,
+                                                    self.model_rules),
+                                self.template)
+
+    def gather(self, params):
+        """The forward layout of stored slices: each FSDP dim gathered
+        over its data axis (and a data split that moved to another dim,
+        like the router's under FSDP, taken there). No autograd."""
+        m = self.mesh
+
+        def leaf(t, st, fw):
+            for d, (s, f) in enumerate(zip(st, fw)):
+                for a in reversed(axes_of(s)):
+                    if a not in axes_of(f):
+                        t = shard_ctx.gather_dim(t, a, d, m)
+            for d, (s, f) in enumerate(zip(st, fw)):
+                for a in axes_of(f):
+                    if a not in axes_of(s):
+                        t = shard_ctx.slice_dim(t, a, d, m)
+            return t.contiguous()
+        return tree_map(leaf, params, self.stored, self.forward)
+
+    def reduce(self, grads):
+        """Forward-layout gradients -> the stored layout, summed over the
+        data axes where the forward pass did not already sum them, then
+        divided by the data extent. In place where it can."""
+        m = self.mesh
+
+        def leaf(g, st, fw):
+            fw_axes = {a for f in fw for a in axes_of(f)}
+            for a in self.dp_axes:
+                if a in fw_axes:
+                    continue
+                dims = [d for d, s in enumerate(st) if a in axes_of(s)]
+                if dims:
+                    g = shard_ctx.scatter_dim(g, a, dims[0], m)
+                else:
+                    g = shard_ctx.all_reduce(g.contiguous(), a, m=m)
+            for d, (s, f) in enumerate(zip(st, fw)):
+                for a in axes_of(f):
+                    if a not in axes_of(s):
+                        g = shard_ctx.gather_dim(g, a, d, m)
+            for d, (s, f) in enumerate(zip(st, fw)):
+                for a in axes_of(s):
+                    if a not in axes_of(f) and a in fw_axes:
+                        g = shard_ctx.slice_dim(g, a, d, m)
+            return g.contiguous().mul_(1.0 / self.dp)
+        return tree_map(leaf, grads, self.stored, self.forward)
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the data axes of a per-rank value."""
+        return shard_ctx.all_reduce(x.detach().clone(), self.dp_axes,
+                                    m=self.mesh) / self.dp
+
+
 def make_train_step(model, opt_cfg: opt_mod.AdamWConfig,
                     n_microbatches: int = 1, compression: bool = False,
                     dp_axes: Optional[tuple] = None,
                     pre_constrain: Optional[Callable] = None,
-                    donate: bool = False):
+                    donate: bool = False, spmd: Optional[MeshStep] = None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), metrics {"loss", "grad_norm", "lr"} as 0-d tensors.
 
@@ -61,18 +147,36 @@ def make_train_step(model, opt_cfg: opt_mod.AdamWConfig,
     there; on one card it is any map the caller wants applied once), the
     gradients taken at its output. ``donate=True`` lets the optimizer
     write the new parameters and moments into the given trees
-    (``optimizer.update``), as the JAX launcher donates them."""
+    (``optimizer.update``), as the JAX launcher donates them.
+
+    ``spmd``: run over a mesh (module docstring). Each rank passes its
+    slices and its batch rows; ``pre_constrain`` defaults to the hoisted
+    FSDP gather when ``spmd.hoist``, and the step's metrics are the same
+    on every rank."""
+    hoisted = spmd is not None and spmd.hoist
+    if hoisted and pre_constrain is None:
+        pre_constrain = spmd.gather
+    per_micro = spmd is not None and not hoisted
+
+    def grads_of(params, mb):
+        if per_micro:
+            params = spmd.gather(params)
+        if spmd is None:
+            return _value_and_grad(model, params, mb)
+        with shard_ctx.activation_rules(spmd.model_rules):
+            loss, grads = _value_and_grad(model, params, mb)
+        return loss, spmd.reduce(grads) if per_micro else grads
 
     def compute_grads(params, batch):
         if n_microbatches == 1:
-            return _value_and_grad(model, params, batch)
+            return grads_of(params, batch)
         mbs = split_microbatches(batch, n_microbatches)
-        loss = None
-        gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device), params)
+        loss = gacc = None
         for i in range(n_microbatches):
-            l, grads = _value_and_grad(model, params,
-                                       {k: v[i] for k, v in mbs.items()})
+            l, grads = grads_of(params, {k: v[i] for k, v in mbs.items()})
+            if gacc is None:
+                gacc = tree_map(lambda g: torch.zeros(
+                    g.shape, dtype=torch.float32, device=g.device), grads)
             loss = l.float() if loss is None else loss + l
             gacc = tree_map(lambda a, g: a.add_(g), gacc, grads)
             del grads
@@ -82,10 +186,17 @@ def make_train_step(model, opt_cfg: opt_mod.AdamWConfig,
     def train_step(params, opt_state, batch):
         gparams = pre_constrain(params) if pre_constrain else params
         loss, grads = compute_grads(gparams, batch)
+        placements = mesh = None
+        if spmd is not None:
+            if hoisted:
+                grads = spmd.reduce(grads)
+            loss = spmd.mean(loss)
+            placements, mesh = spmd.stored, spmd.mesh
         if compression and dp_axes:
             grads = compress_grads(grads, dp_axes)
         params, opt_state, metrics = opt_mod.update(
-            params, grads, opt_state, opt_cfg, donate=donate)
+            params, grads, opt_state, opt_cfg, donate=donate,
+            placements=placements, mesh=mesh)
         metrics["loss"] = loss
         return params, opt_state, metrics
 

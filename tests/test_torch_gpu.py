@@ -1665,3 +1665,148 @@ def test_gpu_launcher_resumes(cuda, tmp_path, monkeypatch):
     for a, b in zip(tree_leaves(whole["params"]),
                     tree_leaves(resumed["params"])):
         assert float((a - b).abs().max()) <= 1e-6 * float(a.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The multi-device half over NCCL, one card a rank (two or more cards)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cards():
+    """The ranks to spawn: 4 with four cards or more, else 2; skips with
+    fewer than two cards."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    return 4 if n >= 4 else 2
+
+
+def _mesh_params(cfg, seed=0):
+    """Full parameters of ``cfg`` drawn on the CPU (numpy for the ranks,
+    tensors for the one-card run)."""
+    import torch_mesh_workers as workers
+    model = models.build(cfg, impl="torch")
+    params = models.common.init_params(
+        model.template(), torch.Generator().manual_seed(seed), device="cpu")
+    return model, params, workers.flat_numpy(params)
+
+
+def _tree_to(tree, dev):
+    return models.common.tree_map(lambda t: t.to(dev), tree)
+
+
+@pytest.mark.parametrize("layout", ["tp", "dp"])
+def test_gpu_mesh_forward_and_train_match_one_card(cards, layout, tmp_path):
+    import torch_mesh_workers as workers
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.train_step import make_train_step
+    cfg = dataclasses.replace(configs.get("qwen2.5-3b").reduced(), fsdp=True)
+    mesh = {"tp": [cards // 2, 2], "dp": [cards, 1]}[layout]
+    model, params, arrays = _mesh_params(cfg)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (8, 17), generator=gen,
+                         dtype=torch.int32)
+    arrays["tokens"] = toks[:, :16].numpy()
+    p_dev = _tree_to(params, dev)
+    with torch.no_grad():
+        want, _ = model.forward(p_dev, {"tokens": toks[:, :16].to(dev)})
+    args = dict(arch="qwen2.5-3b", cfg=dict(fsdp=True), mesh=mesh,
+                device="cuda")
+    for out in workers.spawn("forward", cards, tmp_path / "fwd", args,
+                             arrays):
+        np.testing.assert_allclose(out["logits"], want.cpu().numpy(),
+                                   atol=1e-4, rtol=0)
+    opt = dict(lr=1e-3, warmup_steps=1)
+    ocfg = opt_mod.AdamWConfig(**opt)
+    batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    p_want, _, m_want = make_train_step(model, ocfg, n_microbatches=2)(
+        p_dev, opt_mod.init(p_dev, ocfg), batch)
+    arrays["tokens"] = toks.numpy()
+    outs = workers.spawn("train", cards, tmp_path / "train",
+                         dict(args, opt=opt, microbatches=2, hoist=True),
+                         arrays)
+    flat_want = workers.flat_numpy(_tree_to(p_want, "cpu"))
+    for out in outs:
+        assert float(out["loss"]) == pytest.approx(float(m_want["loss"]),
+                                                   rel=1e-5)
+        for key, w in flat_want.items():
+            np.testing.assert_allclose(out[key], w, atol=3e-5, rtol=0,
+                                       err_msg=key)
+
+
+def test_gpu_mesh_moe_all_to_all_matches_one_card(cards, tmp_path):
+    import torch_mesh_workers as workers
+    over = dict(n_experts=4, top_k=2, capacity_factor=2.0)
+    cfg = dataclasses.replace(configs.get("dbrx-132b").reduced(), **over)
+    mesh = [2, cards // 2] if cards >= 4 else [2, 1]
+    model, params, arrays = _mesh_params(cfg)
+    toks = torch.randint(0, cfg.vocab, (4, 16),
+                         generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    arrays["tokens"] = toks.numpy()
+    dev = torch.device("cuda", 0)
+    with torch.no_grad():
+        want, _ = model.forward(_tree_to(params, dev),
+                                {"tokens": toks.to(dev)})
+    outs = workers.spawn("forward", cards, tmp_path,
+                         dict(arch="dbrx-132b", cfg=over, mesh=mesh,
+                              device="cuda"), arrays)
+    for out in outs:
+        np.testing.assert_allclose(out["logits"], want.cpu().numpy(),
+                                   atol=2e-3, rtol=0)
+        assert any(k.startswith("route_") for k in out)
+
+
+def test_gpu_mesh_serving_matches_one_card(cards, tmp_path):
+    import torch_mesh_workers as workers
+    cfg = dataclasses.replace(configs.get("qwen2.5-3b").reduced(), fsdp=True)
+    mesh = [2, cards // 2] if cards >= 4 else [1, 2]
+    model, params, arrays = _mesh_params(cfg, seed=3)
+    toks = torch.randint(0, cfg.vocab, (4, 12),
+                         generator=torch.Generator().manual_seed(4),
+                         dtype=torch.int32)
+    arrays["tokens"] = toks.numpy()
+    dev = torch.device("cuda", 0)
+    p_dev = _tree_to(params, dev)
+    cache = models.common.init_params(model.cache_template(4, 32),
+                                      torch.Generator(device=dev),
+                                      device=dev)
+    with torch.no_grad():
+        logits, cache = model.prefill(p_dev, {"tokens": toks.to(dev)}, cache)
+        steps, chosen = [logits[:, 0]], []
+        for _ in range(8):
+            nxt = torch.argmax(steps[-1], dim=-1).to(torch.int32)
+            chosen.append(nxt)
+            logits, cache = model.decode_step(p_dev, nxt, cache)
+            steps.append(logits)
+    outs = workers.spawn("serve", cards, tmp_path,
+                         dict(arch="qwen2.5-3b", cfg=dict(fsdp=True),
+                              mesh=mesh, device="cuda", max_len=32,
+                              n_decode=8), arrays)
+    for out in outs:
+        np.testing.assert_array_equal(out["tokens"],
+                                      torch.stack(chosen, 1).cpu().numpy())
+        np.testing.assert_allclose(out["logits"],
+                                   torch.stack(steps, 1).cpu().numpy(),
+                                   atol=1e-4, rtol=0)
+
+
+def test_gpu_mesh_sweep_backends_equal_loop(cards, tmp_path):
+    """shard_map over one rank a card; then, with the ranks gone, loop on
+    the first card and fleet over every card from this process."""
+    import torch_mesh_workers as workers
+    from repro_torch import scenarios
+    suite = dict(names=["steady_ar1", "camera_churn", "server_outage"],
+                 dims=dict(n_cameras=8, n_servers=3, n_slots=6, seed=0,
+                           churn_t0=1),
+                 device="cuda")
+    outs = workers.spawn("sweep", cards, tmp_path, suite, timeout=300)
+    want = workers.sweep_series(scenarios, suite, "loop", "cuda:0")
+    fleet = workers.sweep_series(scenarios, suite, "fleet", "cuda:0",
+                                 devices=[f"cuda:{i}" for i in range(cards)])
+    assert str(fleet["backend"]) == f"fleet[{cards}]"
+    for key in [k for k in want if k != "backend"]:
+        np.testing.assert_array_equal(fleet[key], want[key], err_msg=key)
+        for out in outs:
+            np.testing.assert_array_equal(out[key], want[key], err_msg=key)

@@ -348,11 +348,6 @@ def test_moe_apply_matches_reference(decode, shared):
     assert ("shared" in pt) == bool(shared)
 
 
-def test_moe_expert_parallel_path_is_not_ported():
-    with pytest.raises(NotImplementedError, match="entry 5"):
-        t_moe._moe_apply_a2a()
-
-
 # ---------------------------------------------------------------------------
 # The reduced model
 # ---------------------------------------------------------------------------

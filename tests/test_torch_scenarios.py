@@ -392,9 +392,6 @@ def test_robustness_equals_reference(sweeps):
 def test_sweep_refusals():
     st = t_scen.suite(["steady_ar1", "camera_churn"], SWEEP_DIMS,
                       device="cpu")
-    for backend in ("shard_map", "fleet"):
-        with pytest.raises(NotImplementedError, match="sharding"):
-            t_scen.sweep(st, backend=backend, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         t_scen.sweep(st, backend="vmap", device="cpu")
     with pytest.raises(ValueError, match="unknown dataplane_params"):

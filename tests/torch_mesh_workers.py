@@ -1,0 +1,354 @@
+"""Ranks of the port's multi-rank tests, one process each: gloo on the
+CPU, or NCCL with one card a rank (``args["device"] == "cuda"``).
+
+    python tests/torch_mesh_workers.py TASK RANK WORLD DIR
+
+``spawn`` starts WORLD such processes with ``PYTHONPATH=src`` and waits
+for them. Each joins the group through a ``FileStore`` in DIR (no port),
+runs TASK with one thread, reads its inputs from ``DIR/in.npz`` and
+``DIR/args.json`` (written by the test: numpy arrays made from a seed,
+parameters from the JAX package's ``init_params`` or the port's), and
+writes its results to ``DIR/out_RANK.npz``. Imports no JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def spawn(task: str, world: int, tmp, args: dict | None = None,
+          arrays: dict | None = None, timeout: float = 240.0) -> list:
+    """Run ``task`` on ``world`` ranks; return each rank's outputs."""
+    tmp = Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    (tmp / "args.json").write_text(json.dumps(args or {}))
+    np.savez(tmp / "in.npz", **(arrays or {}))
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    env.pop("WORLD_SIZE", None)
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, task, str(r), str(world), str(tmp)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {task} exited "
+                                 f"{p.returncode}:\n{log[-4000:]}")
+    return [dict(np.load(tmp / f"out_{r}.npz")) for r in range(world)]
+
+
+def flat_numpy(tree, prefix: str = "p/") -> dict:
+    """A nested dict of arrays (numpy, JAX or torch on the CPU) as flat
+    ``prefix + "a/b/c"`` keys of numpy arrays, for ``in.npz``."""
+    out = {}
+
+    def rec(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                rec(v, f"{path}/{k}" if path else k)
+        else:
+            out[prefix + path] = np.asarray(t)
+    rec(tree, "")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Helpers inside a rank
+# ---------------------------------------------------------------------------
+
+def _cfg(args):
+    from repro_torch import configs
+    cfg = configs.get(args["arch"]).reduced()
+    return dataclasses.replace(cfg, **args.get("cfg", {}))
+
+
+def _params(inp, prefix="p/"):
+    """The nested dict stored flat in the npz under ``prefix``."""
+    from repro_torch.models.convert import params_from_numpy
+    tree = {}
+    for key, a in inp.items():
+        if not key.startswith(prefix):
+            continue
+        node = tree
+        parts = key[len(prefix):].split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = a
+    return params_from_numpy(tree, device="cpu")
+
+
+def _flat(tree, prefix):
+    import torch
+    out = {}
+
+    def rec(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                rec(v, f"{path}/{k}" if path else k)
+        else:
+            out[prefix + path] = t.detach().float().cpu().numpy() \
+                if isinstance(t, torch.Tensor) else np.asarray(t)
+    rec(tree, "")
+    return out
+
+
+def _gather(t, axes, shape, mesh, rules):
+    """The full tensor of global ``shape`` from this rank's slice laid
+    out along logical ``axes``."""
+    from repro_torch.models.common import P, gather_tree
+    return gather_tree({"x": t}, {"x": P(tuple(shape), tuple(axes))}, rules,
+                       mesh)["x"]
+
+
+def _device(args) -> str:
+    return args.get("device", "cpu")
+
+
+def _mesh(args):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(tuple(args["mesh"]), ("data", "model"),
+                     device=_device(args))
+
+
+# ---------------------------------------------------------------------------
+# Tasks
+# ---------------------------------------------------------------------------
+
+def task_forward(rank, inp, args):
+    """The model's forward on the mesh: full logits, aux, and this rank's
+    routing decisions (MoE)."""
+    import torch
+
+    from repro_torch.models import build, moe
+    from repro_torch.models.common import shard_tree
+    from repro_torch.sharding import ctx, rules as rules_mod
+    from repro_torch.training.train_step import MeshStep
+    cfg = _cfg(args)
+    mesh = _mesh(args)
+    rules = rules_mod.make_rules(cfg, mesh)
+    model = build(cfg, impl="torch", ep_degree=rules_mod.ep_degree(mesh))
+    tmpl = model.template()
+    params = shard_tree(_params(inp), tmpl, rules, mesh)
+    spmd = MeshStep(mesh, rules, tmpl)
+    toks = torch.from_numpy(inp["tokens"]).to(mesh.device)
+    b_loc = toks.shape[0] // mesh.shape["data"]
+    lo = mesh.coord("data") * b_loc
+    routes = []
+    real = moe._routing
+
+    def record(*a, **k):
+        out = real(*a, **k)
+        routes.append(torch.where(out[2], out[0] * 1000 + out[1],
+                                  torch.full_like(out[0], -1)))
+        return out
+    moe._routing = record
+    with torch.no_grad(), ctx.activation_rules(spmd.model_rules):
+        logits, aux = model.forward(spmd.gather(params),
+                                    {"tokens": toks[lo:lo + b_loc]})
+        logits = _gather(logits, ("batch", None, "vocab"),
+                         (toks.shape[0], toks.shape[1], cfg.padded_vocab),
+                         mesh, spmd.model_rules)
+    out = {"logits": logits.cpu().numpy(), "aux": np.asarray(float(aux)),
+           "rows": np.asarray([lo, b_loc])}
+    for i, r in enumerate(routes):
+        out[f"route_{i}"] = r.cpu().numpy()
+    return out
+
+
+def task_serve(rank, inp, args):
+    """Prefill and greedy decode through plan_cell: full logits of each
+    step and the tokens."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.specs import plan_cell
+    cfg = _cfg(args)
+    mesh = _mesh(args)
+    toks = torch.from_numpy(inp["tokens"])
+    gb, s = toks.shape
+    max_len = args["max_len"]
+    pre = plan_cell(cfg, InputShape("p", max_len, gb, "prefill"), mesh,
+                    impl="torch")
+    dec = plan_cell(cfg, InputShape("d", max_len, gb, "decode"), mesh,
+                    impl="torch")
+    full = _params(inp)
+    params, batch, _ = pre.shard(full, {"tokens": toks}, None)
+    cache = pre.cache()
+    logits, cache = pre.step_fn(params, batch, cache)
+    rules = pre.spmd.model_rules
+    shape = (gb, cfg.padded_vocab)
+    steps = [_gather(logits[:, 0], ("batch", "vocab"), shape, mesh, rules)]
+    chosen = []
+    for _ in range(args["n_decode"]):
+        nxt = torch.argmax(steps[-1], dim=-1).to(torch.int32)
+        chosen.append(nxt)
+        _, tok_l, _ = dec.shard(None, nxt, None)
+        logits, cache = dec.step_fn(params, tok_l, cache)
+        steps.append(_gather(logits, ("batch", "vocab"), shape, mesh,
+                             rules))
+    return {"logits": torch.stack(steps, 1).cpu().numpy(),
+            "tokens": torch.stack(chosen, 1).cpu().numpy()}
+
+
+def task_train(rank, inp, args):
+    """One planned train step: full parameters after it, loss, grad
+    norm."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.specs import plan_cell
+    from repro_torch.models.common import gather_tree
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.train_step import make_train_step
+    cfg = _cfg(args)
+    mesh = _mesh(args)
+    toks = torch.from_numpy(inp["tokens"])
+    gb, s = toks.shape[0], toks.shape[1] - 1
+    ocfg = opt_mod.AdamWConfig(**args["opt"])
+    nm = args["microbatches"]
+    plan = plan_cell(cfg, InputShape("t", s, gb, "train"), mesh,
+                     n_microbatches=nm, hoist_fsdp_gather=args["hoist"])
+    # The plan's step with this optimizer: the plan's own takes
+    # opt_config's, whose warm-up moves a parameter by ~3e-6 in the first
+    # step, below the tests' bars.
+    step = make_train_step(plan.model, ocfg, n_microbatches=nm, donate=True,
+                           spmd=plan.spmd)
+    full = _params(inp)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    params, opt_state, batch = plan.shard(full, opt_mod.init(full, ocfg),
+                                          batch)
+    params, opt_state, metrics = step(params, opt_state, batch)
+    params = gather_tree(params, plan.model.template(), plan.rules, mesh)
+    out = _flat(params, "p/")
+    out.update(loss=np.asarray(float(metrics["loss"])),
+               grad_norm=np.asarray(float(metrics["grad_norm"])),
+               hoist=np.asarray(plan.spmd.hoist))
+    return out
+
+
+def task_remat(rank, inp, args):
+    """Gradients under remat "full" against remat "none" on the mesh, the
+    backward pass taken outside the rules' context (as autograd's own
+    thread takes it on the card): full parameters' gradients and loss."""
+    import torch
+
+    from repro_torch.models import build
+    from repro_torch.models.common import (gather_tree, shard_tree,
+                                           tree_leaves, tree_map)
+    from repro_torch.sharding import ctx, rules as rules_mod
+    from repro_torch.training.train_step import MeshStep
+    mesh = _mesh(args)
+    out = {}
+    for remat in ("none", "full"):
+        cfg = dataclasses.replace(_cfg(args), remat=remat)
+        rules = rules_mod.make_rules(cfg, mesh)
+        model = build(cfg, impl="torch", ep_degree=rules_mod.ep_degree(mesh))
+        tmpl = model.template()
+        spmd = MeshStep(mesh, rules, tmpl)
+        params = spmd.gather(shard_tree(_params(inp), tmpl, rules, mesh))
+        params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        toks = torch.from_numpy(inp["tokens"]).to(mesh.device)
+        b_loc = toks.shape[0] // mesh.shape["data"]
+        lo = mesh.coord("data") * b_loc
+        rows = toks[lo:lo + b_loc]
+        with torch.enable_grad():
+            with ctx.activation_rules(spmd.model_rules):
+                loss = model.loss(params, {"tokens": rows[:, :-1],
+                                           "labels": rows[:, 1:]})
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+        grads = list(grads)
+        grads.reverse()
+        tree = spmd.reduce(tree_map(lambda p: grads.pop().float(), params))
+        out.update(_flat(gather_tree(tree, tmpl, rules, mesh), f"{remat}/"))
+        out[f"{remat}/loss"] = np.asarray(float(spmd.mean(loss)))
+    return out
+
+
+def task_psum(rank, inp, args):
+    """compressed_psum of this rank's rows."""
+    import torch
+
+    from repro_torch.training.compression import compressed_psum
+    return {f"out_{n}": compressed_psum(
+        torch.from_numpy(inp[f"x_{n}"][rank]).to(_rank_device(args, rank)),
+        block=args["block"]).cpu().numpy() for n in args["lengths"]}
+
+
+def task_sweep(rank, inp, args):
+    """The sweep's shard_map over the world (the caller runs loop and
+    fleet itself, with no rank waiting on a collective meanwhile)."""
+    from repro_torch import scenarios
+    return sweep_series(scenarios, args, "shard_map",
+                        device=_rank_device(args, rank))
+
+
+def sweep_series(scenarios, suite: dict, backend: str, device,
+                 **kw) -> dict:
+    """``scenarios.sweep`` of ``suite`` (names and dims) under ``backend``:
+    ``{"backend": tag, "POLICY/KEY": [K, T] series}``."""
+    st = scenarios.suite(suite["names"], device=device, **suite["dims"])
+    res = scenarios.sweep(st, backend=backend, device=device, **kw)
+    if res.errors:
+        raise AssertionError(f"{backend}: {res.errors}")
+    out = {"backend": np.asarray(res.backend)}
+    for p in res.policies:
+        for key in ("aopi", "acc", "q"):
+            out[f"{p}/{key}"] = getattr(res, key)[p]
+    return out
+
+
+def task_launch(rank, inp, args):
+    """launch.train.run over the world."""
+    from repro_torch.launch import train
+    out = train.run(_cfg(args), device="cpu", log_every=0, **args["run"])
+    return {"losses": np.asarray(out["losses"]),
+            "grad_norms": np.asarray(out["grad_norms"]),
+            "mesh": np.asarray(str(out["mesh"].shape))}
+
+
+def _rank_device(args, rank: int) -> str:
+    return f"cuda:{rank}" if _device(args) == "cuda" else "cpu"
+
+
+def main(task, rank, world, tmp) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+    torch.set_num_threads(1)
+    tmp = Path(tmp)
+    args = json.loads((tmp / "args.json").read_text())
+    inp = dict(np.load(tmp / "in.npz"))
+    init_distributed(_device(args), rank=rank, world_size=world,
+                     store=dist.FileStore(str(tmp / "store"), world),
+                     local_rank=rank)
+    try:
+        out = globals()[f"task_{task}"](rank, inp, args)
+        np.savez(tmp / f"out_{rank}.npz", **out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

@@ -30,7 +30,16 @@ Phases, each of which raises on failure (exit code non-zero):
                 including 1, t and 0 (zeros) and lengths on and beside the
                 split boundaries (flash_decode also at jamba's widths; its
                 device time is per wrapper call, split and combine passes
-                summed),
+                summed); flash_decode's split and combine entries apart
+                (flash_decode_split over each block of a cache cut in 1,
+                2 and 4 blocks as ranks hold it, the partials against
+                decode_partials_ref, flash_decode_combine over every
+                block's: against decode_ref and the one-call kernel at
+                ATTN_TOL, bitwise it at one block; at qwen2.5-3b's and
+                jamba's widths, f32 and bf16, empty blocks and lengths on
+                block boundaries), timed at qwen2.5-3b's widths in 4
+                blocks (no single PyTorch call computes either pass:
+                library_ms null);
                 each timed beside its plain version and one
                 scaled_dot_product_attention call (library_ms); both also
                 at the rest of the ladder's shapes and modes (phase 10's),
@@ -78,10 +87,11 @@ Phases, each of which raises on failure (exit code non-zero):
   3. end to end - each path driven through its entry point with the launch
                 counters zeroed just before and read just after, against the
                 plain (solver_backend="torch") run on the card:
-                LBCDController at N=10,000 on S=32 (T=2) and with
-                "auto:tile=256" (T=2), the paper setting (N=30, S=3, T=25)
+                LBCDController at N=10,000 on S=32 (T=1) and with
+                "auto:tile=256" (T=1), the paper setting (N=30, S=3, T=25;
+                the plain run over its first 10 slots)
                 with ":nofuse", MIN (T=2) and JCAB (T=4) at N=100,000 on
-                S=32, DOS at N=10,000 (T=2), EnergyAwareLBCD in the paper
+                S=32, DOS at N=10,000 (T=1), EnergyAwareLBCD in the paper
                 setting with the energy queue z > 0 (its plain run held
                 over the first 3 slots); MIN, DOS and JCAB must equal the
                 plain run, LBCD and energy meet the rollout contract; every
@@ -92,12 +102,12 @@ Phases, each of which raises on failure (exit code non-zero):
   4. LM serving - qwen2.5-3b at full width and depth (36 layers, f32
                 parameters from a seeded torch.Generator, 13.6 GB) served by
                 repro_torch.serving.Engine (8 lanes, 4096-row caches):
-                (a) measure_engine_epoch over 8 streams of 8 frames, half
+                (a) measure_engine_epoch over 8 streams of 4 frames, half
                 FCFS and half LCFSP (the service's engine rung), a liveness and
                 plane-parity check: its statistics come from the host draws
                 and event loop, so they must equal the same epoch on the
                 replay engine, but they do not see the tokens; (b) 8 admits of
-                512-3,072-token prompts and 64 decode ticks, timed, then
+                512-3,072-token prompts and 32 decode ticks, timed, then
                 held teacher-forced against the same engine built with
                 impl="torch": logits within atol 2e-3 at every step and the
                 share of identical argmax tokens >= 0.99. Both attention
@@ -111,7 +121,7 @@ Phases, each of which raises on failure (exit code non-zero):
   5. xLSTM serving - xlstm-1.3b at full width and depth (48 layers: 6
                 periods of 7 mLSTM and 1 sLSTM, f32 parameters from a
                 seeded torch.Generator, 7.94 GB; qwen2.5-3b's freed first),
-                the same (a) and (b) as phase 4, (b)'s prompts a quarter
+                the same (a) and (b) as phase 4, (b)'s prompts an eighth
                 as long (128-768 tokens), with logits within 0.1
                 (see LOGIT_ATOL), then one period (8 layers) of the same
                 weights teacher-forced within 1e-3 and the plain run's
@@ -137,7 +147,7 @@ Phases, each of which raises on failure (exit code non-zero):
                 in the 7 scans and in the 4 MoE layers, and of a tick in
                 the Mamba decode steps and the MoE layers.
   7. scenario sweep - repro_torch.scenarios.suite() at its own size but
-                the horizon (11 scenarios, N=30, S=3, T=60 of its 200)
+                the horizon (11 scenarios, N=30, S=3, T=20 of its 200)
                 swept by LBCD, MIN, DOS and
                 JCAB (solver_backend="auto") with obs streaming to a
                 temporary run directory, each policy with the launch
@@ -156,10 +166,10 @@ Phases, each of which raises on failure (exit code non-zero):
                 camera_churn, camera_churn_heavy and steady_ar1 at the
                 suite's size (the sweep's parity cannot see it: both of
                 its sweeps replay the same graphs for the masked solves);
-                the suite cut to 6 slots, kernel series equal to the
+                the suite cut to 3 slots, kernel series equal to the
                 plain (solver_backend="torch") series exactly; the LBCD
-                sweep of the scenarios that run on the kernels, cut to 10
-                slots, in 6 pairs with obs off and on (order alternating):
+                sweep of the scenarios that run on the kernels, cut to 6
+                slots, in 3 pairs with obs off and on (order alternating):
                 medians, quartiles and the median on/off ratio; the cost
                 of one obs span and one dispatch count timed alone
                 (20,000 calls each), and their share of a kernel LBCD
@@ -170,7 +180,7 @@ Phases, each of which raises on failure (exit code non-zero):
                 epoch_duration=300) for 16 epochs with delay_model="auto"
                 and telemetry_gain=0.3, and again with mode="engine" on the
                 scan backend; scenarios.sweep(suite(n_cameras=16,
-                n_slots=60, n_servers=3), dataplane=True, 16 replayed 600 s
+                n_slots=16, n_servers=3), dataplane=True, 16 replayed 600 s
                 epochs) per policy, timed; both kernels must launch, every
                 series be finite, no plan fail or fall back to a rung of the
                 degradation ladder, and measured AoPI lie within 15% of the
@@ -196,7 +206,8 @@ Phases, each of which raises on failure (exit code non-zero):
                 restored; (d) launch.serve.main at its CLI defaults (mm1,
                 16 streams, 8 epochs of 1,200 s; measured within 15% of
                 predicted) and with --engine --streams 2 (reduced
-                qwen2.5-3b, 8 epochs of 3 s, the event-driven plane; both
+                qwen2.5-3b, 2 of the CLI's 8 epochs of 3 s, the event-driven
+                plane; both
                 attention kernels must launch), tables and wall seconds
                 printed.
  10. the rest of the LM ladder - each architecture at full width, f32
@@ -204,7 +215,7 @@ Phases, each of which raises on failure (exit code non-zero):
                 next: yi-6b (32 layers, 24.2 GB), yi-34b (4 of 60 layers),
                 qwen2-moe-a2.7b (8 of 24 layers, all 60 routed and 4
                 shared experts, top-4), dbrx-132b (2 of 40 layers, 16
-                experts, top-4) and minicpm3-4b (62 layers, MLA) served by
+                experts, top-4) and minicpm3-4b (16 of 62 layers, MLA) served by
                 the Engine (4 lanes of 1,280 rows): prompts of 256, 512,
                 768 and 1,024 tokens and 16 decode ticks, timed, with
                 flash_attention launched once per attention layer and
@@ -264,7 +275,18 @@ Phases, each of which raises on failure (exit code non-zero):
                 (logits within 2e-3, >= 99% of the argmax tokens equal)
                 and bitwise equal to the unsharded model on the same
                 parameters and tokens, with exactly 8 flash_attention and 128
-                flash_decode launches on the planned path; (b) the planned
+                flash_decode launches on the planned path; (a2) the same
+                cut and (a3) jamba's phase-6 cut (one period at full
+                width, 64.99 GB f32) with the decode cache's rows split
+                over ``model`` ({"cache_seq": "model", "kv_heads": None}):
+                the unsharded model's greedy prefill and decode (2 x 1,024
+                tokens and 16 steps; 2 x 512 and 8), then plan_cell's on
+                the same tokens through flash_decode_split and
+                flash_decode_combine (once each per attention layer and
+                step, flash_decode never): bitwise the unsharded model at
+                a model extent of 1 and within phase 10's bars of the same
+                plans with impl="torch" ((a3) on a world of one only:
+                scripts/mesh_cards.py serves it over four cards); (b) the planned
                 train step (phase 11 (b)'s cut and batch, 2 microbatches,
                 the FSDP gather hoisted) against make_train_step: bitwise
                 on one rank, else within 1e-5 (loss) and 2e-5
@@ -282,7 +304,7 @@ Phases, each of which raises on failure (exit code non-zero):
                 AdamW moments) under the production rules on the 16x16
                 mesh, each within the card's 80 GB. Each kernel's entry
                 on the JSON line gains ``mesh_launches`` (rank 0's
-                launches on the planned paths of (a), (b) and (d)).
+                launches on the planned paths of (a)-(d)).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit``, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -333,11 +355,33 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# A timing's budget: a function slower than this a call (a plain version
+# of hundreds of launches) is timed over fewer runs, at least TIMED_MIN.
+TIMED_BUDGET_MS = 400.0
+TIMED_MIN = 3
+
+
 def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` CUDA-event timed runs."""
+    """Median milliseconds of ``fn`` over ``reps`` CUDA-event timed runs
+    after ``warmup`` calls (at least two: a cold one, then a warm one that
+    is clocked). When that warm call shows ``fn`` slow, the runs are as
+    many as fit TIMED_BUDGET_MS (at least TIMED_MIN) after those two, and
+    the cut is logged."""
     import torch
-    for _ in range(warmup):
-        fn()
+    torch.cuda.synchronize()
+    fn()                     # one-off costs: a build, a library's choice
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    warm = (time.perf_counter() - t0) * 1e3
+    if warm * (reps + warmup) > TIMED_BUDGET_MS:
+        reps = min(reps, max(TIMED_MIN, int(TIMED_BUDGET_MS / warm)))
+        log(f"    (timed over {reps} runs after 2 calls: {warm:.1f} ms a "
+            "warm call)")
+    else:
+        for _ in range(warmup - 2):
+            fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -939,11 +983,10 @@ DECODE_JAMBA = (8, 4096, 64, 8, 128)
 # Phase 4's prompt lengths (ragged, 512-3,072 tokens): the cache fill the
 # decode timing reads.
 PROMPT_LENS = (512, 896, 1280, 1664, 2048, 2432, 2816, 3072)
-# Phase 5's (b): a quarter of those lengths. Its admits are the sLSTM's
+# Phase 5's (b): an eighth of those lengths. Its admits are the sLSTM's
 # per-token loop (~380 tokens/s), run for the timed set and again by each
-# of the three teacher-forced engines: at PROMPT_LENS that was ~150 of the
-# phase's 209 s, which phase 10 needs.
-XLSTM_PROMPT_LENS = tuple(n // 4 for n in PROMPT_LENS)
+# of the three teacher-forced engines (PERF.md section 4 lists the cut).
+XLSTM_PROMPT_LENS = tuple(n // 8 for n in PROMPT_LENS)
 
 
 def normal(shape, dtype, dev, seed):
@@ -1181,6 +1224,171 @@ def check_attention(dev):
         "in turn)")
     out["flash_decode"] = r
     out["ladder"] = check_ladder_attention(dev, held, tight)
+    return out
+
+
+# flash_decode's split and combine passes apart (phase 12's sequence-sharded
+# cache): the cache cut into this many blocks, as that many ranks hold it.
+SPLIT_BLOCKS = (1, 2, 4)
+
+
+def check_split_decode(dev):
+    """flash_decode_split over each block of a cache cut as ranks hold it
+    and flash_decode_combine over every block's partials, at qwen2.5-3b's
+    and jamba's decode widths, f32 and bf16: the partials against
+    ``decode_partials_ref``, the combined output against ``decode_ref``
+    (ATTN_TOL) and against the one-call kernel (the same bar; bitwise at
+    one block, where the two entries run the one-call launches). Lengths
+    end in every block, on and beside block boundaries, at 1 and t, and
+    whole blocks stay empty. Timed in f32 at qwen2.5-3b's widths with the
+    cache in 4 blocks: one block's split pass (PROMPT_LENS' rows, cold)
+    and the combine over the four blocks' partials."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as dec_kernel
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    worst = {}
+    for full in (DECODE_FULL, DECODE_JAMBA):
+        b, t, h, kvh, d = full
+        for dtype in ("float32", "bfloat16"):
+            q = normal((b, h, d), dtype, dev, 170)
+            kc = normal((b, t, kvh, d), dtype, dev, 171)
+            vc = normal((b, t, kvh, d), dtype, dev, 172)
+            for n_blocks in SPLIT_BLOCKS:
+                rows = t // n_blocks
+                lens = [1, t, rows - 1, rows, rows + 1, t - rows // 2, 0,
+                        min(2 * rows + 3, t)]
+                kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+                parts, tol = [], ATTN_TOL[dtype]
+                for r in range(n_blocks):
+                    kb = kc[:, r * rows:(r + 1) * rows].contiguous()
+                    vb = vc[:, r * rows:(r + 1) * rows].contiguous()
+                    local = (kv_len - r * rows).clamp(0, rows).to(torch.int32)
+                    ws = dec_ops.decode_split(q, kb, vb, local)
+                    m, l, acc = dec_ref.decode_partials_ref(
+                        q, kb, vb, local,
+                        *dec_kernel.split_plan(b, rows, kvh,
+                                               dec_kernel.sm_count(dev)))
+                    torch.cuda.synchronize()
+                    live = l > 0
+                    if not torch.equal(ws[..., d + 1] > 0, live):
+                        raise AssertionError(
+                            f"flash_decode_split {full} block {r}: live "
+                            "splits differ from the plain version's")
+                    for label, got, want in (
+                            ("m", ws[..., d][live], m[live]),
+                            ("l", ws[..., d + 1][live], l[live]),
+                            ("acc", ws[..., :d][live], acc[live])):
+                        err = float((got - want).abs().max()) \
+                            if live.any() else 0.0
+                        # The partials are sums the plain version takes in
+                        # another order: held relative to their size.
+                        if err > 2e-5 * max(float(want.abs().max()), 1.0):
+                            raise AssertionError(
+                                f"flash_decode_split {full} {dtype} block "
+                                f"{r} {label}: max abs err {err:.3e}")
+                    parts.append(ws)
+                out = dec_ops.decode_combine(torch.cat(parts, dim=2),
+                                             q.dtype)
+                one = dec_ops.decode_attention(q, kc, vc, kv_len)
+                torch.cuda.synchronize()
+                ref = dec_ref.decode_ref(q, kc, vc, kv_len)
+                e = float((out.float() - ref.float()).abs().max())
+                bad = ((out.float() - ref.float()).abs()
+                       > tol + tol * ref.float().abs())
+                e1 = float((out.float() - one.float()).abs().max())
+                bad1 = ((out.float() - one.float()).abs()
+                        > tol + tol * one.float().abs())
+                if bad.any() or bad1.any() or not torch.isfinite(out).all():
+                    raise AssertionError(
+                        f"flash_decode split/combine {full} {n_blocks} "
+                        f"blocks {dtype}: {e:.3e} from decode_ref, {e1:.3e} "
+                        "from the one-call kernel")
+                if n_blocks == 1 and not torch.equal(out, one):
+                    raise AssertionError(
+                        f"flash_decode split/combine {full} {dtype}: one "
+                        "block is not bitwise the one-call kernel")
+                if torch.count_nonzero(out[kv_len == 0]):
+                    raise AssertionError("split/combine: kv_len = 0 must "
+                                         "give zeros")
+                key = (full, dtype)
+                worst[key] = max(worst.get(key, 0.0), e)
+    log("  flash_decode_split / flash_decode_combine: the cache in "
+        f"{SPLIT_BLOCKS} blocks, max abs err against decode_ref "
+        + ", ".join(f"{full} {dt} {e:.3e}" for (full, dt), e in
+                    worst.items())
+        + "; one block bitwise the one-call kernel; empty blocks carry no "
+        "weight")
+
+    # Timing: qwen2.5-3b's decode widths, f32, the cache in 4 blocks (phase
+    # 12's four cards); a rank's block of the 4,096 rows read cold (four
+    # blocks in turn, 4 x 16.8 MB, with their kv_len from PROMPT_LENS), and
+    # the combine over 4 x n_split partials.
+    b, t, h, kvh, d = DECODE_FULL
+    n_blocks, rows = 4, t // 4
+    gen = torch.Generator(device=dev).manual_seed(173)
+    q = normal((b, h, d), "float32", dev, 174)
+    blocks = [tuple(torch.randn((b, rows, kvh, d), generator=gen,
+                                device=dev) for _ in "kv")
+              for _ in range(n_blocks)]
+    full_len = torch.tensor(PROMPT_LENS, dtype=torch.int32, device=dev)
+    locals_ = [(full_len - r * rows).clamp(0, rows).to(torch.int32)
+               for r in range(n_blocks)]
+    turn = itertools.cycle(range(n_blocks))
+
+    def split_call():
+        r = next(turn)
+        return dec_ops.decode_split(q, *blocks[r], locals_[r])
+
+    def split_plain():
+        r = next(turn)
+        return dec_ref.decode_partials_ref(
+            q, *blocks[r], locals_[r],
+            *dec_kernel.split_plan(b, rows, kvh, dec_kernel.sm_count(dev)))
+
+    ws = torch.cat([dec_ops.decode_split(q, *blocks[r], locals_[r])
+                    for r in range(n_blocks)], dim=2)
+    n_all = ws.shape[2]
+    n_split, chunk = dec_kernel.split_plan(b, rows, kvh,
+                                           dec_kernel.sm_count(dev))
+    assert n_all == n_blocks * n_split
+    live_rows = sum(int(x.sum()) for x in locals_)
+    # Splits that hold a live row write acc; the rest write m and l only,
+    # and the combine reads acc only where l > 0.
+    live_splits = sum(int(((x + chunk - 1) // chunk).sum()) for x in locals_)
+    out = {}
+    r = dict(ms=cuda_ms(split_call),
+             device_ms=device_ms(split_call, "flash_decode_kernel"),
+             plain_ms=cuda_ms(split_plain), library_ms=None,
+             # one block's live rows on average (K and V), q, kv_len, m
+             # and l of every split and acc of the live ones
+             bytes=4 * (live_rows / n_blocks * kvh * d * 2 + b * h * d + b
+                        + b * h * n_split * 2
+                        + h * d * live_splits / n_blocks),
+             ops=4 * h * (live_rows / n_blocks) * d)
+    r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
+    out["flash_decode_split"] = r
+    r = dict(ms=cuda_ms(lambda: dec_ops.decode_combine(ws, torch.float32)),
+             device_ms=device_ms(
+                 lambda: dec_ops.decode_combine(ws, torch.float32),
+                 "flash_decode_combine_kernel"),
+             plain_ms=cuda_ms(lambda: dec_ref.combine_partials(
+                 ws[..., d], ws[..., d + 1], ws[..., :d])),
+             library_ms=None,
+             # m and l of every partial, acc of the live ones, the output
+             bytes=4 * (b * h * n_all * 2 + h * d * live_splits + b * h * d),
+             ops=5 * b * h * n_all + 2 * h * d * live_splits)
+    r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
+    out["flash_decode_combine"] = r
+    for name, r in out.items():
+        r["max_abs_err"] = max(e for (_, dt), e in worst.items()
+                               if dt == "float32")
+        log(f"  {name} b={b} t={t} in {n_blocks} blocks h={h} kvh={kvh} "
+            f"d={d} f32: {r['ms']:.4f} ms per wrapper call, "
+            f"{r['device_ms']} ms on the device, {r['plain_ms']:.4f} ms "
+            f"plain, bound {r['bound_ms']:.6f} ms ({r['bound_by']}); "
+            f"{n_all} partials a row after the exchange, {live_splits} "
+            f"of {b * n_all} live a head")
     return out
 
 
@@ -1702,27 +1910,27 @@ def profile_slot(fn, label, watch=()):
 SWEEP_KERNELS = {"lbcd": ("config_argmin", "waterfill_pair"),
                  "min": ("config_argmin", "waterfill_pair"),
                  "dos": ("baseline_argmax",), "jcab": ("baseline_argmax",)}
-# The sweeps' horizon: the suite's own 200 slots cut to 60, phase 8's
-# (the churned scenarios lose cameras from slot 6 on), to keep the script
-# inside its time.
-SWEEP_SLOTS = 60
+# The sweeps' horizon: the suite's own 200 slots cut to 20 (the churned
+# scenarios lose cameras from slot 6 on), to keep the script inside its
+# time.
+SWEEP_SLOTS = 20
 # The parity sweep's cut horizon: the plain path replays CUDA graphs of
 # ~50,000 launches a solve at N=30 (~0.14 s an LBCD slot on the card), so
-# the plain sweep of all 11 scenarios is held to 6 slots (~14 s).
-PARITY_SLOTS = 6
+# the plain sweep of all 11 scenarios is held to 3 slots (~7 s).
+PARITY_SLOTS = 3
 # The graph replay of the plain solve against the eager plain solve: LBCD's
 # solves of these scenarios (and MIN's under a mask) at the suite's size,
 # every GRAPH_STRIDE-th of GRAPH_SLOTS slots from the first slot with a dead
 # camera (from slot 0 without a mask); eager, a solve takes ~0.65 s.
 GRAPH_CHECK = ("camera_churn", "camera_churn_heavy", "steady_ar1")
-GRAPH_SLOTS, GRAPH_STRIDE = 8, 4
+GRAPH_SLOTS, GRAPH_STRIDE = 4, 4
 # The obs on/off comparison: LBCD over the scenarios that run on the
 # kernels, cut to OBS_SLOTS slots, in OBS_PAIRS pairs of runs with obs off
 # and on, the order alternating (host clocks drift 10-50% within a call,
 # so a few runs in one order cannot resolve a cost of a few percent).
-# Six pairs, 16 graph solves and parity at 6 slots keep the whole
-# script, phase 9 included, inside its time.
-OBS_SLOTS, OBS_PAIRS = 10, 6
+# Three pairs, 8 graph solves and parity at 3 slots keep the whole
+# script, phase 12 included, inside its time.
+OBS_SLOTS, OBS_PAIRS = 6, 3
 # Calls timed for the cost of one obs span and one dispatch count.
 SPAN_CALLS = 20_000
 
@@ -2013,10 +2221,10 @@ def sweep_phase(dev):
 # epochs (LBCD plans 30-136 frames/s there: 49,152 frames a stream, f64),
 # 16 epochs in plan windows of 8.
 SERVICE_EPOCHS = 16
-# The sweep's replay at examples/scenario_suite.py's size: 11 scenarios,
-# N=16, S=3, 60 slots, the first 16 replayed as 600 s epochs (98,304
-# frames a stream, one window of 16 epochs x 16 streams per cell).
-DP_SUITE = dict(n_cameras=16, n_slots=60, n_servers=3)
+# The sweep's replay at examples/scenario_suite.py's size cut to 16
+# slots: 11 scenarios, N=16, S=3, each slot replayed as a 600 s epoch
+# (98,304 frames a stream, one window of 16 epochs x 16 streams per cell).
+DP_SUITE = dict(n_cameras=16, n_slots=16, n_servers=3)
 DP_PARAMS = dict(n_epochs=16, epoch_duration=600.0)
 # Shapes the main path gives the kernels (phase 8 logs every window):
 # gi_g1_window is checked against its plain loop, and timed
@@ -2433,6 +2641,8 @@ FAILOVER_SLOT = 3
 # took 90-180 s). Phase 4 drives the same service over the full-width
 # engine, 8 streams, 2 epochs, 4 frames a stream.
 LAUNCHER_ENGINE_STREAMS = 2
+# --engine's epochs: 2 of the CLI's 8 (~6.8 s an epoch).
+LAUNCHER_ENGINE_EPOCHS = 2
 LAUNCHER_FULL_FRAMES = 4
 LAUNCHER_FULL_STREAMS = 8
 LAUNCHER_FULL_EPOCHS = 2
@@ -2745,7 +2955,8 @@ def launcher_phase(dev):
         f"{out['mm1']['launches']}")
     for mod in (fa_ops, dec_ops):
         mod.reset_launches()
-    argv = ["--engine", "--streams", str(LAUNCHER_ENGINE_STREAMS)]
+    argv = ["--engine", "--streams", str(LAUNCHER_ENGINE_STREAMS),
+            "--epochs", str(LAUNCHER_ENGINE_EPOCHS)]
     svc, sec = launcher_run(dev, argv, "engine")
     if svc.engine_backend != "des":
         raise AssertionError(f"launcher --engine resolved to "
@@ -2760,7 +2971,8 @@ def launcher_phase(dev):
     out["engine"] = dict(seconds=sec, epochs=len(svc.reports),
                          divergence=div, frames=frames, launches=counts)
     log(f"  (d) launcher --engine ({LAUNCHER_ENGINE_STREAMS} streams, "
-        f"reduced qwen2.5-3b, 8 epochs of 3 s, {svc.engine_backend}): "
+        f"reduced qwen2.5-3b, {len(svc.reports)} epochs of 3 s, "
+        f"{svc.engine_backend}): "
         f"{sec:.2f} s ({sec / len(svc.reports):.3f} s an epoch), {frames} "
         f"frames completed; measured vs predicted {div:+.4f} (a report); "
         f"launches {counts}")
@@ -2793,11 +3005,11 @@ LOGIT_ATOL = {"qwen2.5-3b": 2e-3, "xlstm-1.3b": 0.1,
               "jamba-1.5-large-398b": 2e-3}
 ONE_PERIOD_ATOL = 1e-3
 ARGMAX_SHARE = 0.99    # identical greedy tokens, teacher-forced
-N_TICKS = 64
+N_TICKS = 32
 # Frames per stream of the engine-rung epochs (a): the service's cap is
-# 192; 8 still admits, preempts and completes frames on every stream, and
-# keeps phases 4-6 inside the script's time.
-ENGINE_FRAMES = 8
+# 192; 4 still admits and completes frames on every stream, and keeps
+# phases 4-6 inside the script's time.
+ENGINE_FRAMES = 4
 # jamba-1.5-large-398b is 1.59 TB of f32 parameters: phase 6 keeps every
 # width and serves one period (8 of 72 layers) with 4 of its 16 experts
 # (top-2 and the capacity factor kept): 16.25 B parameters, 64.99 GB.
@@ -3293,7 +3505,10 @@ def full_width_launcher(dev, model, params, reset, counts):
 # experts (top-4), dbrx all 16 (top-4), both at capacity factor 1.25.
 LADDER_CUTS = {"yi-6b": None, "yi-34b": dict(n_layers=4),
                "qwen2-moe-a2.7b": dict(n_layers=8),
-               "dbrx-132b": dict(n_layers=2), "minicpm3-4b": None}
+               "dbrx-132b": dict(n_layers=2),
+               # 16 of 62 layers: its plain MLA decode ticks take
+               # ~270 ms at full depth.
+               "minicpm3-4b": dict(n_layers=16)}
 LADDER_LANES = 4
 LADDER_ROWS = 1280
 # The bars of phases 4 and 6: teacher-forced logits within 2e-3 of the
@@ -3324,7 +3539,11 @@ def _ladder_counters():
         dec_ops.reset_launches()
 
     def counts():
-        return {**fa_ops.launches, **dec_ops.launches}
+        # The split-cache entries only where they launched: the ladder
+        # runs unsharded, so any launch of theirs fails its exact counts.
+        return {k: v for k, v in {**fa_ops.launches,
+                                  **dec_ops.launches}.items()
+                if v or k in ("flash_attention", "flash_decode")}
     return reset, counts
 
 
@@ -4172,6 +4391,156 @@ def mesh_serve(mesh, dev):
                 unsharded_decode_ms=u_decode * 1e3, collectives=coll)
 
 
+# (a2), (a3): the sequence-sharded decode cache (the rules put cache_seq on
+# the model axis; kv_heads unsplit, so each rank holds every kv head of its
+# rows): qwen2.5-3b at MESH_CUT and jamba's phase-6 cut (one period at full
+# width, JAMBA_CUT, 64.99 GB f32), each prefilled and decoded greedily on
+# the unsharded model, then through plan_cell on the same tokens.
+SPLIT_RULES = {"cache_seq": "model", "kv_heads": None}
+SPLIT_RUNS = (("qwen2.5-3b", MESH_CUT, (2, 1024), 16),
+              ("jamba-1.5-large-398b", dict(JAMBA_CUT, dtype="float32"),
+               (2, 512), 8))
+
+
+def shard_leafwise(tree, placements, mesh):
+    """This rank's slices of a full tree, each full leaf dropped from
+    ``tree`` as soon as its slice is made (``models.common.shard_by``
+    holds both trees at once: no card holds jamba's cut twice)."""
+    from repro_torch.models.common import shard_by
+    out = {}
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            out[key] = shard_leafwise(tree[key], placements[key], mesh)
+        else:
+            out[key] = shard_by({"x": tree.pop(key)}, {"x": placements[key]},
+                                mesh)["x"]
+    return out
+
+
+def mesh_serve_split(mesh, dev, name, cut, prompt, n_steps):
+    """(a2), (a3): ``name`` cut to ``cut`` served with its decode cache's
+    rows split over ``model`` (SPLIT_RULES): the unsharded model's greedy
+    prefill and decode first, then plan_cell's prefill and decode on the
+    kernels fed the same tokens (bitwise the unsharded model where the
+    model axis has extent 1: the split and combine entries run the
+    one-call kernel's launches), then the same plans on the plain versions
+    (phase 10's bars). On the planned path flash_decode_split and
+    flash_decode_combine launch once per attention layer and step and
+    flash_decode never."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.specs import plan_cell
+    from repro_torch.models.common import init_params
+    reset, counts = _all_counters()
+    cfg = dataclasses.replace(configs.get(name), **cut)
+    gb, s = prompt
+    max_len = s + n_steps
+    plans = {impl: [plan_cell(cfg, InputShape(f"split-{k}", max_len, gb, k),
+                              mesh, impl=impl, rule_overrides=SPLIT_RULES)
+                    for k in ("prefill", "decode")]
+             for impl in ("auto", "torch")}
+    pre, dec = plans["auto"]
+    model = pre.model
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = init_params(model.template(), gen, device=dev)
+    toks = torch.randint(0, cfg.vocab, (gb, s), generator=gen, device=dev,
+                         dtype=torch.int32)
+    full = init_params(model.cache_template(gb, max_len),
+                       torch.Generator(device=dev), device=dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, full = model.prefill(params, {"tokens": toks}, full)
+        plain = [logits[:, 0]]
+        chosen = []
+        for _ in range(n_steps):
+            chosen.append(torch.argmax(plain[-1], dim=-1).to(torch.int32))
+            logits, full = model.decode_step(params, chosen[-1], full)
+            plain.append(logits)
+        torch.cuda.synchronize()
+        u_s = time.perf_counter() - t0
+    del full
+    _, b_l, _ = pre.shard(None, {"tokens": toks}, None)
+    p_l = shard_leafwise(params, pre.in_shardings[0], mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rules, shape = pre.spmd.model_rules, (gb, cfg.padded_vocab)
+    runs = {}
+    for impl, (p_plan, d_plan) in plans.items():
+        cache = p_plan.cache()
+        _collectives()
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = p_plan.step_fn(p_l, b_l, cache)
+        out = [_mesh_gather(logits[:, 0], ("batch", "vocab"), shape, mesh,
+                            rules)]
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for nxt in chosen:
+            _, tok_l, _ = d_plan.shard(None, nxt, None)
+            logits, cache = d_plan.step_fn(p_l, tok_l, cache)
+            out.append(_mesh_gather(logits, ("batch", "vocab"), shape, mesh,
+                                    rules))
+        torch.cuda.synchronize()
+        runs[impl] = dict(logits=out, prefill_ms=t_pre * 1e3,
+                          decode_ms=(time.perf_counter() - t0) * 1e3,
+                          launches=counts(), collectives=_collectives(),
+                          cache_rows=cache["blocks"]["p0"]["self"]["k"]
+                          .shape[2])
+        del cache
+    planned = runs["auto"]["logits"]
+    errs = [float((a - b).abs().max())
+            for a, b in zip(planned, runs["torch"]["logits"])]
+    n_same = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                 for a, b in zip(planned, runs["torch"]["logits"]))
+    plain_bar = _teacher_forced_bar(f"(split) {name} planned", errs, n_same,
+                                    gb * len(planned))
+    worst = max(float((a - b).abs().max()) for a, b in zip(planned, plain))
+    same = all(torch.equal(a, b) for a, b in zip(planned, plain))
+    n_same_u = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                   for a, b in zip(planned, plain))
+    n_attn = model.n_periods * sum(sp.mixer == "attn" for sp in model.period)
+    n_mamba = model.n_periods * sum(sp.mixer == "mamba"
+                                    for sp in model.period)
+    want = {"flash_attention": n_attn, "flash_decode": 0,
+            "flash_decode_split": n_attn * n_steps,
+            "flash_decode_combine": n_attn * n_steps,
+            "selective_scan": n_mamba}
+    launches = runs["auto"]["launches"]
+    got = {k: launches[k] for k in want}
+    extent = mesh.shape["model"]
+    log(f"  (split) {name} {cfg.n_layers} layers, f32, mesh {mesh.shape}, "
+        f"cache rows over model ({runs['auto']['cache_rows']} of {max_len} "
+        f"a rank): prefill {gb} x {s} {runs['auto']['prefill_ms']:.1f} ms, "
+        f"{n_steps} decode steps {runs['auto']['decode_ms']:.1f} ms (plain "
+        f"plans {runs['torch']['prefill_ms']:.1f}, "
+        f"{runs['torch']['decode_ms']:.1f}; unsharded model, both, "
+        f"{u_s * 1e3:.1f}); launches {got} (want {want}); against the "
+        f"unsharded model: bitwise {same}, max abs {worst:.3e}, argmax "
+        f"{n_same_u}/{gb * len(planned)}; collectives "
+        f"{runs['auto']['collectives']}")
+    if got != want:
+        raise AssertionError(f"(split) {name}: launches {got}, want {want}")
+    if extent == 1 and not same:
+        raise AssertionError(f"(split) {name}: not bitwise the unsharded "
+                             f"model (max abs {worst:.3e})")
+    if worst > LADDER_ATOL or n_same_u < ARGMAX_SHARE * gb * len(planned):
+        raise AssertionError(f"(split) {name}: outside the bars against "
+                             "the unsharded model")
+    return dict(bitwise=same, max_abs=worst, plain=plain_bar,
+                launches=launches, argmax_same=n_same_u,
+                prefill_ms=runs["auto"]["prefill_ms"],
+                decode_ms=runs["auto"]["decode_ms"],
+                plain_prefill_ms=runs["torch"]["prefill_ms"],
+                plain_decode_ms=runs["torch"]["decode_ms"],
+                unsharded_ms=u_s * 1e3,
+                collectives=runs["auto"]["collectives"])
+
+
 def mesh_train(mesh, dev):
     """(b) the planned train step (2 microbatches, the FSDP gather hoisted
     by plan_cell's rule) against make_train_step on phase 11 (b)'s cut and
@@ -4365,9 +4734,10 @@ def mesh_rank(rank: int, world: int, tmp: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
     from repro_torch.kernels.slot_solver import kernel as sl_kernel
     from repro_torch.launch.mesh import init_distributed, make_host_mesh
-    for lib in (sl_kernel, fa_kernel, dec_kernel):
+    for lib in (sl_kernel, fa_kernel, dec_kernel, ss_kernel):
         lib.load()                       # built by the parent: no nvcc
     dev = init_distributed("cuda", rank=rank, world_size=world,
                            store=dist.FileStore(str(Path(tmp) / "store"),
@@ -4378,6 +4748,15 @@ def mesh_rank(rank: int, world: int, tmp: str) -> int:
     res["serve"] = mesh_serve(mesh, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    for name, cut, prompt, n_steps in SPLIT_RUNS:
+        if name.startswith("jamba") and world > 1:
+            # Every rank would hold the whole cut for the unsharded run:
+            # scripts/mesh_cards.py serves it over four cards instead.
+            continue
+        res[f"split {name}"] = mesh_serve_split(mesh, dev, name, cut,
+                                                prompt, n_steps)
+        gc.collect()
+        torch.cuda.empty_cache()
     res["train"] = mesh_train(mesh, dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4541,6 +4920,8 @@ def main() -> int:
     }
     for label, d in edge_cases.items():
         check_kernels(d, label, timing=False)
+    log(f"  (phase 2 at {time.perf_counter() - t_start:.0f} s: config_argmin, "
+        "waterfill and waterfill_pair checked)")
 
     # waterfill_tiled: MIN's virtual server at auto's tile (G=128), S=32
     # at auto's tile (G=4), and the edge cases split over 2, 16 and 128
@@ -4575,9 +4956,16 @@ def main() -> int:
     check_planted_ties(dev)
     scan_floors(lib_paths["slot_solver"], kernel, big["config_argmin"], dos,
                 jcab, dev)
+    log(f"  (phase 2 at {time.perf_counter() - t_start:.0f} s: the slot "
+        "solver's kernels checked)")
     attn = check_attention(dev)
+    attn.update(check_split_decode(dev))
+    log(f"  (phase 2 at {time.perf_counter() - t_start:.0f} s: the attention "
+        "kernels checked)")
     mlstm = check_mlstm(dev)
     scan = check_scan(dev)
+    log(f"  (phase 2 at {time.perf_counter() - t_start:.0f} s: mlstm_chunkwise "
+        "and selective_scan checked)")
     dp_timed = dataplane_kernels(dev)
 
     log(f"== phase 3 (at {time.perf_counter() - t_start:.0f} s): end to end")
@@ -4624,18 +5012,19 @@ def main() -> int:
     def head(summary, k):
         return lbcd.RunSummary(summary.records[:k], summary.v, summary.p_min)
 
-    big_sys = system(10_000, 32, 2)
-    run_k, _ = path("LBCD N=10000 S=32 T=2", lbcd_ctl(big_sys, "auto"), 2,
+    # N=10,000 at one slot: its first-fit takes ~4 s a slot on the host.
+    big_sys = system(10_000, 32, 1)
+    run_k, _ = path("LBCD N=10000 S=32 T=1", lbcd_ctl(big_sys, "auto"), 1,
                     ("config_argmin", "waterfill_pair"))
-    run_p = plain("LBCD N=10000 S=32 T=2", lbcd_ctl(big_sys, "torch"), 2)
+    run_p = plain("LBCD N=10000 S=32 T=1", lbcd_ctl(big_sys, "torch"), 1)
     err_big = contract("N=10000 rollout vs plain", run_k, run_p)
-    split = split_times(big_sys, 2, dev)
+    split = split_times(big_sys, 1, dev)
     log("  per-slot split (default backend, s): " +
         ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
-    run_t, _ = path("LBCD N=10000 S=32 T=2 auto:tile=256",
-                    lbcd_ctl(big_sys, "auto:tile=256"), 2,
+    run_t, _ = path("LBCD N=10000 S=32 T=1 auto:tile=256",
+                    lbcd_ctl(big_sys, "auto:tile=256"), 1,
                     ("config_argmin", "waterfill_tiled"))
-    contract("N=10000 tile=256 vs plain", run_t, head(run_p, 2))
+    contract("N=10000 tile=256 vs plain", run_t, head(run_p, 1))
 
     paper = dict(n_cameras=30, n_servers=3, n_slots=25, seed=0)
     run_n, _ = path("N=30 S=3 T=25 auto:nofuse",
@@ -4643,8 +5032,10 @@ def main() -> int:
                     ("config_argmin", "waterfill"))
     path("N=30 S=3 T=25 auto (fused)", lbcd_ctl(paper, "auto"), 25,
          ("config_argmin", "waterfill_pair"))
-    run_pp = plain("N=30 S=3 T=25", lbcd_ctl(paper, "torch"), 25)
-    err_paper = contract("N=30 nofuse vs plain", run_n, run_pp)
+    # The plain run over the first 10 of the 25 slots.
+    run_pp = plain("N=30 S=3 T=10", lbcd_ctl(paper, "torch"), 10)
+    err_paper = contract("N=30 nofuse vs plain (first 10 slots)",
+                         head(run_n, 10), run_pp)
     log(f"  slot-mean AoPI max rel diff vs plain: N=10000 {err_big:.2e}, "
         f"N=30 {err_paper:.2e}; mean AoPI N=10000 {run_k.mean_aopi:.5f} s, "
         f"N=30 {run_n.mean_aopi:.5f} s; mean accuracy N=10000 "
@@ -4693,13 +5084,13 @@ def main() -> int:
     identical("JCAB N=100000", run_jcab,
               plain("JCAB N=100000 S=32 T=4",
                     baseline_ctl("JCAB", sys100, "torch"), 4))
-    dos_sys = system(10_000, 32, 2)
-    run_dos, _ = path("DOS N=10000 S=32 T=2",
-                      baseline_ctl("DOS", dos_sys, "auto"), 2,
+    dos_sys = system(10_000, 32, 1)
+    run_dos, _ = path("DOS N=10000 S=32 T=1",
+                      baseline_ctl("DOS", dos_sys, "auto"), 1,
                       ("baseline_argmax",))
     identical("DOS N=10000", run_dos,
-              plain("DOS N=10000 S=32 T=2",
-                    baseline_ctl("DOS", dos_sys, "torch"), 2))
+              plain("DOS N=10000 S=32 T=1",
+                    baseline_ctl("DOS", dos_sys, "torch"), 1))
     log(f"  mean AoPI (s): MIN N=100000 {run_min.mean_aopi:.5f}, JCAB "
         f"N=100000 {run_jcab.mean_aopi:.5f}, DOS N=10000 "
         f"{run_dos.mean_aopi:.5f}, LBCD N=10000 {run_k.mean_aopi:.5f}")
@@ -4799,12 +5190,12 @@ def main() -> int:
                                    for m in sys.modules):
         raise AssertionError("chip_smoke imported jax or repro")
 
-    main_path = {"config_argmin": "LBCD N=10000 S=32 T=2",
-                 "waterfill_pair": "LBCD N=10000 S=32 T=2",
+    main_path = {"config_argmin": "LBCD N=10000 S=32 T=1",
+                 "waterfill_pair": "LBCD N=10000 S=32 T=1",
                  "waterfill": "N=30 S=3 T=25 auto:nofuse",
                  "waterfill_tiled": "MIN N=100000 S=32 T=2",
                  "baseline_argmax": "JCAB N=100000 S=32 T=4"}
-    slots = {"LBCD N=10000 S=32 T=2": 2, "N=30 S=3 T=25 auto:nofuse": 25,
+    slots = {"LBCD N=10000 S=32 T=1": 1, "N=30 S=3 T=25 auto:nofuse": 25,
              "MIN N=100000 S=32 T=2": 2, "JCAB N=100000 S=32 T=4": 4}
     counts = {k: launches[label][k] for k, label in main_path.items()}
     log("  launches per slot: " + ", ".join(
@@ -4885,6 +5276,20 @@ def main() -> int:
                     "max_abs_err_bfloat16")}
                 for label, v in attn["ladder"].items()
                 if label.startswith(name + " ")}
+    # flash_decode's split and combine entries: the same TPU kernel's
+    # function over a cache whose rows are split over ranks. Launches from
+    # phase 12's sequence-sharded serving ((a2), (a3)); timed in phase 2.
+    for name in ("flash_decode_split", "flash_decode_combine"):
+        r = attn[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=lm_kernels["flash_decode"][0],
+            replaces=lm_kernels["flash_decode"][1],
+            launches=sum(v["launches"][name] for k, v in mesh.items()
+                         if k.startswith("split ")),
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"]))
     # The data-plane kernels: no TPU kernel; each replaces a lax.scan of
     # the JAX package. Launches from phase 8's main path.
     dp_src = "src/repro_torch/kernels/dataplane/csrc/dataplane.cu"
@@ -4939,9 +5344,11 @@ def main() -> int:
         k["training_launches"] = training["full"]["launches"][k["name"]]
         k["eval_launches"] = training["eval"]["launches"][k["name"]]
         # Phase 12: rank 0's launches on the planned paths ((a) prefill
-        # and decode, (b) the train step, (d) the sweep's shard_map).
-        k["mesh_launches"] = sum(mesh[part]["launches"][k["name"]]
-                                 for part in ("serve", "train", "sweep"))
+        # and decode, (a2), (a3) over the split cache, (b) the train step,
+        # (d) the sweep's shard_map).
+        k["mesh_launches"] = sum(
+            v["launches"][k["name"]] for v in mesh.values()
+            if isinstance(v, dict) and "launches" in v)
     log(f"  chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
         "build included")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The port's multi-device half on four cards of one host (NCCL).
 
-    python3 scripts/mesh_cards.py [--only yi34b,train,dbrx,launcher,phase12]
+    python3 scripts/mesh_cards.py [--only yi34b,train,dbrx,qwen_split,
+                                          jamba_split,launcher,phase12]
 
 Spawns one rank per card (four; a FileStore rendezvous, no port), each
 on its card, and runs:
@@ -24,6 +25,24 @@ on its card, and runs:
             x 256 tokens and 8 decode steps against the same model on one
             card, teacher-forced (2e-3, >= 99% tokens), the routing
             decisions that differ counted;
+  qwen_split
+            mesh (1, 4): qwen2.5-3b at full width and depth (36 layers,
+            f32) with the decode cache's rows over ``model`` (its 2 kv
+            heads do not divide the axis): batch 8, 32,768 cache rows
+            (19.3 GB in f32, 4.8 GB a card), a prompt of 24,704 tokens
+            (every card's block live) and 16 greedy decode steps, against
+            the same model unsharded on one card (each rank runs it on its
+            own card first; the prompt prefilled a sequence at a time);
+  jamba_split
+            mesh (1, 4): jamba's phase-6 cut (8 of 72 layers, 4 of 16
+            experts, f32, 64.99 GB: 16.2 GB a card) with ``{"cache_seq":
+            "model", "kv_heads": None}``: Mamba's channels, the attention
+            heads, the expert-MLP columns and the cache rows over
+            ``model``; a prefill of 2 x 1,024 tokens and 16 decode steps
+            against the unsharded cut on one card, the routing decisions
+            that differ counted. Both split parts: logits within 2e-3 and
+            >= 99% of the argmax tokens equal, the split and combine
+            entries launched once per attention layer and step;
   launcher  ``torchrun --standalone --nproc-per-node 4 -m
             repro_torch.launch.train --arch qwen2.5-3b --steps 16 --batch
             8 --seq 512`` (full width, bf16, FSDP over data 4);
@@ -59,7 +78,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 
 WORLD = 4
-PARTS = ("yi34b", "train", "dbrx", "launcher", "phase12")
+PARTS = ("yi34b", "train", "dbrx", "qwen_split", "jamba_split", "launcher",
+         "phase12")
 # Parts run here, not on the ranks this script spawns.
 HERE = ("launcher", "phase12")
 YI_PROMPT = (2, 1024)
@@ -68,6 +88,13 @@ DBRX_PROMPT = (4, 256)
 DECODE_STEPS = 16
 LOGIT_ATOL = 2e-3
 ARGMAX_SHARE = 0.99
+# (name, cut, batch, prompt, cache rows, decode steps, rule overrides)
+SPLIT_PARTS = {
+    "qwen_split": ("qwen2.5-3b", dict(dtype="float32"), 8, 24_704, 32_768,
+                   16, None),
+    "jamba_split": ("jamba-1.5-large-398b", dict(cs.JAMBA_CUT,
+                                                 dtype="float32"),
+                    2, 1024, 1040, 16, cs.SPLIT_RULES)}
 LAUNCHER = ["--arch", "qwen2.5-3b", "--steps", "16", "--batch", "8",
             "--seq", "512"]
 
@@ -293,13 +320,171 @@ def part_dbrx(dev):
     return res
 
 
+def _split_serve(dev, part):
+    """One SPLIT_PARTS entry: the unsharded model's greedy prefill and
+    decode on this rank's card (every rank: the same parameters from one
+    seed), then the parameters cut to this rank's slices leaf by leaf and
+    plan_cell's prefill and decode on the (1, 4) mesh fed the same
+    tokens."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import plan_cell
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params, tree_leaves
+    name, cut, b, s, max_len, n_steps, over = SPLIT_PARTS[part]
+    reset, counts = cs._all_counters()
+    mesh = make_mesh((1, WORLD), ("data", "model"), device=dev.type)
+    cfg = dataclasses.replace(configs.get(name), **cut)
+    pre, dec = (plan_cell(cfg, InputShape(kind, max_len, b, kind), mesh,
+                          rule_overrides=over)
+                for kind in ("prefill", "decode"))
+    model = pre.model
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(model.template(), gen, device=dev)
+    toks = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                         dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    routes = {"one": [], "mesh": []}
+    real = moe._routing
+    which = ["one"]
+
+    def record(*a, **k):
+        out = real(*a, **k)
+        routes[which[0]].append(torch.where(out[2], out[0], -1))
+        return out
+    moe._routing = record
+    full = init_params(model.cache_template(b, max_len),
+                       torch.Generator(device=dev), device=dev)
+    with torch.no_grad():
+        last = []
+        for i in range(b):
+            # A sequence at a time: the prompt's activations of one.
+            row = {k: v[:, i:i + 1] if v.dim() > 1 else v[i:i + 1]
+                   for k, v in _flat_leaves(full).items()}
+            logits, _ = model.prefill(params, {"tokens": toks[i:i + 1]},
+                                      _nest(row))
+            last.append(logits[:, 0])
+        full["len"].fill_(s)
+        want, chosen = [torch.cat(last)], []
+        for _ in range(n_steps):
+            chosen.append(torch.argmax(want[-1], -1).to(torch.int32))
+            logits, full = model.decode_step(params, chosen[-1], full)
+            want.append(logits)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    del full
+    which[0] = "mesh"
+    p_l = cs.shard_leafwise(params, pre.in_shardings[0], mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(p_l))
+    _, batch, _ = pre.shard(None, {"tokens": toks}, None)
+    rules, shape = pre.spmd.model_rules, (b, cfg.padded_vocab)
+    cache = pre.cache()
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(cache)) / 1e9
+    cs._collectives()
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = pre.step_fn(p_l, batch, cache)
+    got = [cs._mesh_gather(logits[:, 0], ("batch", "vocab"), shape, mesh,
+                           rules)]
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    pre_coll = cs._collectives()
+    t0 = time.perf_counter()
+    for nxt in chosen:
+        _, tok_l, _ = dec.shard(None, nxt, None)
+        logits, cache = dec.step_fn(p_l, tok_l, cache)
+        got.append(cs._mesh_gather(logits, ("batch", "vocab"), shape, mesh,
+                                   rules))
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) / n_steps
+    moe._routing = real
+    coll = cs._collectives()
+    launches = counts()
+    gap = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    same = sum(int((torch.argmax(a, -1) == torch.argmax(w, -1)).sum())
+               for a, w in zip(got, want)) / sum(a.shape[0] for a in got)
+    # Every rank routes every sequence (data extent 1): this rank's
+    # decisions against the one-card run's, which routed the prefill a
+    # sequence at a time (concatenated over the sequences of each layer).
+    one = routes["one"]
+    n_moe = len(routes["mesh"]) // (n_steps + 1)
+    one = ([torch.cat(one[i:b * n_moe:n_moe]) for i in range(n_moe)]
+           + one[b * n_moe:])
+    flips = sum(int((o != m).sum()) for o, m in zip(one, routes["mesh"]))
+    total = sum(m.numel() for m in routes["mesh"])
+    n_attn = model.n_periods * sum(sp.mixer == "attn" for sp in model.period)
+    want_l = {"flash_attention": n_attn, "flash_decode": 0,
+              "flash_decode_split": n_attn * n_steps,
+              "flash_decode_combine": n_attn * n_steps}
+    got_l = {k: launches[k] for k in want_l}
+    res = dict(max_abs=gap, argmax_share=same, prefill_ms=t_pre * 1e3,
+               ms_per_step=t_dec * 1e3, one_card_s=t_one,
+               rank_gb=n_bytes / 1e9, cache_gb=cache_gb,
+               peak_gb=_peak_gb(), routing_flips=flips,
+               routing_decisions=total, launches=launches,
+               prefill_collectives=pre_coll, decode_collectives=coll)
+    log(f"  {name} {cfg.n_layers} layers on (1, 4), cache rows over model "
+        f"({max_len} rows, {cache_gb:.2f} GB a card), slices "
+        f"{n_bytes / 1e9:.2f} GB a card, peak {res['peak_gb']:.2f} GB: "
+        f"prefill {b} x {s} {t_pre * 1e3:.1f} ms, {t_dec * 1e3:.2f} ms a "
+        f"decode step (one card, prefill and decode: {t_one:.1f} s); "
+        f"against one card: logits within {gap:.3e}, argmax share "
+        f"{same:.4f}, routing decisions that differ {res['routing_flips']} "
+        f"of {res['routing_decisions']}; launches {got_l} (want {want_l}); "
+        f"collectives: prefill {pre_coll}, {n_steps} decode steps {coll}")
+    if got_l != want_l:
+        raise AssertionError(f"{name}: launches {got_l}, want {want_l}")
+    if not (gap <= LOGIT_ATOL and same >= ARGMAX_SHARE):
+        raise AssertionError(f"{name}: outside the bars")
+    return res
+
+
+def _flat_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _nest(flat):
+    tree = {}
+    for key, v in flat.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def part_qwen_split(dev):
+    return _split_serve(dev, "qwen_split")
+
+
+def part_jamba_split(dev):
+    return _split_serve(dev, "jamba_split")
+
+
 def rank_main(rank: int, world: int, tmp: str, parts) -> int:
     import torch
     import torch.distributed as dist
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
     from repro_torch.launch.mesh import init_distributed
-    for lib in (fa_kernel, dec_kernel):
+    for lib in (fa_kernel, dec_kernel, ss_kernel):
         lib.load()
     dev = init_distributed("cuda", rank=rank, world_size=world,
                            store=dist.FileStore(str(Path(tmp) / "store"),
@@ -359,6 +544,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
     from repro_torch.kernels.slot_solver import kernel as sl_kernel
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -366,11 +552,12 @@ def main(argv=None) -> int:
     log(f"cards:\n{smi}\ntorch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         for f in [pool.submit(_build.build, name, lib.SOURCES, flags)
                   for name, lib, flags in (
                       ("flash_attention", fa_kernel, _build.ATTENTION_FLAGS),
                       ("flash_decode", dec_kernel, _build.ATTENTION_FLAGS),
+                      ("selective_scan", ss_kernel, _build.NVCC_FLAGS),
                       ("slot_solver", sl_kernel, _build.NVCC_FLAGS))]:
             f.result()
     log(f"build {time.perf_counter() - t0:.1f} s")
@@ -388,7 +575,7 @@ def main(argv=None) -> int:
     if "launcher" in parts:
         res["launcher"] = launcher()
     if "phase12" in parts:
-        for lib in (sl_kernel, fa_kernel, dec_kernel):
+        for lib in (sl_kernel, fa_kernel, dec_kernel, ss_kernel):
             lib.load()
         res["phase12"] = cs.mesh_phase(torch.device("cuda", 0))
     print(json.dumps(res, default=str))

@@ -42,9 +42,15 @@
 // bf16), not bitwise.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-// (repro_torch/kernels/_build.py, ATTENTION_FLAGS). The entry point is
-// extern "C", launches on the caller's stream, allocates nothing and
-// returns the cudaError_t of the launches.
+// (repro_torch/kernels/_build.py, ATTENTION_FLAGS). The entry points are
+// extern "C", launch on the caller's stream, allocate nothing and return
+// the cudaError_t of their launches: flash_decode_fwd runs both passes;
+// flash_decode_split and flash_decode_combine run one each, for a cache
+// whose rows are split over ranks (models/attention.py): each rank runs
+// the split pass over its rows, the ranks exchange their partials, and
+// the combine pass merges every rank's splits. The one-call entry and the
+// two entries run the same kernels, so the two launches of one cache
+// give bitwise the one-call result.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -374,10 +380,10 @@ __global__ void __launch_bounds__(kCombineThreads)
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const int* kv_len, void* o, float* ws, int b, int t,
-                   int h, int kvh, int d, int n_split, int chunk,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch_split(const void* q, const void* kc, const void* vc,
+                         const int* kv_len, float* ws, int b, int t, int h,
+                         int kvh, int d, int n_split, int chunk, float scale,
+                         cudaStream_t stream) {
   const int g = h / kvh;
   const int gmax = rows_per_pass(g, d);
   const int ldk = d;     // unpadded: K is read once per tile into registers
@@ -394,19 +400,47 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), kv_len, ws, t, h, kvh, d, n_split, chunk,
       ldk, gmax, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_combine(const float* ws, void* o, int b, int h, int d,
+                           int n_split, cudaStream_t stream) {
   const size_t csmem = 3 * sizeof(float) * static_cast<size_t>(n_split);
   auto comb = flash_decode_combine_kernel<T>;
   if (csmem > 48 * 1024) {
-    err = cudaFuncSetAttribute(comb,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(csmem));
+    cudaError_t err = cudaFuncSetAttribute(
+        comb, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(csmem));
     if (err != cudaSuccess) return err;
   }
   comb<<<dim3(h, b), kCombineThreads, csmem, stream>>>(
       ws, static_cast<T*>(o), h, d, n_split);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* kc, const void* vc,
+                   const int* kv_len, void* o, float* ws, int b, int t,
+                   int h, int kvh, int d, int n_split, int chunk,
+                   float scale, cudaStream_t stream) {
+  const cudaError_t err = launch_split<T>(q, kc, vc, kv_len, ws, b, t, h,
+                                         kvh, d, n_split, chunk, scale,
+                                         stream);
+  if (err != cudaSuccess) return err;
+  return launch_combine<T>(ws, o, b, h, d, n_split, stream);
+}
+
+// The checks of a split pass's arguments (see flash_decode_fwd).
+bool split_args_ok(const void* kc, const void* vc, int t, int h, int kvh,
+                   int d, int n_split, int chunk) {
+  return !(d < 16 || d > 256 || d % 16 != 0 || kvh <= 0 || h % kvh != 0 ||
+           t < 0 || n_split < 1 || n_split > 65535 || chunk < TILE ||
+           chunk % TILE != 0 ||
+           static_cast<long long>(n_split) * chunk < (t > 1 ? t : 1) ||
+           static_cast<long long>(n_split - 1) * chunk >= (t > 1 ? t : 1) ||
+           reinterpret_cast<uintptr_t>(kc) % 16 != 0 ||
+           reinterpret_cast<uintptr_t>(vc) % 16 != 0);
 }
 
 }  // namespace
@@ -427,13 +461,7 @@ int flash_decode_fwd(const void* q, const void* kc, const void* vc,
                      const int* kv_len, void* o, float* ws, int dtype, int b,
                      int t, int h, int kvh, int d, int n_split, int chunk,
                      float scale, cudaStream_t stream) {
-  if (d < 16 || d > 256 || d % 16 != 0 || kvh <= 0 || h % kvh != 0 ||
-      t < 0 || n_split < 1 || n_split > 65535 || chunk < TILE ||
-      chunk % TILE != 0 ||
-      static_cast<long long>(n_split) * chunk < (t > 1 ? t : 1) ||
-      static_cast<long long>(n_split - 1) * chunk >= (t > 1 ? t : 1) ||
-      reinterpret_cast<uintptr_t>(kc) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(vc) % 16 != 0)
+  if (!split_args_ok(kc, vc, t, h, kvh, d, n_split, chunk))
     return cudaErrorInvalidValue;
   if (b == 0 || h == 0) return cudaSuccess;
   if (dtype == kDtypeF32)
@@ -442,6 +470,44 @@ int flash_decode_fwd(const void* q, const void* kc, const void* vc,
   if (dtype == kDtypeBF16)
     return launch<__nv_bfloat16>(q, kc, vc, kv_len, o, ws, b, t, h, kvh, d,
                                  n_split, chunk, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The split pass alone: the partials of a block of cache rows, as a rank
+// of a sequence-sharded cache holds them (its rows and its kv_len, which
+// may be <= 0: every split is then empty, l = 0). Arguments as
+// flash_decode_fwd's, without o; ws [b, h, n_split, d + 2] is written
+// (acc[d], m, l; acc is left unwritten where l = 0).
+int flash_decode_split(const void* q, const void* kc, const void* vc,
+                       const int* kv_len, float* ws, int dtype, int b, int t,
+                       int h, int kvh, int d, int n_split, int chunk,
+                       float scale, cudaStream_t stream) {
+  if (!split_args_ok(kc, vc, t, h, kvh, d, n_split, chunk))
+    return cudaErrorInvalidValue;
+  if (b == 0 || h == 0) return cudaSuccess;
+  if (dtype == kDtypeF32)
+    return launch_split<float>(q, kc, vc, kv_len, ws, b, t, h, kvh, d,
+                               n_split, chunk, scale, stream);
+  if (dtype == kDtypeBF16)
+    return launch_split<__nv_bfloat16>(q, kc, vc, kv_len, ws, b, t, h, kvh,
+                                       d, n_split, chunk, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The combine pass alone: ws f32 [b, h, n_split, d + 2] (the partials of
+// any number of splits, such as several ranks' split passes put side by
+// side in row order) -> o [b, h, d] in dtype (0 = f32, 1 = bf16). A row
+// with no live split (every l = 0) gives zeros.
+int flash_decode_combine(const float* ws, void* o, int dtype, int b, int h,
+                         int d, int n_split, cudaStream_t stream) {
+  if (d < 1 || n_split < 1 ||
+      3 * sizeof(float) * static_cast<size_t>(n_split) > kMaxSmem)
+    return cudaErrorInvalidValue;
+  if (b == 0 || h == 0) return cudaSuccess;
+  if (dtype == kDtypeF32)
+    return launch_combine<float>(ws, o, b, h, d, n_split, stream);
+  if (dtype == kDtypeBF16)
+    return launch_combine<__nv_bfloat16>(ws, o, b, h, d, n_split, stream);
   return cudaErrorInvalidValue;
 }
 

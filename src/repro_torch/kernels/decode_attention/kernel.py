@@ -4,7 +4,9 @@ The library is built at the first launch (``kernels._build``), never when
 this module is imported. ``flash_decode`` takes CUDA tensors whose device,
 dtype, shape, contiguity and alignment the wrapper in ``ops`` has checked,
 launches the split and the combine pass on PyTorch's current stream, and
-raises if a launch returns an error. ``split_plan`` is the host's choice of
+raises if a launch returns an error; ``flash_decode_split`` and
+``flash_decode_combine`` launch one pass each (a sequence-sharded cache's
+rows on one rank, then every rank's partials). ``split_plan`` is the host's choice of
 the split, shared with the plain split version (``ref.decode_split_ref``)
 and the tests.
 """
@@ -57,6 +59,14 @@ class _Library:
             lib.flash_decode_fwd.argtypes = ([_P] * 6 + [_I] * 8 +
                                              [_F, _P])
             lib.flash_decode_fwd.restype = ctypes.c_int
+            # q, k_cache, v_cache, kv_len, ws, dtype, b, t, h, kvh, d,
+            # n_split, chunk, scale, stream
+            lib.flash_decode_split.argtypes = ([_P] * 5 + [_I] * 8 +
+                                               [_F, _P])
+            lib.flash_decode_split.restype = ctypes.c_int
+            # ws, o, dtype, b, h, d, n_split, stream
+            lib.flash_decode_combine.argtypes = [_P] * 2 + [_I] * 5 + [_P]
+            lib.flash_decode_combine.restype = ctypes.c_int
             lib.decode_error_string.argtypes = [ctypes.c_int]
             lib.decode_error_string.restype = ctypes.c_char_p
             cls.lib = lib
@@ -79,6 +89,16 @@ def sm_count(device: torch.device) -> int:
     return _SMS[device]
 
 
+def _check(lib, err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err} "
+                           f"({lib.decode_error_string(err).decode()})")
+
+
+def _stream():
+    return _P(torch.cuda.current_stream().cuda_stream)
+
+
 def flash_decode(q, k_cache, v_cache, kv_len, out, *, scale: float) -> None:
     lib = _Library.get()
     b, h, d = q.shape
@@ -88,12 +108,37 @@ def flash_decode(q, k_cache, v_cache, kv_len, out, *, scale: float) -> None:
     # denominator l of each (sequence, q head, split).
     ws = torch.empty((b, h, n_split, d + 2), dtype=torch.float32,
                      device=q.device)
-    stream = _P(torch.cuda.current_stream().cuda_stream)
-    err = lib.flash_decode_fwd(
+    _check(lib, lib.flash_decode_fwd(
         _P(q.data_ptr()), _P(k_cache.data_ptr()), _P(v_cache.data_ptr()),
         _P(kv_len.data_ptr()), _P(out.data_ptr()), _P(ws.data_ptr()),
         _I(DTYPES[q.dtype]), _I(b), _I(t), _I(h), _I(kvh), _I(d),
-        _I(n_split), _I(chunk), _F(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_decode launch failed: cudaError {err} "
-                           f"({lib.decode_error_string(err).decode()})")
+        _I(n_split), _I(chunk), _F(scale), _stream()), "flash_decode")
+
+
+def flash_decode_split(q, k_cache, v_cache, kv_len, *,
+                       scale: float) -> torch.Tensor:
+    """The split pass alone: f32 partials [b, h, n_split, d + 2] (acc[d],
+    m, l) of the cache's rows under ``split_plan``; acc is unwritten
+    where l = 0."""
+    lib = _Library.get()
+    b, h, d = q.shape
+    t, kvh = k_cache.shape[1], k_cache.shape[2]
+    n_split, chunk = split_plan(b, t, kvh, sm_count(q.device))
+    ws = torch.empty((b, h, n_split, d + 2), dtype=torch.float32,
+                     device=q.device)
+    _check(lib, lib.flash_decode_split(
+        _P(q.data_ptr()), _P(k_cache.data_ptr()), _P(v_cache.data_ptr()),
+        _P(kv_len.data_ptr()), _P(ws.data_ptr()), _I(DTYPES[q.dtype]),
+        _I(b), _I(t), _I(h), _I(kvh), _I(d), _I(n_split), _I(chunk),
+        _F(scale), _stream()), "flash_decode_split")
+    return ws
+
+
+def flash_decode_combine(ws, out) -> None:
+    """The combine pass alone: partials ``ws`` [b, h, n, d + 2] -> ``out``
+    [b, h, d]."""
+    lib = _Library.get()
+    b, h, n, d2 = ws.shape
+    _check(lib, lib.flash_decode_combine(
+        _P(ws.data_ptr()), _P(out.data_ptr()), _I(DTYPES[out.dtype]), _I(b),
+        _I(h), _I(d2 - 2), _I(n), _stream()), "flash_decode_combine")

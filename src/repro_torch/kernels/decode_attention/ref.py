@@ -4,10 +4,11 @@ It equals the JAX package's ``decode_ref`` wherever ``kv_len > 0``. At
 ``kv_len = 0`` it follows the TPU kernel ``flash_decode`` and the port's
 CUDA kernel, which run no cache block and return zeros; ``decode_ref``
 there takes a softmax over an all-masked row and returns the mean of V
-(ROADMAP queue 3). ``decode_split_ref`` and ``combine_partials`` compute
-the same function in the CUDA kernel's split schedule (per-split partial
-softmaxes, then their combination); the tests hold them against the JAX
-package.
+(ROADMAP queue 3). ``decode_partials_ref`` and ``combine_partials`` are the
+CUDA kernel's two passes (per-split partial softmaxes, then their
+combination), and ``decode_split_ref`` the two in turn; a sequence-sharded
+cache runs the first on each rank's rows and the second on every rank's
+partials. The tests hold them against the JAX package.
 """
 from __future__ import annotations
 
@@ -60,12 +61,14 @@ def combine_partials(m, l, acc):
     return num / torch.clamp(den, min=1e-30)[..., None]
 
 
-def decode_split_ref(q, k_cache, v_cache, kv_len, n_split, chunk=None):
-    """The split kernel's schedule in plain PyTorch: split i takes cache
-    rows [i * chunk, (i + 1) * chunk) (chunk = ceil(t / n_split) unless
-    given), computes its partial (m_i, l_i, acc_i) over its keys below
-    kv_len, and ``combine_partials`` merges them. Same shapes and result
-    as ``decode_ref``, with the kernel's order of sums."""
+def decode_partials_ref(q, k_cache, v_cache, kv_len, n_split, chunk=None):
+    """The split pass in plain PyTorch: split i takes cache rows [i *
+    chunk, (i + 1) * chunk) (chunk = ceil(t / n_split) unless given) and
+    computes its partial softmax over its keys below ``kv_len`` (clamped
+    to [0, t]). Returns (m, l) f32 [b, h, n_split] and acc f32 [b, h,
+    n_split, d], the input of ``combine_partials``. An empty split (it
+    starts at or beyond kv_len; every split where kv_len <= 0) gives m =
+    NEG_INF, l = 0 and acc = 0."""
     b, h, d = q.shape
     t, kvh = k_cache.shape[1], k_cache.shape[2]
     g = h // kvh
@@ -92,4 +95,14 @@ def decode_split_ref(q, k_cache, v_cache, kv_len, n_split, chunk=None):
     m = torch.where(live, m, neg)
     acc = torch.einsum("bhnc,bnchd->bhnd", p,
                        v.reshape(b, n_split, chunk, h, d))
+    acc = torch.where(live[..., None], acc, torch.zeros_like(acc))
+    return m, l, acc
+
+
+def decode_split_ref(q, k_cache, v_cache, kv_len, n_split, chunk=None):
+    """The split kernel's schedule in plain PyTorch: ``decode_partials_ref``
+    then ``combine_partials``. Same shapes and result as ``decode_ref``,
+    with the kernel's order of sums."""
+    m, l, acc = decode_partials_ref(q, k_cache, v_cache, kv_len, n_split,
+                                    chunk)
     return combine_partials(m, l, acc).to(q.dtype)

@@ -12,18 +12,20 @@ trees), issuing the collectives of ``sharding.ctx``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Optional
 
 import torch
 
 from ..configs.base import InputShape, ModelConfig
 from ..models import build
+from ..models.attention import cache_rows_axis
 from ..models.common import (abstract_params, init_params, local_template,
                              pspec_tree, shard_by)
 from ..models.registry import DTYPES
 from ..sharding import ctx as shard_ctx
 from ..sharding import rules as rules_mod
-from ..sharding.spec import spec_dims
+from ..sharding.spec import axes_of, spec_dims
 from ..training import optimizer as opt_mod
 from ..training.train_step import MeshStep, make_train_step
 
@@ -136,7 +138,10 @@ def plan_cell(cfg: ModelConfig, shape: InputShape, mesh, *,
     the weights in the gathered layout (``embed`` unsharded, unless
     ``rule_overrides`` shard it): a serving step then issues only the
     collectives of the activations, where the JAX package's plan
-    all-gathers the FSDP weights on every call."""
+    all-gathers the FSDP weights on every call. A cache whose rows the
+    rules split (``cache_seq``; ``{"cache_seq": "model", "kv_heads":
+    None}`` splits them where the kv heads divide the axis) must have a
+    length the axis divides."""
     kind = shape.kind
     if kind != "train":
         rule_overrides = {"embed": None, **(rule_overrides or {})}
@@ -178,6 +183,13 @@ def plan_cell(cfg: ModelConfig, shape: InputShape, mesh, *,
             out_shardings=(params_sh, opt_sh, metrics_sh),
             donate=(0, 1), kind=kind, spmd=spmd)
 
+    seq_axis = cache_rows_axis(cfg.n_kv_heads, rules)
+    extent = math.prod(mesh.shape.get(a, 1) for a in axes_of(seq_axis))
+    if shape.seq_len % extent:
+        # The model reads the cache rows' split from the rules alone:
+        # they must divide evenly.
+        raise ValueError(f"a cache of {shape.seq_len} rows does not split "
+                         f"over {seq_axis!r} of extent {extent}")
     spmd = MeshStep(mesh, rules, tmpl)
     cache_tmpl = model.cache_template(shape.global_batch, shape.seq_len,
                                       dtype=dt)

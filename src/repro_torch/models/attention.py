@@ -13,14 +13,25 @@ the kv heads its query heads read (whole groups, or one kv head shared
 with other ranks). The cache holds the rank's kv heads, the attention
 kernels run on the local heads, and the output product's partial sum is
 all-reduced over the axis.
+
+Where the rules split the cache's rows (``cache_seq`` on a mesh axis, of
+extent 1 too: ``_cache_split``), each rank holds rows [off, off + t_loc)
+of every sequence for every kv head, and the decode is split-KV across
+ranks: the query heads are gathered, each rank runs the split pass of
+``flash_decode`` over its rows, the ranks exchange the partials so that
+each holds every rank's partials of its own query heads, and the combine
+pass merges them. The prefill writes the prompt's rows that fall in the
+rank's block and attends over the prompt locally, as without the split.
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.decode_attention import decode_attention
+from ..kernels.decode_attention import (decode_attention, decode_combine,
+                                        decode_split)
 from ..kernels.flash_attention import attention as attn_op
 from ..sharding import ctx as shard_ctx
+from ..sharding.spec import mesh_dims
 from .common import CACHE_SEQ, EMBED, HEAD_DIM, HEADS, KV_HEADS, P
 from .layers import apply_rope, einsum
 
@@ -92,6 +103,45 @@ def _qkv(params, x, kv_x, cfg):
     return (q,) + encode_kv(kv_params, cfg, x if kv_x is None else kv_x)
 
 
+def cache_rows_axis(n_kv_heads: int, rules: dict):
+    """The mesh axis the cache rows split over under ``rules``, or None.
+    The cache's own placement decides (``mesh_dims`` over its dims, the
+    first dim winning a mesh axis), not the kv heads' rule: with
+    ``kv_heads`` and ``cache_seq`` both on one axis the rows take it."""
+    _, axis, kv_axis, _ = mesh_dims((1 << 30, 1 << 30, n_kv_heads, 1),
+                                    ("batch", CACHE_SEQ, KV_HEADS, HEAD_DIM),
+                                    rules)
+    if axis is not None and kv_axis is not None:
+        raise NotImplementedError(
+            f"the cache's rows over {axis!r} and its kv heads over "
+            f"{kv_axis!r}: a rank holds every kv head of its rows")
+    return axis
+
+
+def _cache_split(cfg):
+    """(mesh axis, extent, this rank's index) of the cache rows' split, or
+    None (``cache_rows_axis`` under the current rules). The cache's length
+    is taken to divide the axis (``launch.specs.plan_cell`` refuses one
+    that does not)."""
+    m = shard_ctx.mesh()
+    if m is None:
+        return None
+    axis = cache_rows_axis(cfg.n_kv_heads, shard_ctx.current())
+    if axis is None:
+        return None
+    return axis, m.extent(axis), m.coord(axis)
+
+
+def _all_kv_heads(cfg, k, v):
+    """k, v of every kv head (gathered where the kv projections are split:
+    a rank of a split cache holds all kv heads of its rows)."""
+    axis = shard_ctx.axis_for(KV_HEADS, cfg.n_kv_heads)
+    if axis is None:
+        return k, v
+    return (shard_ctx.all_gather(k, axis, dim=2, partial_grad=False),
+            shard_ctx.all_gather(v, axis, dim=2, partial_grad=False))
+
+
 def _kv_heads(cfg, k, v):
     """The kv heads this rank's query heads read, contiguous."""
     _, kv_part = _heads(cfg)
@@ -133,11 +183,26 @@ def gqa_apply(params, x, cfg, *, causal: bool = True, kv_x=None,
     y = _out(params, out, cfg)
     if cache is None:
         return y
-    if s > cache["k"].shape[1]:
-        raise ValueError(f"prefill of {s} tokens exceeds the cache's "
-                         f"{cache['k'].shape[1]} positions")
-    cache["k"][:, :s] = k.to(cache["k"].dtype)
-    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    t_loc = cache["k"].shape[1]
+    split = _cache_split(cfg)
+    if split is None:
+        lo, hi = 0, s
+        if s > t_loc:
+            raise ValueError(f"prefill of {s} tokens exceeds the cache's "
+                             f"{t_loc} positions")
+    else:
+        # This rank's block: rows [off, off + t_loc) of t_loc * extent.
+        _, extent, rank = split
+        if s > t_loc * extent:
+            raise ValueError(f"prefill of {s} tokens exceeds the cache's "
+                             f"{t_loc * extent} positions ({extent} "
+                             f"blocks of {t_loc})")
+        k, v = _all_kv_heads(cfg, k, v)
+        lo = rank * t_loc
+        hi = min(lo + t_loc, s)
+    if hi > lo:
+        cache["k"][:, :hi - lo] = k[:, lo:hi].to(cache["k"].dtype)
+        cache["v"][:, :hi - lo] = v[:, lo:hi].to(cache["v"].dtype)
     return y, cache
 
 
@@ -166,12 +231,46 @@ def gqa_decode(params, x, cfg, cache, lens, *, impl: str = "auto"):
     pos = lens[:, None]                                   # [b, 1]
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    split = _cache_split(cfg)
+    if split is not None:
+        return _split_decode(params, q, k, v, cfg, cache, lens, split,
+                             impl), cache
     scatter_kv(cache["k"], k[:, 0], lens)
     scatter_kv(cache["v"], v[:, 0], lens)
     ck, cv = _kv_heads(cfg, cache["k"], cache["v"])
     out = decode_attention(q[:, 0].contiguous(), ck, cv,
                            (lens + 1).to(torch.int32), impl=impl)
     return _out(params, out[:, None], cfg), cache
+
+
+def _split_decode(params, q, k, v, cfg, cache, lens, split, impl):
+    """Decode against a cache whose rows are split over ``split``'s axis
+    (module docstring). q: this rank's query heads [b, 1, h_loc, hd]; k, v
+    the new row's kv heads. Returns y [b, 1, d]."""
+    axis, _, rank = split
+    t_loc = cache["k"].shape[1]
+    off = rank * t_loc
+    k, v = _all_kv_heads(cfg, k, v)
+    # The new row lands in the block that holds position lens (scatter_kv
+    # drops it elsewhere).
+    scatter_kv(cache["k"], k[:, 0], lens - off)
+    scatter_kv(cache["v"], v[:, 0], lens - off)
+    heads = _heads(cfg)[0]
+    q = q[:, 0].contiguous()                              # [b, h_loc, hd]
+    if heads is not None:
+        q = shard_ctx.all_gather(q, heads, dim=1, partial_grad=False)
+    kv_len = (lens + 1 - off).clamp(0, t_loc).to(torch.int32)
+    ws = decode_split(q, cache["k"], cache["v"], kv_len, impl=impl)
+    if heads == axis:
+        # Each rank keeps its query heads' partials from every rank, in
+        # rank order: the splits in row order.
+        ws = shard_ctx.all_to_all(ws, axis, 1, 2)
+    else:
+        ws = shard_ctx.all_gather(ws, axis, dim=2, partial_grad=False)
+        if heads is not None:
+            ws = shard_ctx.slice_dim(ws, heads, 1, shard_ctx.mesh())
+    out = decode_combine(ws.contiguous(), q.dtype, impl=impl)
+    return _out(params, out[:, None], cfg)
 
 
 def cross_decode(params, x, cfg, enc_k, enc_v, *, impl: str = "auto"):

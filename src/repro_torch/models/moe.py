@@ -20,8 +20,13 @@ package's ``shard_map`` path written with explicit collectives: a local
 dispatch, an all-to-all onto the rank's experts, the experts over the
 local expert-MLP columns, a reduce-scatter over ``model`` on d, the
 all-to-all back, the combine, an all-gather over ``model`` and the aux
-loss averaged over the data axes. Otherwise the experts are local and the
-expert-MLP columns' partial sums are all-reduced over ``model``.
+loss averaged over the data axes. Under experts on a non-data axis of
+extent > 1 it takes ``_moe_apply_local_experts`` (the JAX package's
+einsum path, which GSPMD partitions there): every rank of that axis holds
+the same tokens, routes them with the gathered router and runs only its
+own experts, and the partial combines are all-reduced over the axis.
+Otherwise the experts are local and the expert-MLP columns' partial sums
+are all-reduced over ``model``.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..sharding import ctx
+from ..sharding.spec import mesh_dims
 from .common import EMBED, EXPERT_MLP, EXPERTS, P
 from .layers import einsum, swiglu, swiglu_template
 
@@ -137,9 +143,11 @@ def moe_apply(params, x, cfg, *, capacity_factor: float | None = None):
     if m is not None:
         rule = ctx.current().get(EXPERTS)
         e = cfg.padded_experts(m.extent(rule) if rule else 1)
-        ep_axis, _ = ctx.split(EXPERTS, params["router"].shape[1], e)
-        ff_axis, _ = ctx.split(EXPERT_MLP, params["wi_gate"].shape[-1],
-                               cfg.expert_d_ff)
+        # The experts' leaves' own placement: where the experts and the
+        # expert-MLP columns share a mesh axis, the experts take it.
+        axes, shape = (EXPERTS, EMBED, EXPERT_MLP), (e, d, cfg.expert_d_ff)
+        ctx.constrain(params["wi_gate"], axes, shape)
+        ep_axis, _, ff_axis = mesh_dims(shape, axes, ctx.current())
     k = cfg.top_k
     cap_f = capacity_factor or cfg.capacity_factor
     capacity = min(max(int(cap_f * s * k / e), 1), s * k)
@@ -152,9 +160,8 @@ def moe_apply(params, x, cfg, *, capacity_factor: float | None = None):
     dp_axes = (dp_axes,) if isinstance(dp_axes, str) else tuple(dp_axes or ())
     if ep_axis is not None and m.extent(ep_axis) > 1:
         if ep_axis not in dp_axes:
-            raise NotImplementedError(
-                f"experts over {ep_axis!r}, not a data axis {dp_axes}: "
-                "only the all-to-all path is ported")
+            return ungroup(_moe_apply_local_experts(
+                params, x, cfg, capacity, ep_axis, ff_axis, dp_axes))
         return ungroup(_moe_apply_a2a(params, x, cfg, capacity, ep_axis,
                                       ff_axis, dp_axes))
 
@@ -206,6 +213,46 @@ def _moe_apply_a2a(params, x, cfg, capacity: int, ep_axis: str, ff_axis,
     if ff_axis is not None:
         y = ctx.all_gather(y, ff_axis, dim=2, partial_grad=False)
     aux = ctx.pmean(aux, dp_axes)
+    if "shared" in params:
+        y = y + _shared(params, x, cfg)
+    return y, aux
+
+
+def _moe_apply_local_experts(params, x, cfg, capacity: int, ep_axis: str,
+                             ff_axis, dp_axes: tuple):
+    """Experts over ``ep_axis``, not a data axis (the JAX package's einsum
+    path): each rank of the axis holds the same batch rows x [b, s, d],
+    routes them with the router gathered whole (the same decisions as on
+    one card), dispatches to its own experts only, and combines their
+    outputs; the other experts' choices weigh 0 here, and the all-reduce
+    over the axis sums the ranks' combines. No all-to-all."""
+    dtype = x.dtype
+    m = ctx.mesh()
+    n = m.extent(ep_axis)
+    xe = ctx.enter(x, ep_axis)
+    router = ctx.all_gather(params["router"], ep_axis, dim=1)
+    expert, slot, kept, gate, aux = _routing({"router": router}, xe, cfg,
+                                             capacity)
+    e_loc = params["wi_gate"].shape[0]
+    lo = m.coord(ep_axis) * e_loc
+    local = (expert >= lo) & (expert < lo + e_loc)
+    mine = torch.where(local, expert - lo, torch.zeros_like(expert))
+    kept = kept & local
+    gate = torch.where(local, gate, torch.zeros_like(gate))
+    axes = (ep_axis,)
+    if ff_axis is not None:
+        xe = ctx.enter(xe, ff_axis)
+        gate = ctx.enter(gate, ff_axis)
+        axes = (ep_axis, ff_axis)
+    yout = _experts(params, _dispatch(xe, mine, slot, kept, capacity,
+                                      e_loc), dtype)   # [e_loc, b, c, d]
+    y = ctx.psum(_combine(yout, mine, slot, kept, gate, dtype), axes)
+    # Every rank of the axis computes the same aux loss from the whole
+    # router, and the router's and x's gradients are summed over the axis:
+    # count its gradient once (the forward value is unchanged).
+    aux = aux.detach() + (aux - aux.detach()) / n
+    if dp_axes:
+        aux = ctx.pmean(aux, dp_axes)
     if "shared" in params:
         y = y + _shared(params, x, cfg)
     return y, aux

@@ -30,9 +30,10 @@ Under a mesh (``sharding.ctx.activation_rules`` with a mesh, as
 ``launch.specs.plan_cell`` runs them) every call takes this rank's slices
 of the parameters (the FSDP dims gathered: ``sharding.rules.gathered``),
 batch and cache, and returns its slice of the logits (the local vocab
-columns). The planned steps cover the dense and MoE GQA decoders; another
-family under a mesh with an axis of extent > 1 raises, as does a decode
-cache whose sequence the rules split.
+columns). The planned steps cover the dense and MoE GQA decoders and the
+hybrid, with the decode cache's rows split over an axis where the rules
+put ``cache_seq`` (``models.attention``); another family under a mesh
+with an axis of extent > 1 raises.
 """
 from __future__ import annotations
 
@@ -42,8 +43,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..kernels.attention_common import check_impl
 from ..sharding import ctx as shard_ctx
-from ..sharding.spec import mesh_dims
-from .common import CACHE_SEQ, VOCAB, P, count_params, stack_template
+from .common import VOCAB, P, count_params, stack_template
 from .layers import (einsum, embed, embedding_template, softmax_xent,
                      unembed, unembed_template)
 from .transformer import (block_cache_template, block_template, layout,
@@ -81,13 +81,14 @@ def _len_template(batch: int):
 
 
 # The families the planned (sharded) steps cover: the dense and MoE GQA
-# decoders.
-MESH_FAMILIES = ("dense", "moe")
+# decoders and the hybrid (jamba).
+MESH_FAMILIES = ("dense", "moe", "hybrid")
 
 
 def _check_mesh(cfg) -> None:
-    """Refuse what the port does not shard: another family, or MLA,
-    under a mesh with an axis of extent > 1 (ROADMAP queue 1 entry 5)."""
+    """Refuse what the port does not shard: another family (the xLSTM,
+    the VLM, the encoder-decoder), or MLA, under a mesh with an axis of
+    extent > 1 (ROADMAP queue 1 entry 5)."""
     m = shard_ctx.mesh()
     if m is None or m.size == 1:
         return
@@ -95,22 +96,8 @@ def _check_mesh(cfg) -> None:
             or cfg.enc_layers:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}, {cfg.attn_type}) under a mesh of "
-            f"{m.shape}: only the dense and MoE GQA decoders are sharded "
-            "(ROADMAP queue 1 entry 5)")
-
-
-def _check_cache(cache) -> None:
-    """Refuse a cache whose sequence dim the rules split over an axis of
-    extent > 1 (the JAX package's sequence-sharded decode cache)."""
-    m = shard_ctx.mesh()
-    if m is None:
-        return
-    axis = mesh_dims((1 << 30,), (CACHE_SEQ,), shard_ctx.current())[0]
-    if axis is not None and m.extent(axis) > 1:
-        raise NotImplementedError(
-            f"the rules split the decode cache's sequence over {axis!r} "
-            f"(kv heads do not divide it): not ported (ROADMAP queue 1 "
-            "entry 5)")
+            f"{m.shape}: only the dense and MoE GQA decoders and the "
+            "hybrid are sharded (ROADMAP queue 1 entry 5)")
 
 
 class TransformerLM(nn.Module):
@@ -194,7 +181,6 @@ class TransformerLM(nn.Module):
         embeddings' keys and values); returns the last position's
         logits."""
         tokens = batch["tokens"]
-        _check_cache(cache)
         x = self._embed(params, tokens)
         x, blocks, _ = stack_apply(params["blocks"], x, self.cfg,
                                    self.period,
@@ -209,7 +195,6 @@ class TransformerLM(nn.Module):
     def decode_step(self, params, tokens, cache):
         """tokens: [b] -> (logits [b, V], cache); the cache is written in
         place and its ``len`` advanced by one."""
-        _check_cache(cache)
         x = self._embed(params, tokens[:, None])
         lens = cache["len"]
         x, blocks = stack_decode(params["blocks"], x, self.cfg, self.period,

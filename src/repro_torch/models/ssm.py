@@ -6,6 +6,16 @@ Templates, key names and einsum layouts are the JAX package's
 given ``state`` writes the state after its last token into it (the scan's
 last ``h`` and the last ``conv - 1`` rows before the convolution), and a
 decode step updates it.
+
+Under a mesh (``sharding.ctx``) the inner channels are split over the
+``ssm_inner`` rule's axis, as the templates place them: each rank holds
+its block of ``in_proj``'s columns and its channels of every other leaf
+and of the state. The block of in_proj's 2 * inner columns is not the
+rank's channels of x_in and z (at two ranks, rank 0 holds all of x_in),
+so the product's columns are exchanged onto the rank's channels
+(``_in_proj``). The convolution, dt, the scan and the gate run on the
+rank's channels; x_proj and out_proj contract over them, so their
+partial sums are all-reduced.
 """
 from __future__ import annotations
 
@@ -13,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.selective_scan import selective_scan, selective_step
+from ..sharding import ctx as shard_ctx
 from .common import CONV, EMBED, LORA, SSM_INNER, SSM_STATE, P
 from .layers import einsum
 
@@ -59,19 +70,68 @@ def _causal_conv(x, w, b):
     return out + b
 
 
-def _dt_bc(params, xc, cfg):
-    """(dt in xc's dtype, B, C) from the convolved input."""
+def _inner_axis(params, cfg):
+    """The mesh axis the inner channels are split over, or None."""
+    inner = cfg.ssm_expand * cfg.d_model
+    axis, _ = shard_ctx.split(SSM_INNER, params["conv_b"].shape[0], inner)
+    if axis is not None and params["in_proj"].shape[1] != \
+            2 * params["conv_b"].shape[0]:
+        raise NotImplementedError(
+            f"in_proj's columns {tuple(params['in_proj'].shape)} and the "
+            f"channels {tuple(params['conv_b'].shape)} split unevenly")
+    return axis
+
+
+def _own_channels(xz, axis):
+    """[x_in | z] of this rank's channels from the columns of its block of
+    in_proj. In chunks of c = inner / tp columns the product's columns are
+    x_0 .. x_{tp-1}, z_0 .. z_{tp-1}; rank r holds chunks 2r and 2r + 1
+    and needs x_r and z_r (chunks r and tp + r), so chunk k goes to rank
+    k % tp and comes from rank k // 2."""
+    m = shard_ctx.mesh()
+    tp, r = m.extent(axis), m.coord(axis)
+    c = xz.shape[-1] // 2
+    held = sorted((k % tp, k) for k in (2 * r, 2 * r + 1))   # (to, chunk)
+    send, recv = [0] * tp, [0] * tp
+    for dest, _ in held:
+        send[dest] += c
+    for k in (r, tp + r):
+        recv[k // 2] += c
+    parts = [xz[..., (k - 2 * r) * c:(k - 2 * r + 1) * c] for _, k in held]
+    # Chunks arrive by source rank, x_r's (r // 2) never after z_r's.
+    return shard_ctx.all_to_all_v(torch.cat(parts, dim=-1), axis,
+                                  xz.dim() - 1, send, recv)
+
+
+def _in_proj(params, x, axis):
+    """(x_in, z) of the rank's channels: [..., inner_loc] each."""
+    if axis is not None:
+        x = shard_ctx.enter(x, axis)
+    xz = einsum("bsd,di->bsi", x, params["in_proj"])
+    if axis is not None:
+        xz = _own_channels(xz, axis)
+    return torch.chunk(xz, 2, dim=-1)
+
+
+def _dt_bc(params, xc, cfg, axis=None):
+    """(dt in xc's dtype, B, C) from the convolved input. Under a mesh the
+    product with x_proj is a partial sum over the rank's channels."""
     dtr, n = cfg.resolved_dt_rank, cfg.ssm_state
     dbc = einsum("...i,ir->...r", xc, params["x_proj"])
+    if axis is not None:
+        # Summed over the channels; dt_low, B and C then feed the rank's
+        # channels only, so their gradients are partial sums.
+        dbc = shard_ctx.enter(shard_ctx.psum(dbc, axis), axis)
     dt_low, B, C = torch.split(dbc, [dtr, n, n], dim=-1)
     dt = F.softplus(einsum("...r,ri->...i", dt_low, params["dt_proj"]).float()
                     + params["dt_bias"].float())
     return dt.to(xc.dtype), B, C
 
 
-def _gate_out(params, y, z, x):
+def _gate_out(params, y, z, x, axis=None):
     y = y * F.silu(z.float()).to(x.dtype)
-    return einsum("...i,id->...d", y, params["out_proj"])
+    out = einsum("...i,id->...d", y, params["out_proj"])
+    return out if axis is None else shard_ctx.psum(out, axis)
 
 
 def mamba_apply(params, x, cfg, *, impl: str = "auto", state=None):
@@ -80,16 +140,16 @@ def mamba_apply(params, x, cfg, *, impl: str = "auto", state=None):
     the state after the last token is written into it. A prompt shorter
     than ``conv - 1`` leaves zeros (the convolution's padding) in the
     first rows of ``state["conv"]``."""
-    xz = einsum("bsd,di->bsi", x, params["in_proj"])
-    x_in, z = torch.chunk(xz, 2, dim=-1)
+    axis = _inner_axis(params, cfg)
+    x_in, z = _in_proj(params, x, axis)
     xc = F.silu(_causal_conv(x_in, params["conv_w"], params["conv_b"])
                 .float()).to(x.dtype)
-    dt, B, C = _dt_bc(params, xc, cfg)
+    dt, B, C = _dt_bc(params, xc, cfg, axis)
     A = -torch.exp(params["A_log"].float())
     y, h_last = selective_scan(
         xc, dt.contiguous(), A, B.contiguous(), C.contiguous(), params["D"],
         None if state is None else state["h"], impl=impl)
-    out = _gate_out(params, y, z, x)
+    out = _gate_out(params, y, z, x, axis)
     if state is None:
         return out
     keep = min(cfg.ssm_conv - 1, x.shape[1])
@@ -102,17 +162,17 @@ def mamba_apply(params, x, cfg, *, impl: str = "auto", state=None):
 
 def mamba_decode(params, x, cfg, state):
     """Single-token step. x: [b, 1, d]; ``state`` is updated in place."""
-    xz = einsum("bsd,di->bsi", x, params["in_proj"])
-    x_in, z = torch.chunk(xz, 2, dim=-1)                    # [b, 1, inner]
+    axis = _inner_axis(params, cfg)
+    x_in, z = _in_proj(params, x, axis)                     # [b, 1, inner]
     window = torch.cat([state["conv"], x_in.to(state["conv"].dtype)], dim=1)
     w = params["conv_w"]
     xc = sum(window[:, j, :] * w[j] for j in range(cfg.ssm_conv)) \
         + params["conv_b"]
     xc = F.silu(xc.float()).to(x.dtype)                     # [b, inner]
-    dt, B, C = _dt_bc(params, xc, cfg)
+    dt, B, C = _dt_bc(params, xc, cfg, axis)
     A = -torch.exp(params["A_log"].float())
     y, h_new = selective_step(xc, dt, A, B, C, params["D"], state["h"])
-    out = _gate_out(params, y, z[:, 0], x)[:, None]
+    out = _gate_out(params, y, z[:, 0], x, axis)[:, None]
     state["h"].copy_(h_new)
     state["conv"].copy_(window[:, 1:])
     return out, state

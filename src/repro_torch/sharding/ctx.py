@@ -28,7 +28,11 @@ conjugate:
               router) has a reduce-scatter backward; ``partial_grad=False``
               gathers a sharded result that replicated code consumes, and
               its backward keeps this rank's slice.
-  all_to_all  the expert-parallel exchange; backward the inverse one.
+  all_to_all  the expert-parallel exchange, and the decode's exchange of
+              a split cache's partials; backward the inverse one.
+  all_to_all_v
+              an exchange of uneven parts (Mamba's in_proj block onto
+              the rank's own channels); backward the reverse exchange.
 
 ``pmax`` and ``all_reduce`` (no autograd) serve the loss's max and the
 train step's reductions. Every call counts, per kind, one call and the
@@ -316,3 +320,35 @@ def all_to_all(x, axis: str, split_dim: int, concat_dim: int):
     i to rank i, and concatenate what arrives along ``concat_dim`` in rank
     order (``jax.lax.all_to_all(..., tiled=True)``)."""
     return _AllToAll.apply(x, axis, split_dim, concat_dim, mesh())
+
+
+def _a2a_v(x: torch.Tensor, axis: str, dim: int, send: list, recv: list,
+           m) -> torch.Tensor:
+    xs = x.movedim(dim, 0).contiguous()
+    out = xs.new_empty((sum(recv),) + tuple(xs.shape[1:]))
+    dist.all_to_all_single(out, xs, output_split_sizes=list(recv),
+                           input_split_sizes=list(send),
+                           group=m.group(axis))
+    count("all_to_all", out)
+    return out.movedim(0, dim)
+
+
+class _AllToAllV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, send, recv, m):
+        ctx.args = (axis, dim, send, recv, m)
+        return _a2a_v(x, axis, dim, send, recv, m)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim, send, recv, m = ctx.args
+        return _a2a_v(g, axis, dim, recv, send, m), None, None, None, None, \
+            None
+
+
+def all_to_all_v(x, axis: str, dim: int, send, recv):
+    """Send the first ``send[0]`` entries of ``dim`` to rank 0 of mesh
+    axis ``axis``, the next ``send[1]`` to rank 1, and so on; concatenate
+    what arrives along ``dim`` in rank order (``recv[i]`` entries from
+    rank i). Backward: the reverse exchange."""
+    return _AllToAllV.apply(x, axis, dim, tuple(send), tuple(recv), mesh())

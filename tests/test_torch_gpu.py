@@ -577,6 +577,50 @@ def test_gpu_flash_decode_split_boundaries(cuda, shape, dtype):
         assert torch.count_nonzero(out[lens.index(0)]) == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_blocks", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(8, 4096, 16, 2, 128),
+                                   (8, 4096, 64, 8, 128)])
+def test_gpu_flash_decode_split_and_combine_entries(cuda, shape, n_blocks,
+                                                    dtype):
+    """The split entry over each block of the cache (as ranks of a
+    sequence-sharded cache hold it), the combine entry over every block's
+    partials: against decode_ref and the one-call kernel, bitwise the
+    one-call kernel at one block; one launch each a call; an empty block
+    carries no weight."""
+    b, t, h, kvh, d = shape
+    rows = t // n_blocks
+    lens = [1, t, rows - 1, rows, rows + 1, t - rows // 2, 0, 2 * rows - 3]
+    q = _normal((b, h, d), dtype, cuda, 23)
+    kc = _normal((b, t, kvh, d), dtype, cuda, 24)
+    vc = _normal((b, t, kvh, d), dtype, cuda, 25)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    dec_ops.reset_launches()
+    parts = []
+    for r in range(n_blocks):
+        local = (kv_len - r * rows).clamp(0, rows).to(torch.int32)
+        kb = kc[:, r * rows:(r + 1) * rows].contiguous()
+        vb = vc[:, r * rows:(r + 1) * rows].contiguous()
+        ws = dec_ops.decode_split(q, kb, vb, local)
+        m, l, _ = dec_ref.decode_partials_ref(
+            q, kb, vb, local, *dec_kernel.split_plan(
+                b, rows, kvh, dec_kernel.sm_count(cuda)))
+        torch.cuda.synchronize()
+        assert torch.equal(ws[..., d + 1] > 0, l > 0)
+        parts.append(ws)
+    out = dec_ops.decode_combine(torch.cat(parts, dim=2), dtype)
+    torch.cuda.synchronize()
+    assert dec_ops.launches == {"flash_decode": 0,
+                                "flash_decode_split": n_blocks,
+                                "flash_decode_combine": 1}
+    one = dec_ops.decode_attention(q, kc, vc, kv_len)
+    _close(out, dec_ref.decode_ref(q, kc, vc, kv_len), dtype)
+    _close(out, one, dtype)
+    if n_blocks == 1:
+        assert torch.equal(out, one)
+    assert torch.count_nonzero(out[lens.index(0)]) == 0
+
+
 def test_gpu_flash_decode_empty_cache_gives_zeros(cuda):
     q = _normal((3, 16, 128), torch.float32, cuda, 9)
     kc = _normal((3, 64, 2, 128), torch.float32, cuda, 10)

@@ -318,7 +318,6 @@ def _fake_mesh(sizes):
 
 
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "minicpm3-4b",
-                                  "jamba-1.5-large-398b",
                                   "llama-3.2-vision-11b",
                                   "seamless-m4t-large-v2"])
 def test_other_families_refuse_a_mesh(arch):
@@ -332,19 +331,6 @@ def test_other_families_refuse_a_mesh(arch):
     with t_ctx.activation_rules(rules), \
             pytest.raises(NotImplementedError, match="entry 5"):
         model.forward({}, batch)
-
-
-def test_sequence_sharded_cache_is_refused():
-    cfg = t_configs.get("qwen2.5-3b").reduced()      # 2 kv heads
-    rules = t_rules.make_rules(cfg, _fake_mesh({"data": 1, "model": 4}))
-    assert rules["cache_seq"] == "model"
-    model = t_build(cfg, impl="torch")
-    cache = t_common.init_params(model.cache_template(1, 8),
-                                 torch.Generator(), device="cpu")
-    with t_ctx.activation_rules(rules), \
-            pytest.raises(NotImplementedError, match="sequence"):
-        model.prefill({}, {"tokens": torch.zeros(1, 4, dtype=torch.int64)},
-                      cache)
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "llama-3.2-vision-11b",

@@ -144,7 +144,7 @@ def task_forward(rank, inp, args):
     from repro_torch.training.train_step import MeshStep
     cfg = _cfg(args)
     mesh = _mesh(args)
-    rules = rules_mod.make_rules(cfg, mesh)
+    rules = rules_mod.make_rules(cfg, mesh, overrides=args.get("overrides"))
     model = build(cfg, impl="torch", ep_degree=rules_mod.ep_degree(mesh))
     tmpl = model.template()
     params = shard_tree(_params(inp), tmpl, rules, mesh)
@@ -186,10 +186,11 @@ def task_serve(rank, inp, args):
     toks = torch.from_numpy(inp["tokens"])
     gb, s = toks.shape
     max_len = args["max_len"]
+    over = args.get("overrides")
     pre = plan_cell(cfg, InputShape("p", max_len, gb, "prefill"), mesh,
-                    impl="torch")
+                    impl="torch", rule_overrides=over)
     dec = plan_cell(cfg, InputShape("d", max_len, gb, "decode"), mesh,
-                    impl="torch")
+                    impl="torch", rule_overrides=over)
     full = _params(inp)
     params, batch, _ = pre.shard(full, {"tokens": toks}, None)
     cache = pre.cache()
@@ -205,18 +206,24 @@ def task_serve(rank, inp, args):
         logits, cache = dec.step_fn(params, tok_l, cache)
         steps.append(_gather(logits, ("batch", "vocab"), shape, mesh,
                              rules))
+    from repro_torch.sharding import ctx
+    rows = {t.shape[-3] for k, t in _flat(cache, "").items()
+            if k.endswith("self/k")}
     return {"logits": torch.stack(steps, 1).cpu().numpy(),
-            "tokens": torch.stack(chosen, 1).cpu().numpy()}
+            "tokens": torch.stack(chosen, 1).cpu().numpy(),
+            "cache_rows": np.asarray(sorted(rows)),
+            "all_to_all": np.asarray(ctx.counts["all_to_all"]["calls"])}
 
 
 def task_train(rank, inp, args):
     """One planned train step: full parameters after it, loss, grad
-    norm."""
+    norm; with ``args["grads"]`` also the full gradients the step handed
+    the optimizer ("g/" keys)."""
     import torch
 
     from repro_torch.configs.base import InputShape
     from repro_torch.launch.specs import plan_cell
-    from repro_torch.models.common import gather_tree
+    from repro_torch.models.common import gather_tree, tree_map
     from repro_torch.training import optimizer as opt_mod
     from repro_torch.training.train_step import make_train_step
     cfg = _cfg(args)
@@ -226,7 +233,8 @@ def task_train(rank, inp, args):
     ocfg = opt_mod.AdamWConfig(**args["opt"])
     nm = args["microbatches"]
     plan = plan_cell(cfg, InputShape("t", s, gb, "train"), mesh,
-                     n_microbatches=nm, hoist_fsdp_gather=args["hoist"])
+                     n_microbatches=nm, hoist_fsdp_gather=args["hoist"],
+                     rule_overrides=args.get("overrides"))
     # The plan's step with this optimizer: the plan's own takes
     # opt_config's, whose warm-up moves a parameter by ~3e-6 in the first
     # step, below the tests' bars.
@@ -237,9 +245,22 @@ def task_train(rank, inp, args):
              "labels": toks[:, 1:].contiguous()}
     params, opt_state, batch = plan.shard(full, opt_mod.init(full, ocfg),
                                           batch)
-    params, opt_state, metrics = step(params, opt_state, batch)
-    params = gather_tree(params, plan.model.template(), plan.rules, mesh)
-    out = _flat(params, "p/")
+    seen = []
+    update = opt_mod.update
+    if args.get("grads"):
+        def record(params, grads, *a, **kw):
+            seen.append(tree_map(lambda g: g.detach().clone(), grads))
+            return update(params, grads, *a, **kw)
+        opt_mod.update = record
+    try:
+        params, opt_state, metrics = step(params, opt_state, batch)
+    finally:
+        opt_mod.update = update
+    tmpl = plan.model.template()
+    out = _flat(gather_tree(params, tmpl, plan.rules, mesh), "p/")
+    if seen:
+        out.update(_flat(gather_tree(seen[0], tmpl, plan.rules, mesh),
+                         "g/"))
     out.update(loss=np.asarray(float(metrics["loss"])),
                grad_norm=np.asarray(float(metrics["grad_norm"])),
                hoist=np.asarray(plan.spmd.hoist))

@@ -286,7 +286,21 @@ Phases, each of which raises on failure (exit code non-zero):
                 step, flash_decode never): bitwise the unsharded model at
                 a model extent of 1 and within phase 10's bars of the same
                 plans with impl="torch" ((a3) on a world of one only:
-                scripts/mesh_cards.py serves it over four cards); (b) the planned
+                scripts/mesh_cards.py serves it over four cards);
+                (a4)-(a7) the families sharded last, at full width cut in
+                depth (f32): xlstm-1.3b one period (8 layers), minicpm3-4b
+                2 layers with its latent cache whole and then its rows over
+                ``model``, llama-3.2-vision-11b one period (5 layers,
+                1,601 vision tokens) with the default rules and then
+                SPLIT_RULES, seamless-m4t-large-v2 4 + 4 layers: the
+                unsharded model's greedy prefill and 8 decode steps, then
+                plan_cell's on the same tokens, bitwise at a world of one
+                (else phase 10's bars), with their kernels' launches exact
+                (mlstm_chunkwise once a mLSTM layer of a prefill,
+                flash_attention and flash_decode or its split and combine
+                entries once a self, cross or encoder layer); and each
+                family's planned train step of 2 x 128 tokens against
+                make_train_step, as (b); (b) the planned
                 train step (phase 11 (b)'s cut and batch, 2 microbatches,
                 the FSDP gather hoisted) against make_train_step: bitwise
                 on one rank, else within 1e-5 (loss) and 2e-5
@@ -4541,6 +4555,254 @@ def mesh_serve_split(mesh, dev, name, cut, prompt, n_steps):
                 collectives=runs["auto"]["collectives"])
 
 
+# (a4)-(a7): the families sharded last, at full width cut in depth, in
+# f32: xlstm-1.3b one period (8 layers: 7 mLSTM, 1 sLSTM), minicpm3-4b 2
+# layers (its latent cache whole, then its rows over model), llama-3.2-
+# vision-11b one period (5 layers, 1,601 vision tokens; then with
+# SPLIT_RULES, the vision cache's rows over model too), seamless-m4t-
+# large-v2 4 + 4 layers (the encoder's frames: the cache's rows). Each is
+# served (prefill, greedy decode) by the unsharded model and then through
+# plan_cell on the same tokens; each family's planned train step (2 x 128
+# tokens) is held against make_train_step on the same batch.
+# (name, cut, (batch, prompt), decode steps, rule overrides, train)
+FAMILY_RUNS = (
+    ("xlstm-1.3b", dict(n_layers=8), (2, 256), 8, None, True),
+    ("minicpm3-4b", dict(n_layers=2), (2, 512), 8, None, True),
+    ("minicpm3-4b", dict(n_layers=2), (2, 512), 8, {"cache_seq": "model"},
+     False),
+    ("llama-3.2-vision-11b", dict(n_layers=5), (2, 512), 8, None, True),
+    ("llama-3.2-vision-11b", dict(n_layers=5), (2, 512), 8, SPLIT_RULES,
+     False),
+    ("seamless-m4t-large-v2", dict(n_layers=4, enc_layers=4), (2, 256), 8,
+     None, True))
+FAMILY_TRAIN = (2, 128)
+
+
+def _family_cfg(name, cut):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(name), dtype="float32", **cut)
+
+
+def _family_embeds(cfg, b, frames, gen, dev) -> dict:
+    """The stub frontend's embeddings of the VLM (its vision tokens) or
+    the encoder-decoder (``frames`` audio frames): normal, 0.3, as
+    ``ladder_embeds`` draws them; none for the other families."""
+    import torch
+    kind, n = {"vlm": ("vision_embeds", cfg.n_vision_tokens),
+               "audio": ("audio_embeds", frames)}.get(cfg.family,
+                                                      (None, 0))
+    if kind is None:
+        return {}
+    return {kind: 0.3 * torch.randn((b, n, cfg.d_model), generator=gen,
+                                    device=dev)}
+
+
+def _family_launches(model, rules, max_len, n_steps) -> dict:
+    """The kernel launches of a prefill and ``n_steps`` decode steps of
+    ``model`` under ``rules``: flash_attention once per self-attention,
+    cross and encoder layer of the prefill, mlstm_chunkwise once per
+    mLSTM layer of it; a decode step's flash_decode per self-attention and
+    cross layer, or its split and combine entries where the rules split
+    the cache's rows (the vision or encoder rows where the axis divides
+    them)."""
+    from repro_torch.models import EncDecLM
+    from repro_torch.models.attention import cache_rows_axis
+    cfg = model.cfg
+    if isinstance(model, EncDecLM):
+        n_self, n_cross, n_enc, n_mlstm = model.dec_n, model.dec_n, \
+            model.enc_n, 0
+        src = max_len
+    else:
+        def n_of(kind):
+            return model.n_periods * sum(sp.mixer == kind
+                                         for sp in model.period)
+        n_self, n_cross, n_enc, n_mlstm = n_of("attn"), n_of("cross"), 0, \
+            n_of("mlstm")
+        src = cfg.n_vision_tokens
+    self_split = model.cache_rows_axis(rules) is not None
+    cross_split = cache_rows_axis(cfg.n_kv_heads, rules, src) is not None
+    # MLA layers ("mla" mixers, not counted) are plain in both packages.
+    n_split = n_self * self_split + n_cross * cross_split
+    return {"flash_attention": n_self + n_cross + n_enc,
+            "mlstm_chunkwise": n_mlstm,
+            "flash_decode": n_steps * (n_self + n_cross - n_split),
+            "flash_decode_split": n_steps * n_split,
+            "flash_decode_combine": n_steps * n_split}
+
+
+def mesh_family_serve(mesh, dev, name, cut, prompt, n_steps, rules=None,
+                      atol=LADDER_ATOL):
+    """(a4)-(a7) serving: ``name`` cut to ``cut`` (f32) prefilled and
+    decoded greedily by the unsharded model on this rank's card, then
+    through plan_cell (rule overrides ``rules``) on the kernels fed the same
+    tokens: bitwise the unsharded model on a mesh of one rank, else within
+    ``atol`` with ARGMAX_SHARE of the argmax tokens equal. The planned
+    path's launches must be ``_family_launches``'s. Returns the times, the
+    launches, the collectives (prefill and decode apart) and the rank's
+    GB of parameters."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.specs import plan_cell
+    from repro_torch.models.common import init_params, tree_leaves
+    reset, counts = _all_counters()
+    cfg = _family_cfg(name, cut)
+    gb, s = prompt
+    max_len = s + n_steps
+    pre, dec = (plan_cell(cfg, InputShape(f"family-{k}", max_len, gb, k),
+                          mesh, rule_overrides=rules)
+                for k in ("prefill", "decode"))
+    model = pre.model
+    gen = torch.Generator(device=dev).manual_seed(11)
+    params = init_params(model.template(), gen, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (gb, s), generator=gen,
+                                     device=dev, dtype=torch.int32),
+             **_family_embeds(cfg, gb, max_len, gen, dev)}
+    full = init_params(model.cache_template(gb, max_len),
+                       torch.Generator(device=dev), device=dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, full = model.prefill(params, batch, full)
+        plain = [logits[:, 0]]
+        chosen = []
+        for _ in range(n_steps):
+            chosen.append(torch.argmax(plain[-1], dim=-1).to(torch.int32))
+            logits, full = model.decode_step(params, chosen[-1], full)
+            plain.append(logits)
+        torch.cuda.synchronize()
+        u_s = time.perf_counter() - t0
+    del full
+    _, b_l, _ = pre.shard(None, batch, None)
+    p_l = shard_leafwise(params, pre.in_shardings[0], mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(p_l))
+    rules_m, shape = pre.spmd.model_rules, (gb, cfg.padded_vocab)
+    cache = pre.cache()
+    _collectives()
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = pre.step_fn(p_l, b_l, cache)
+    planned = [_mesh_gather(logits[:, 0], ("batch", "vocab"), shape, mesh,
+                            rules_m)]
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    pre_coll = _collectives()
+    t0 = time.perf_counter()
+    for nxt in chosen:
+        _, tok_l, _ = dec.shard(None, nxt, None)
+        logits, cache = dec.step_fn(p_l, tok_l, cache)
+        planned.append(_mesh_gather(logits, ("batch", "vocab"), shape, mesh,
+                                    rules_m))
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) / n_steps
+    dec_coll = _collectives()
+    launches = counts()
+    del cache, p_l
+    worst = max(float((a - b).abs().max()) for a, b in zip(planned, plain))
+    same = all(torch.equal(a, b) for a, b in zip(planned, plain))
+    n_same = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                 for a, b in zip(planned, plain))
+    total = gb * len(planned)
+    want = _family_launches(model, pre.rules, max_len, n_steps)
+    got = {k: launches[k] for k in want}
+    tag = "" if rules is None else f" with {rules}"
+    log(f"  (family) {name} {cfg.n_layers} layers"
+        f"{f' + {cfg.enc_layers} encoder' if cfg.enc_layers else ''}, f32, "
+        f"mesh {mesh.shape}{tag}: slices {n_bytes / 1e9:.2f} GB a card; "
+        f"prefill {gb} x {s} {t_pre * 1e3:.1f} ms, {t_dec * 1e3:.2f} ms a "
+        f"decode step (unsharded, prefill and {n_steps} steps: "
+        f"{u_s * 1e3:.1f} ms); launches {got} (want {want}); against the "
+        f"unsharded model: bitwise {same}, max abs {worst:.3e}, argmax "
+        f"{n_same}/{total}; collectives: prefill {pre_coll}, decode "
+        f"{dec_coll}")
+    if got != want:
+        raise AssertionError(f"(family) {name}{tag}: launches {got}, want "
+                             f"{want}")
+    if mesh.size == 1 and not same:
+        raise AssertionError(f"(family) {name}{tag}: not bitwise the "
+                             f"unsharded model (max abs {worst:.3e})")
+    if worst > atol or n_same < ARGMAX_SHARE * total:
+        raise AssertionError(f"(family) {name}{tag}: outside the bars "
+                             "against the unsharded model")
+    return dict(bitwise=same, max_abs=worst, argmax_share=n_same / total,
+                launches=launches, prefill_ms=t_pre * 1e3,
+                ms_per_step=t_dec * 1e3, unsharded_ms=u_s * 1e3,
+                rank_gb=n_bytes / 1e9, prefill_collectives=pre_coll,
+                decode_collectives=dec_coll)
+
+
+def mesh_family_train(mesh, dev, name, cut):
+    """(a4)-(a7) training: one planned train step of ``name`` cut to
+    ``cut`` (f32, FAMILY_TRAIN tokens, lr 1e-3) against make_train_step
+    on the same parameters and batch: bitwise on a mesh of one rank, else
+    the loss within 1e-5 relative and the parameters within 2e-5."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.specs import plan_cell
+    from repro_torch.models.common import (P, gather_tree, init_params,
+                                           tree_leaves, tree_map)
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as ts_mod
+    cfg = _family_cfg(name, cut)
+    b, s = FAMILY_TRAIN
+    ocfg = opt_mod.AdamWConfig(lr=1e-3)
+    plan = plan_cell(cfg, InputShape("family-train", s, b, "train"), mesh,
+                     n_microbatches=1)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    params = init_params(plan.model.template(), gen, device=dev)
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous(),
+             **_family_embeds(cfg, b, s, gen, dev)}
+    p0 = tree_map(lambda t: t.clone(), params)
+    want = ts_mod.make_train_step(plan.model, ocfg, donate=True)(
+        p0, opt_mod.init(p0, ocfg), batch)
+    del p0
+    _, _, b_l = plan.shard(None, None, batch)
+    p_l = shard_leafwise(params, plan.in_shardings[0], mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = ts_mod.make_train_step(plan.model, ocfg, donate=True,
+                                  spmd=plan.spmd)
+    _collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = step(p_l, opt_mod.init(p_l, ocfg), b_l)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    coll = _collectives()
+    tmpl = plan.model.template()
+    state_t = {"m": tmpl, "v": tmpl, "step": P((), ())}
+    p_full = gather_tree(got[0], tmpl, plan.rules, mesh)
+    s_full = gather_tree(got[1], state_t, plan.rules, mesh)
+    same = all(torch.equal(a, c) for a, c in zip(
+        tree_leaves({"p": p_full, "s": s_full}),
+        tree_leaves({"p": want[0], "s": want[1]}))) \
+        and all(torch.equal(got[2][k], want[2][k])
+                for k in ("loss", "grad_norm", "lr"))
+    lg, lw = float(got[2]["loss"]), float(want[2]["loss"])
+    rel = abs(lg - lw) / abs(lw)
+    perr = max(float((a - c).abs().max())
+               for a, c in zip(tree_leaves(p_full), tree_leaves(want[0])))
+    log(f"  (family) {name} train step, {cfg.n_layers} layers f32, {b} x "
+        f"{s}, mesh {mesh.shape}: {step_s:.2f} s; against make_train_step: "
+        f"bitwise {same}, loss rel {rel:.3e}, parameters max abs "
+        f"{perr:.3e}; collectives {coll}")
+    if mesh.size == 1 and not same:
+        raise AssertionError(f"(family) {name}: the planned train step "
+                             "differs from make_train_step on one rank")
+    if rel > 1e-5 or perr > 2e-5:
+        raise AssertionError(f"(family) {name}: loss rel {rel:.3e} / "
+                             f"parameters {perr:.3e} outside 1e-5 / 2e-5")
+    return dict(bitwise=same, loss_rel=rel, param_max_abs=perr,
+                step_s=step_s, collectives=coll)
+
+
 def mesh_train(mesh, dev):
     """(b) the planned train step (2 microbatches, the FSDP gather hoisted
     by plan_cell's rule) against make_train_step on phase 11 (b)'s cut and
@@ -4734,10 +4996,11 @@ def mesh_rank(rank: int, world: int, tmp: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mlstm import kernel as ml_kernel
     from repro_torch.kernels.selective_scan import kernel as ss_kernel
     from repro_torch.kernels.slot_solver import kernel as sl_kernel
     from repro_torch.launch.mesh import init_distributed, make_host_mesh
-    for lib in (sl_kernel, fa_kernel, dec_kernel, ss_kernel):
+    for lib in (sl_kernel, fa_kernel, dec_kernel, ss_kernel, ml_kernel):
         lib.load()                       # built by the parent: no nvcc
     dev = init_distributed("cuda", rank=rank, world_size=world,
                            store=dist.FileStore(str(Path(tmp) / "store"),
@@ -4760,6 +5023,16 @@ def mesh_rank(rank: int, world: int, tmp: str) -> int:
     res["train"] = mesh_train(mesh, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    for name, cut, prompt, n_steps, rules, train in FAMILY_RUNS:
+        key = f"family {name}" + ("" if rules is None else " split")
+        res[key] = mesh_family_serve(mesh, dev, name, cut, prompt, n_steps,
+                                     rules)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if train:
+            res[key]["train"] = mesh_family_train(mesh, dev, name, cut)
+            gc.collect()
+            torch.cuda.empty_cache()
     res["psum"] = mesh_psum(mesh, dev)
     res["sweep"] = mesh_sweep(mesh, dev)
     res["rank_s"] = time.perf_counter() - t0
@@ -5163,8 +5436,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"== phase 12 (at {time.perf_counter() - t_start:.0f} s): the "
         "multi-device half (plan_cell's prefill, decode and train step on "
-        "the host mesh of one rank per card, compressed_psum, the sweep's "
-        "shard_map and fleet, the per-device roofline)")
+        "the host mesh of one rank per card, every family among them, "
+        "compressed_psum, the sweep's shard_map and fleet, the per-device "
+        "roofline)")
     mesh = mesh_phase(dev)
 
     for module in ("repro_torch.obs", "repro_torch.obs.report",
@@ -5344,8 +5618,9 @@ def main() -> int:
         k["training_launches"] = training["full"]["launches"][k["name"]]
         k["eval_launches"] = training["eval"]["launches"][k["name"]]
         # Phase 12: rank 0's launches on the planned paths ((a) prefill
-        # and decode, (a2), (a3) over the split cache, (b) the train step,
-        # (d) the sweep's shard_map).
+        # and decode, (a2), (a3) over the split cache, (a4)-(a7) the
+        # families' serving, (b) the train step, (d) the sweep's
+        # shard_map).
         k["mesh_launches"] = sum(
             v["launches"][k["name"]] for v in mesh.values()
             if isinstance(v, dict) and "launches" in v)

@@ -2,7 +2,9 @@
 """The port's multi-device half on four cards of one host (NCCL).
 
     python3 scripts/mesh_cards.py [--only yi34b,train,dbrx,qwen_split,
-                                          jamba_split,launcher,phase12]
+                                          jamba_split,xlstm,xlstm_heads,
+                                          mla,vlm,encdec,launcher,
+                                          phase12]
 
 Spawns one rank per card (four; a FileStore rendezvous, no port), each
 on its card, and runs:
@@ -43,6 +45,27 @@ on its card, and runs:
             that differ counted. Both split parts: logits within 2e-3 and
             >= 99% of the argmax tokens equal, the split and combine
             entries launched once per attention layer and step;
+  xlstm, mla, vlm, encdec
+            the families sharded last, at full width and depth in f32
+            (``chip_smoke.mesh_family_serve``): each rank serves the
+            unsharded model on its own card first (a prefill and 16 greedy
+            decode steps), then plan_cell's prefill and decode on the mesh
+            are fed the same tokens and held to it (logits within 2e-3,
+            0.1 for xlstm-1.3b at full depth, whose 48 random f32 layers
+            are chaotic: ``chip_smoke.LOGIT_ATOL``; >= 99% of the argmax
+            tokens equal), with their kernels' launches exact. xlstm:
+            xlstm-1.3b on (1, 4), one head a card, 2 x 512, then one
+            period of it (8 layers) at 2e-3; xlstm_heads: that period
+            with ``{"heads": None}``, the heads whole on every card while
+            the mLSTM's channels split, as the rules place xlstm-1.3b's 4
+            heads on a model axis of 8 or 16; mla: minicpm3-4b on (1,
+            4), 2 x 512, its latent cache whole, then its rows over
+            ``model``; vlm: llama-3.2-vision-11b on (1, 4), 2 x 512 with
+            1,601 vision tokens; encdec: seamless-m4t-large-v2 on (2, 2),
+            4 x 256 with 272 audio frames. Each prints the card's GB of
+            parameter slices, the ms of a decode step and the
+            collectives' calls and bytes, beside the card's name and
+            power limit;
   launcher  ``torchrun --standalone --nproc-per-node 4 -m
             repro_torch.launch.train --arch qwen2.5-3b --steps 16 --batch
             8 --seq 512`` (full width, bf16, FSDP over data 4);
@@ -78,8 +101,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 
 WORLD = 4
-PARTS = ("yi34b", "train", "dbrx", "qwen_split", "jamba_split", "launcher",
-         "phase12")
+PARTS = ("yi34b", "train", "dbrx", "qwen_split", "jamba_split", "xlstm",
+         "xlstm_heads", "mla", "vlm", "encdec", "launcher", "phase12")
 # Parts run here, not on the ranks this script spawns.
 HERE = ("launcher", "phase12")
 YI_PROMPT = (2, 1024)
@@ -95,6 +118,20 @@ SPLIT_PARTS = {
     "jamba_split": ("jamba-1.5-large-398b", dict(cs.JAMBA_CUT,
                                                  dtype="float32"),
                     2, 1024, 1040, 16, cs.SPLIT_RULES)}
+# part -> (name, mesh, (batch, prompt), decode steps, runs): each run a
+# (label, depth cut, rule overrides). At full depth a run is held to the
+# architecture's LOGIT_ATOL of chip_smoke.py, cut in depth to LOGIT_ATOL.
+FAMILY_PARTS = {
+    "xlstm": ("xlstm-1.3b", (1, WORLD), (2, 512), DECODE_STEPS,
+              [("whole", {}, None), ("period", dict(n_layers=8), None)]),
+    "xlstm_heads": ("xlstm-1.3b", (1, WORLD), (2, 512), DECODE_STEPS,
+                    [("period", dict(n_layers=8), {"heads": None})]),
+    "mla": ("minicpm3-4b", (1, WORLD), (2, 512), DECODE_STEPS,
+            [("whole", {}, None), ("split", {}, {"cache_seq": "model"})]),
+    "vlm": ("llama-3.2-vision-11b", (1, WORLD), (2, 512), DECODE_STEPS,
+            [("whole", {}, None)]),
+    "encdec": ("seamless-m4t-large-v2", (2, 2), (4, 256), DECODE_STEPS,
+               [("whole", {}, None)])}
 LAUNCHER = ["--arch", "qwen2.5-3b", "--steps", "16", "--batch", "8",
             "--seq", "512"]
 
@@ -469,6 +506,61 @@ def _nest(flat):
     return tree
 
 
+def _card(dev) -> str:
+    """This rank's card: name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", str(dev.index or 0),
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def _family(dev, part):
+    """One FAMILY_PARTS entry: ``chip_smoke.mesh_family_serve`` for each
+    of its runs."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    name, shape, prompt, n_steps, runs = FAMILY_PARTS[part]
+    mesh = make_mesh(shape, ("data", "model"), device=dev.type)
+    card = _card(dev)
+    res = {"card": card}
+    for key, cut, rules in runs:
+        atol = LOGIT_ATOL if cut else cs.LOGIT_ATOL.get(name, LOGIT_ATOL)
+        cs._collectives()
+        r = cs.mesh_family_serve(mesh, dev, name, cut, prompt, n_steps,
+                                 rules, atol=atol)
+        r["peak_gb"] = _peak_gb()
+        log(f"  {part} ({key}) on {card}: {r['rank_gb']:.2f} GB of slices "
+            f"a card, peak {r['peak_gb']:.2f} GB, {r['ms_per_step']:.2f} ms "
+            f"a decode step, prefill {r['prefill_ms']:.1f} ms; logits "
+            f"within {r['max_abs']:.3e} (bar {atol}), argmax share "
+            f"{r['argmax_share']:.4f}")
+        res[key] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return res
+
+
+def part_xlstm(dev):
+    return _family(dev, "xlstm")
+
+
+def part_xlstm_heads(dev):
+    return _family(dev, "xlstm_heads")
+
+
+def part_mla(dev):
+    return _family(dev, "mla")
+
+
+def part_vlm(dev):
+    return _family(dev, "vlm")
+
+
+def part_encdec(dev):
+    return _family(dev, "encdec")
+
+
 def part_qwen_split(dev):
     return _split_serve(dev, "qwen_split")
 
@@ -482,9 +574,10 @@ def rank_main(rank: int, world: int, tmp: str, parts) -> int:
     import torch.distributed as dist
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mlstm import kernel as ml_kernel
     from repro_torch.kernels.selective_scan import kernel as ss_kernel
     from repro_torch.launch.mesh import init_distributed
-    for lib in (fa_kernel, dec_kernel, ss_kernel):
+    for lib in (fa_kernel, dec_kernel, ss_kernel, ml_kernel):
         lib.load()
     dev = init_distributed("cuda", rank=rank, world_size=world,
                            store=dist.FileStore(str(Path(tmp) / "store"),
@@ -544,6 +637,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mlstm import kernel as ml_kernel
     from repro_torch.kernels.selective_scan import kernel as ss_kernel
     from repro_torch.kernels.slot_solver import kernel as sl_kernel
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -552,11 +646,13 @@ def main(argv=None) -> int:
     log(f"cards:\n{smi}\ntorch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         for f in [pool.submit(_build.build, name, lib.SOURCES, flags)
                   for name, lib, flags in (
                       ("flash_attention", fa_kernel, _build.ATTENTION_FLAGS),
                       ("flash_decode", dec_kernel, _build.ATTENTION_FLAGS),
+                      ("mlstm_chunkwise", ml_kernel,
+                       _build.ATTENTION_FLAGS),
                       ("selective_scan", ss_kernel, _build.NVCC_FLAGS),
                       ("slot_solver", sl_kernel, _build.NVCC_FLAGS))]:
             f.result()
@@ -575,7 +671,7 @@ def main(argv=None) -> int:
     if "launcher" in parts:
         res["launcher"] = launcher()
     if "phase12" in parts:
-        for lib in (sl_kernel, fa_kernel, dec_kernel, ss_kernel):
+        for lib in (sl_kernel, fa_kernel, dec_kernel, ss_kernel, ml_kernel):
             lib.load()
         res["phase12"] = cs.mesh_phase(torch.device("cuda", 0))
     print(json.dumps(res, default=str))

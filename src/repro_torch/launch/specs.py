@@ -19,7 +19,6 @@ import torch
 
 from ..configs.base import InputShape, ModelConfig
 from ..models import build
-from ..models.attention import cache_rows_axis
 from ..models.common import (abstract_params, init_params, local_template,
                              pspec_tree, shard_by)
 from ..models.registry import DTYPES
@@ -79,11 +78,13 @@ class CellPlan:
         return tuple(None if t is None else shard_by(t, s, self.mesh)
                      for t, s in zip(trees, self.in_shardings))
 
-    def cache(self) -> dict:
+    def cache(self, **kw) -> dict:
         """A zeroed decode cache of this rank's slices (prefill and decode
-        plans)."""
+        plans); ``kw``: the model's ``cache_template`` options (the
+        encoder-decoder's ``enc_len``, which the decode step then takes
+        too)."""
         tmpl = self.model.cache_template(self.shape.global_batch,
-                                         self.shape.seq_len)
+                                         self.shape.seq_len, **kw)
         return init_params(local_template(tmpl, self.rules),
                            torch.Generator(device=self.mesh.device),
                            DTYPES[self.cfg.dtype], self.mesh.device)
@@ -183,11 +184,12 @@ def plan_cell(cfg: ModelConfig, shape: InputShape, mesh, *,
             out_shardings=(params_sh, opt_sh, metrics_sh),
             donate=(0, 1), kind=kind, spmd=spmd)
 
-    seq_axis = cache_rows_axis(cfg.n_kv_heads, rules)
+    seq_axis = model.cache_rows_axis(rules)
     extent = math.prod(mesh.shape.get(a, 1) for a in axes_of(seq_axis))
     if shape.seq_len % extent:
         # The model reads the cache rows' split from the rules alone:
-        # they must divide evenly.
+        # they must divide evenly. (A cross layer's source rows stay whole
+        # where they do not: ``models.attention.cache_rows_axis``.)
         raise ValueError(f"a cache of {shape.seq_len} rows does not split "
                          f"over {seq_axis!r} of extent {extent}")
     spmd = MeshStep(mesh, rules, tmpl)
@@ -196,12 +198,12 @@ def plan_cell(cfg: ModelConfig, shape: InputShape, mesh, *,
     cache_abs = abstract_params(cache_tmpl, dt)
     cache_sh = pspec_tree(cache_tmpl, rules)
 
-    def run(method):
-        def step(params, inputs, cache):
+    def run(method, **defaults):
+        def step(params, inputs, cache, **kw):
             gparams = spmd.gather(params)
             with torch.no_grad(), \
                     shard_ctx.activation_rules(spmd.model_rules):
-                return method(gparams, inputs, cache)
+                return method(gparams, inputs, cache, **{**defaults, **kw})
         return step
 
     if kind == "prefill":
@@ -218,8 +220,11 @@ def plan_cell(cfg: ModelConfig, shape: InputShape, mesh, *,
                          ("batch", "vocab"), rules)
     tokens_abs = torch.empty((shape.global_batch,), dtype=torch.int32,
                              device="meta")
+    # The encoder's frames of the plan's cache (``cache_template``'s
+    # default): under a mesh a rank's cross caches cannot tell them.
+    enc = {"enc_len": shape.seq_len} if cfg.enc_layers else {}
     return CellPlan(
-        cfg, shape, mesh, rules, model, run(model.decode_step),
+        cfg, shape, mesh, rules, model, run(model.decode_step, **enc),
         args=(params_abs, tokens_abs, cache_abs),
         in_shardings=(params_sh, batch_sh["tokens"], cache_sh),
         out_shardings=(vocab_sh, cache_sh), donate=(2,), kind=kind,

@@ -22,6 +22,14 @@ ranks: the query heads are gathered, each rank runs the split pass of
 each holds every rank's partials of its own query heads, and the combine
 pass merges them. The prefill writes the prompt's rows that fall in the
 rank's block and attends over the prompt locally, as without the split.
+
+A cross layer's cache (the encoder's or the vision embeddings' keys and
+values, ``t`` source rows) takes the same template: its rows split where
+the rules' ``cache_seq`` axis divides ``t`` (``_cache_split``), else each
+rank holds them whole, as ``spec.spec_dims`` falls back. The prefill
+attends over the whole source on the rank's heads and writes its
+placement (``write_source``); the decode runs the split path above over
+a split source with every row valid.
 """
 from __future__ import annotations
 
@@ -89,6 +97,11 @@ def _qkv(params, x, kv_x, cfg):
     if axis is not None:
         x = shard_ctx.enter(x, axis)
         kv_x = x if kv_x is None else shard_ctx.enter(kv_x, axis)
+    elif kv_x is not None:
+        # A source every cross layer reads (the encoder's output) takes
+        # each layer's gradient summed first, as ``enter`` sums it under a
+        # mesh: one order of the sum, with and without one.
+        kv_x = kv_x.view_as(kv_x)
     q = einsum("bsd,dhk->bshk", x, params["wq"])
     if cfg.qkv_bias:
         q = q + params["bq"]
@@ -103,12 +116,15 @@ def _qkv(params, x, kv_x, cfg):
     return (q,) + encode_kv(kv_params, cfg, x if kv_x is None else kv_x)
 
 
-def cache_rows_axis(n_kv_heads: int, rules: dict):
-    """The mesh axis the cache rows split over under ``rules``, or None.
-    The cache's own placement decides (``mesh_dims`` over its dims, the
-    first dim winning a mesh axis), not the kv heads' rule: with
-    ``kv_heads`` and ``cache_seq`` both on one axis the rows take it."""
-    _, axis, kv_axis, _ = mesh_dims((1 << 30, 1 << 30, n_kv_heads, 1),
+def cache_rows_axis(n_kv_heads: int, rules: dict, t: int = 1 << 30):
+    """The mesh axis the rows of a cache of ``t`` rows split over under
+    ``rules``, or None: a self-attention cache's (any length: the plan
+    refuses one the axis does not divide) or a cross layer's (its source
+    rows, whole where the axis does not divide them). The cache's own
+    placement decides (``mesh_dims`` over its dims, the first dim winning
+    a mesh axis), not the kv heads' rule: with ``kv_heads`` and
+    ``cache_seq`` both on one axis the rows take it."""
+    _, axis, kv_axis, _ = mesh_dims((1 << 30, t, n_kv_heads, 1),
                                     ("batch", CACHE_SEQ, KV_HEADS, HEAD_DIM),
                                     rules)
     if axis is not None and kv_axis is not None:
@@ -118,18 +134,13 @@ def cache_rows_axis(n_kv_heads: int, rules: dict):
     return axis
 
 
-def _cache_split(cfg):
-    """(mesh axis, extent, this rank's index) of the cache rows' split, or
-    None (``cache_rows_axis`` under the current rules). The cache's length
-    is taken to divide the axis (``launch.specs.plan_cell`` refuses one
-    that does not)."""
-    m = shard_ctx.mesh()
-    if m is None:
+def _cache_split(cfg, t: int = 1 << 30):
+    """(mesh axis, extent, this rank's index) of the split of a cache of
+    ``t`` rows under the current rules (``cache_rows_axis``), or None."""
+    if shard_ctx.mesh() is None:
         return None
-    axis = cache_rows_axis(cfg.n_kv_heads, shard_ctx.current())
-    if axis is None:
-        return None
-    return axis, m.extent(axis), m.coord(axis)
+    return shard_ctx.split_of(cache_rows_axis(cfg.n_kv_heads,
+                                              shard_ctx.current(), t))
 
 
 def _all_kv_heads(cfg, k, v):
@@ -255,12 +266,22 @@ def _split_decode(params, q, k, v, cfg, cache, lens, split, impl):
     # drops it elsewhere).
     scatter_kv(cache["k"], k[:, 0], lens - off)
     scatter_kv(cache["v"], v[:, 0], lens - off)
+    kv_len = (lens + 1 - off).clamp(0, t_loc).to(torch.int32)
+    return _split_attend(params, q, cache["k"], cache["v"], kv_len, cfg,
+                         axis, impl)
+
+
+def _split_attend(params, q, ck, cv, kv_len, cfg, axis, impl):
+    """One query token of this rank's heads q [b, 1, h_loc, hd] against
+    its block of rows ck, cv [b, t_loc, kvh, hd] (every kv head) of a
+    cache split over ``axis``, ``kv_len`` [b] of them valid: the split
+    pass over the block, the exchange of the partials and the combine
+    pass. Returns y [b, 1, d]."""
     heads = _heads(cfg)[0]
     q = q[:, 0].contiguous()                              # [b, h_loc, hd]
     if heads is not None:
         q = shard_ctx.all_gather(q, heads, dim=1, partial_grad=False)
-    kv_len = (lens + 1 - off).clamp(0, t_loc).to(torch.int32)
-    ws = decode_split(q, cache["k"], cache["v"], kv_len, impl=impl)
+    ws = decode_split(q, ck, cv, kv_len, impl=impl)
     if heads == axis:
         # Each rank keeps its query heads' partials from every rank, in
         # rank order: the splits in row order.
@@ -273,18 +294,57 @@ def _split_decode(params, q, k, v, cfg, cache, lens, split, impl):
     return _out(params, out[:, None], cfg)
 
 
-def cross_decode(params, x, cfg, enc_k, enc_v, *, impl: str = "auto"):
-    """Cross-attention during decode: x [b, 1, d] against all t rows of
-    the static encoder keys and values [b, t, kvh, hd]; nothing is
-    written."""
+def write_source(cache, params, cfg, kv_x) -> None:
+    """Write the cross-attention keys and values of ``kv_x`` [b, t, d]
+    into a cross layer's cache in place: this rank's kv heads or, where
+    the rows split (``_cache_split``), every kv head of its block of
+    rows."""
+    k, v = encode_kv(params, cfg, kv_x)
+    split = _cache_split(cfg, kv_x.shape[1])
+    if split is not None:
+        _, extent, rank = split
+        k, v = _all_kv_heads(cfg, k, v)
+        t_loc = kv_x.shape[1] // extent
+        k = k[:, rank * t_loc:(rank + 1) * t_loc]
+        v = v[:, rank * t_loc:(rank + 1) * t_loc]
+    if cache["k"].shape != k.shape:
+        raise ValueError(f"cross-attention cache {tuple(cache['k'].shape)} "
+                         f"does not fit the source's keys {tuple(k.shape)}: "
+                         "make the cache with kv_source_len (enc_len) equal "
+                         "to the source length")
+    cache["k"].copy_(k)
+    cache["v"].copy_(v)
+
+
+def cross_decode(params, x, cfg, enc_k, enc_v, *, src_len=None,
+                 impl: str = "auto"):
+    """Cross-attention during decode: x [b, 1, d] against all rows of the
+    static encoder keys and values [b, t, kvh, hd]; nothing is written.
+    ``src_len``: the source's rows over all ranks, needed under a mesh
+    (``_cache_split``); a cache that is not this rank's placement of them
+    raises."""
     axis, _ = _heads(cfg)
     if axis is not None:
         x = shard_ctx.enter(x, axis)
     q = einsum("bsd,dhk->bshk", x, params["wq"])
     if cfg.qkv_bias:
         q = q + params["bq"]
-    lens = torch.full((x.shape[0],), enc_k.shape[1], dtype=torch.int32,
+    t_loc = enc_k.shape[1]
+    split = None
+    if shard_ctx.mesh() is not None:
+        if src_len is None:
+            raise ValueError("cross_decode under a mesh needs src_len")
+        split = _cache_split(cfg, src_len)
+        want = src_len if split is None else src_len // split[1]
+        if t_loc != want:
+            raise ValueError(f"cross-attention cache of {t_loc} rows a rank "
+                             f"is not this rank's placement of {src_len} "
+                             "source rows")
+    lens = torch.full((x.shape[0],), t_loc, dtype=torch.int32,
                       device=x.device)
+    if split is not None:
+        return _split_attend(params, q, enc_k, enc_v, lens, cfg, split[0],
+                             impl)
     enc_k, enc_v = _kv_heads(cfg, enc_k, enc_v)
     out = decode_attention(q[:, 0].contiguous(), enc_k, enc_v, lens,
                            impl=impl)

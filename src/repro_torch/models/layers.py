@@ -13,7 +13,9 @@ the vocab-sharded embedding is a masked local lookup summed over
 ``model``; ``unembed`` keeps the local vocab columns and ``softmax_xent``
 reduces its max, sum of exponentials and label logit over ``model``; the
 MLPs' output products are partial sums all-reduced over ``model`` (a bias
-added once, after). A dim split over no mesh axis runs as on one card.
+added once, after); ``own_channels`` moves a column-parallel block of
+two halves onto the rank's channels of each. A dim split over no mesh
+axis runs as on one card.
 """
 from __future__ import annotations
 
@@ -99,6 +101,31 @@ def swiglu(params, x: torch.Tensor, width: int | None = None
     h = F.silu(gate.float()).to(x.dtype) * up
     y = einsum("...f,fd->...d", h, params["wo"])
     return ctx.psum(y, axis) if axis else y
+
+
+def own_channels(xz: torch.Tensor, axis) -> torch.Tensor:
+    """[x | z] of this rank's channels from its block of the columns of a
+    column-parallel product whose columns are two halves x and z of
+    ``inner`` channels each (Mamba's ``in_proj``, the mLSTM's
+    ``up_proj``). In chunks of c = inner / tp columns the product's
+    columns are x_0 .. x_{tp-1}, z_0 .. z_{tp-1}; rank r holds chunks 2r
+    and 2r + 1 and needs x_r and z_r (chunks r and tp + r), so chunk k
+    goes to rank k % tp and comes from rank k // 2."""
+    m = ctx.mesh()
+    tp, r = m.extent(axis), m.coord(axis)
+    c = xz.shape[-1] // 2
+    held = sorted((k % tp, k) for k in (2 * r, 2 * r + 1))   # (to, chunk)
+    send, recv = [0] * tp, [0] * tp
+    for dest, _ in held:
+        send[dest] += c
+    for k in (r, tp + r):
+        recv[k // 2] += c
+    parts = [xz[..., (k - 2 * r) * c:(k - 2 * r + 1) * c] for _, k in held]
+    # Chunks arrive by source rank, x_r's (r // 2) never after z_r's.
+    # Contiguous, as the product is: the halves' strides, and so the
+    # products' rounding in the backward pass, stay those of one card.
+    return ctx.all_to_all_v(torch.cat(parts, dim=-1), axis, xz.dim() - 1,
+                            send, recv).contiguous()
 
 
 def gelu_mlp_template(d: int, ff: int):

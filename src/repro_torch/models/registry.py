@@ -30,10 +30,10 @@ Under a mesh (``sharding.ctx.activation_rules`` with a mesh, as
 ``launch.specs.plan_cell`` runs them) every call takes this rank's slices
 of the parameters (the FSDP dims gathered: ``sharding.rules.gathered``),
 batch and cache, and returns its slice of the logits (the local vocab
-columns). The planned steps cover the dense and MoE GQA decoders and the
-hybrid, with the decode cache's rows split over an axis where the rules
-put ``cache_seq`` (``models.attention``); another family under a mesh
-with an axis of extent > 1 raises.
+columns). Every family runs there: the decode cache's rows split over an
+axis where the rules put ``cache_seq`` (``models.attention``,
+``models.mla``), a cross layer's source rows where that axis divides
+them. A division the rules cannot resolve raises.
 """
 from __future__ import annotations
 
@@ -43,9 +43,11 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..kernels.attention_common import check_impl
 from ..sharding import ctx as shard_ctx
+from .attention import cache_rows_axis
 from .common import VOCAB, P, count_params, stack_template
 from .layers import (einsum, embed, embedding_template, softmax_xent,
                      unembed, unembed_template)
+from .mla import cache_rows_axis as mla_cache_rows_axis
 from .transformer import (block_cache_template, block_template, layout,
                           norm, norm_template, stack_apply, stack_decode)
 
@@ -78,26 +80,6 @@ def _stacked_cache_template(cfg, period, n_periods, batch, max_len,
 
 def _len_template(batch: int):
     return P((batch,), ("batch",), init="zeros", dtype=torch.int32)
-
-
-# The families the planned (sharded) steps cover: the dense and MoE GQA
-# decoders and the hybrid (jamba).
-MESH_FAMILIES = ("dense", "moe", "hybrid")
-
-
-def _check_mesh(cfg) -> None:
-    """Refuse what the port does not shard: another family (the xLSTM,
-    the VLM, the encoder-decoder), or MLA, under a mesh with an axis of
-    extent > 1 (ROADMAP queue 1 entry 5)."""
-    m = shard_ctx.mesh()
-    if m is None or m.size == 1:
-        return
-    if cfg.family not in MESH_FAMILIES or cfg.attn_type != "gqa" \
-            or cfg.enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}, {cfg.attn_type}) under a mesh of "
-            f"{m.shape}: only the dense and MoE GQA decoders and the "
-            "hybrid are sharded (ROADMAP queue 1 entry 5)")
 
 
 class TransformerLM(nn.Module):
@@ -140,6 +122,17 @@ class TransformerLM(nn.Module):
     def param_count(self) -> int:
         return count_params(self.template())
 
+    def cache_rows_axis(self, rules: dict):
+        """The mesh axis the self-attention caches' rows split over under
+        ``rules`` (the GQA cache's or MLA's latent cache's placement), or
+        None, also where no layer has one (the xLSTM)."""
+        mixers = {spec.mixer for spec in self.period}
+        if "mla" in mixers:
+            return mla_cache_rows_axis(rules)
+        if "attn" in mixers:
+            return cache_rows_axis(self.cfg.n_kv_heads, rules)
+        return None
+
     def _logits(self, params, x):
         cfg = self.cfg
         x = norm(cfg, params["final_norm"], x)
@@ -153,7 +146,6 @@ class TransformerLM(nn.Module):
         return unembed(params["unembed"], x, vocab=cfg.padded_vocab)
 
     def _embed(self, params, tokens):
-        _check_mesh(self.cfg)
         return embed(params["embed"], tokens,
                      vocab=self.cfg.padded_vocab).to(self.dtype)
 
@@ -198,7 +190,9 @@ class TransformerLM(nn.Module):
         x = self._embed(params, tokens[:, None])
         lens = cache["len"]
         x, blocks = stack_decode(params["blocks"], x, self.cfg, self.period,
-                                 cache["blocks"], lens, impl=self.impl)
+                                 cache["blocks"], lens,
+                                 src_len=self.cfg.n_vision_tokens,
+                                 impl=self.impl)
         new_cache = {"blocks": blocks, "len": lens + 1}
         return self._logits(params, x)[:, 0], new_cache
 
@@ -244,10 +238,14 @@ class EncDecLM(nn.Module):
     def param_count(self) -> int:
         return count_params(self.template())
 
+    def cache_rows_axis(self, rules: dict):
+        """The mesh axis the decoder's self-attention caches' rows split
+        over under ``rules``, or None."""
+        return cache_rows_axis(self.cfg.n_kv_heads, rules)
+
     def encode(self, params, audio_embeds):
         """audio_embeds [b, frames, d] -> the encoder's output [b, frames,
         d]: self-attention over all frames (non-causal)."""
-        _check_mesh(self.cfg)
         x = einsum("bsd,de->bse", audio_embeds.to(self.dtype),
                    params["enc_in"]["w"])
         x, _, _ = stack_apply(params["enc_blocks"], x, self.cfg,
@@ -293,15 +291,17 @@ class EncDecLM(nn.Module):
                      "len": torch.full_like(cache["len"], tokens.shape[1])}
         return self._logits(params, x[:, -1:]), new_cache
 
-    def decode_step(self, params, tokens, cache):
+    def decode_step(self, params, tokens, cache, enc_len=None):
         """tokens: [b] -> (logits [b, V], cache); the cache is written in
-        place and its ``len`` advanced by one."""
-        _check_mesh(self.cfg)
+        place and its ``len`` advanced by one. ``enc_len``: the encoder's
+        frames the cache holds (its ``cache_template``'s) over all ranks,
+        needed under a mesh, where a rank's cross caches may hold only its
+        block of them (``plan_cell``'s decode step passes its own)."""
         x = self._embed(params, tokens[:, None])
         lens = cache["len"]
         x, blocks = stack_decode(params["dec_blocks"], x, self.cfg,
                                  self.dec_period, cache["blocks"], lens,
-                                 impl=self.impl)
+                                 src_len=enc_len, impl=self.impl)
         new_cache = {"blocks": blocks, "len": lens + 1}
         return self._logits(params, x)[:, 0], new_cache
 

@@ -13,9 +13,9 @@ its block of ``in_proj``'s columns and its channels of every other leaf
 and of the state. The block of in_proj's 2 * inner columns is not the
 rank's channels of x_in and z (at two ranks, rank 0 holds all of x_in),
 so the product's columns are exchanged onto the rank's channels
-(``_in_proj``). The convolution, dt, the scan and the gate run on the
-rank's channels; x_proj and out_proj contract over them, so their
-partial sums are all-reduced.
+(``_in_proj``, ``layers.own_channels``). The convolution, dt, the scan
+and the gate run on the rank's channels; x_proj and out_proj contract
+over them, so their partial sums are all-reduced.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from ..kernels.selective_scan import selective_scan, selective_step
 from ..sharding import ctx as shard_ctx
 from .common import CONV, EMBED, LORA, SSM_INNER, SSM_STATE, P
-from .layers import einsum
+from .layers import einsum, own_channels
 
 
 def mamba_template(cfg):
@@ -82,34 +82,13 @@ def _inner_axis(params, cfg):
     return axis
 
 
-def _own_channels(xz, axis):
-    """[x_in | z] of this rank's channels from the columns of its block of
-    in_proj. In chunks of c = inner / tp columns the product's columns are
-    x_0 .. x_{tp-1}, z_0 .. z_{tp-1}; rank r holds chunks 2r and 2r + 1
-    and needs x_r and z_r (chunks r and tp + r), so chunk k goes to rank
-    k % tp and comes from rank k // 2."""
-    m = shard_ctx.mesh()
-    tp, r = m.extent(axis), m.coord(axis)
-    c = xz.shape[-1] // 2
-    held = sorted((k % tp, k) for k in (2 * r, 2 * r + 1))   # (to, chunk)
-    send, recv = [0] * tp, [0] * tp
-    for dest, _ in held:
-        send[dest] += c
-    for k in (r, tp + r):
-        recv[k // 2] += c
-    parts = [xz[..., (k - 2 * r) * c:(k - 2 * r + 1) * c] for _, k in held]
-    # Chunks arrive by source rank, x_r's (r // 2) never after z_r's.
-    return shard_ctx.all_to_all_v(torch.cat(parts, dim=-1), axis,
-                                  xz.dim() - 1, send, recv)
-
-
 def _in_proj(params, x, axis):
     """(x_in, z) of the rank's channels: [..., inner_loc] each."""
     if axis is not None:
         x = shard_ctx.enter(x, axis)
     xz = einsum("bsd,di->bsi", x, params["in_proj"])
     if axis is not None:
-        xz = _own_channels(xz, axis)
+        xz = own_channels(xz, axis)
     return torch.chunk(xz, 2, dim=-1)
 
 

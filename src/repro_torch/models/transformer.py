@@ -147,21 +147,14 @@ def block_cache_template(cfg, spec: LayerSpec, batch: int, max_len: int,
 
 def _write_enc(cache, params, cfg, kv_embeds) -> None:
     """Write the cross-attention keys and values of ``kv_embeds`` into the
-    layer's ``enc`` cache in place. The JAX package replaces the cache
-    entry whatever its length; in place, the cache must have been made
-    with one row per source position (``kv_source_len``)."""
+    layer's ``enc`` cache in place (``attention.write_source``: under a
+    mesh, this rank's placement of them). The JAX package replaces the
+    cache entry whatever its length; in place, the cache must have been
+    made with one row per source position (``kv_source_len``)."""
     if kv_embeds is None:
         raise ValueError("a cross-attention cache needs the source "
                          "embeddings (vision_embeds or the encoder's output)")
-    k, v = attn_mod.encode_kv(params, cfg, kv_embeds)
-    enc = cache["enc"]
-    if enc["k"].shape != k.shape:
-        raise ValueError(f"cross-attention cache {tuple(enc['k'].shape)} "
-                         f"does not fit the source's keys {tuple(k.shape)}: "
-                         "make the cache with kv_source_len (enc_len) equal "
-                         "to the source length")
-    enc["k"].copy_(k)
-    enc["v"].copy_(v)
+    attn_mod.write_source(cache["enc"], params, cfg, kv_embeds)
 
 
 def _ffn(params, x, cfg, spec: LayerSpec, *, decode: bool = False):
@@ -233,9 +226,11 @@ def block_apply(params, x, cfg, spec: LayerSpec, *, causal: bool = True,
 
 
 def block_decode(params, x, cfg, spec: LayerSpec, cache, lens, *,
-                 impl: str = "auto"):
+                 src_len=None, impl: str = "auto"):
     """Single-token decode through one block. x: [b, 1, d]; the cache is
-    updated in place (a cross layer's encoder cache is only read)."""
+    updated in place (a cross layer's encoder cache is only read).
+    ``src_len``: the cross layers' source rows over all ranks (needed
+    under a mesh: ``attention.cross_decode``)."""
     h = norm(cfg, params["norm1"], x)
     if spec.mixer == "attn":
         out, _ = attn_mod.gqa_decode(params["mixer"], h, cfg, cache["self"],
@@ -246,7 +241,7 @@ def block_decode(params, x, cfg, spec: LayerSpec, cache, lens, *,
     elif spec.mixer == "cross":
         out = attn_mod.cross_decode(params["mixer"], h, cfg,
                                     cache["enc"]["k"], cache["enc"]["v"],
-                                    impl=impl)
+                                    src_len=src_len, impl=impl)
     elif spec.mixer == "mamba":
         out, _ = ssm_mod.mamba_decode(params["mixer"], h, cfg,
                                       cache["state"])
@@ -261,7 +256,7 @@ def block_decode(params, x, cfg, spec: LayerSpec, cache, lens, *,
         h = norm(cfg, params["norm_x"], x)
         x = x + attn_mod.cross_decode(params["cross"], h, cfg,
                                       cache["enc"]["k"], cache["enc"]["v"],
-                                      impl=impl)
+                                      src_len=src_len, impl=impl)
     return _ffn(params, x, cfg, spec, decode=True)[0], cache
 
 
@@ -383,11 +378,12 @@ def stack_apply(stacked, x, cfg, period, *, causal: bool = True,
     return x, caches, torch.sum(torch.stack(auxs))
 
 
-def stack_decode(stacked, x, cfg, period, caches, lens, *,
+def stack_decode(stacked, x, cfg, period, caches, lens, *, src_len=None,
                  impl: str = "auto"):
     for li, layer in enumerate(_periods(stacked)):
         layer_cache = _period(caches, li)
         for i, spec in enumerate(period):
             x, _ = block_decode(layer[f"p{i}"], x, cfg, spec,
-                                layer_cache[f"p{i}"], lens, impl=impl)
+                                layer_cache[f"p{i}"], lens, src_len=src_len,
+                                impl=impl)
     return x, caches

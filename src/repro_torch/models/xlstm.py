@@ -7,6 +7,26 @@ Templates, key names and einsum layouts are the JAX package's
 (``models/xlstm.py``). The recurrent states of a cache are written in
 place: a prefill given ``state`` writes the state after its last token
 into it, and a decode step updates it.
+
+Under a mesh (``sharding.ctx``) both blocks split their heads over the
+``heads`` rule's axis. The mLSTM's inner channels go with them (head i
+owns channels [i hd, (i + 1) hd), and ``ssm_inner`` takes the same axis):
+the rank's block of ``up_proj``'s columns is exchanged onto its channels
+of ``xu`` and ``z`` (``layers.own_channels``, as Mamba's ``in_proj``), so
+q, k, v, the state and the kernel run on the rank's heads. ``w_if``'s
+rows are the rank's channels over every head: the gates are a partial sum
+over the channels, reduce-scattered onto the rank's heads. ``out_norm``
+is one RMS norm over the whole inner width, its sum of squares summed
+over the axis (``_out_norm``: one expression with and without a mesh),
+and ``down_proj``'s partial sum is all-reduced. Where the axis
+does not divide the heads they stay whole (``spec_dims``'s fallback)
+while the channels still split: the rank's channels of ``xu`` are
+all-gathered, the gates' partial sum all-reduced, and every rank runs
+every head, normalises the whole width and keeps its channels for the
+row-parallel ``down_proj``. The sLSTM's recurrence is
+head-local; its output is all-gathered to the model width before the
+column-parallel ``ffn_up``, and ``ffn_down``'s partial sum is
+all-reduced.
 """
 from __future__ import annotations
 
@@ -15,8 +35,9 @@ import torch.nn.functional as F
 
 from ..kernels.mlstm import (mlstm, mlstm_chunkwise_xla, mlstm_final_state,
                              mlstm_step)
+from ..sharding import ctx as shard_ctx
 from .common import EMBED, HEAD_DIM, HEADS, MLP, SSM_INNER, P
-from .layers import einsum, rmsnorm, rmsnorm_template
+from .layers import einsum, own_channels, rmsnorm_template
 
 
 # ---------------------------------------------------------------------------
@@ -59,27 +80,93 @@ def mlstm_state_template(cfg, batch: int, dtype=None):
     }
 
 
-def _mlstm_qkvif(params, xu):
+def _mlstm_axis(params, cfg):
+    """(axis, whole): the mesh axis the mLSTM's inner channels are split
+    over, or None, and whether its heads stay whole on every rank (the
+    axis does not divide them) rather than going with the channels."""
+    inner = 2 * cfg.d_model
+    axis, _ = shard_ctx.split(SSM_INNER, params["down_proj"].shape[0],
+                              inner)
+    heads = shard_ctx.axis_for(HEADS, cfg.n_heads)
+    if heads not in (axis, None) or (axis is not None and params[
+            "up_proj"].shape[1] != 2 * params["down_proj"].shape[0]):
+        raise NotImplementedError(
+            f"the mLSTM's {cfg.n_heads} heads over {heads!r} and its {inner} "
+            f"channels over {axis!r}: a rank's channels must be its heads' "
+            "or its part of every head's")
+    return axis, axis is not None and heads is None
+
+
+def _mlstm_qkvif(params, xu, axis=None, whole=False):
+    """q, k, v [b, s, h, hd] and the input and forget gates [b, s, h] of
+    the rank's heads from its channels ``xu``. Under a mesh the gates'
+    product is a partial sum over the channels: reduce-scattered onto the
+    rank's heads (its backward gathers their gradients), or all-reduced
+    where every rank runs every head (``whole``), whose q, k and v then
+    read every rank's channels."""
+    gates = einsum("bsi,igh->bsgh", xu, params["w_if"])
+    if whole:
+        gates = shard_ctx.psum(gates, axis)
+        # Replicated consumers: the backward keeps this rank's slice.
+        xu = shard_ctx.all_gather(xu, axis, dim=xu.dim() - 1,
+                                  partial_grad=False)
+    elif axis is not None:
+        gates = shard_ctx.reduce_scatter(gates, axis, 3)
     b, s, inner = xu.shape
     h = params["wq"].shape[0]
     xh = xu.reshape(b, s, h, inner // h)
     q = einsum("bshe,hek->bshk", xh, params["wq"])
     k = einsum("bshe,hek->bshk", xh, params["wk"])
     v = einsum("bshe,hek->bshk", xh, params["wv"])
-    gates = einsum("bsi,igh->bsgh", xu, params["w_if"]) + params["b_if"]
+    gates = gates + params["b_if"]
     return q, k, v, gates[:, :, 0, :], gates[:, :, 1, :] + 3.0
 
 
-def _mlstm_in(params, x):
-    """(xu, z): the two halves of the up projection."""
+def _mlstm_in(params, x, axis=None):
+    """(xu, z): the two halves of the up projection, the rank's channels
+    of each."""
+    if axis is not None:
+        x = shard_ctx.enter(x, axis)
     xz = einsum("bsd,di->bsi", x, params["up_proj"])
+    if axis is not None:
+        xz = own_channels(xz, axis)
     return torch.chunk(xz, 2, dim=-1)
 
 
-def _mlstm_out(params, h, z, x):
-    h = rmsnorm(params["out_norm"], h)
+def _out_norm(params, h, inner, axis=None, eps: float = 1e-6):
+    """``out_norm``: one RMS norm over all ``inner`` channels, of which
+    ``h`` holds the rank's. The sum of squares is all-reduced over
+    ``axis``; with and without it the norm is this one expression, so on a
+    mesh of one rank it rounds as on one card."""
+    dtype = h.dtype
+    x = h.float()
+    ss = torch.sum(torch.square(x), dim=-1, keepdim=True)
+    scale = params["out_norm"]["scale"]
+    if axis is not None:
+        # Each rank's channels read the whole sum and their part of the
+        # replicated scale: both gradients are partial sums.
+        ss = shard_ctx.enter(shard_ctx.psum(ss, axis), axis)
+        _, lo = shard_ctx.split(SSM_INNER, h.shape[-1], inner)
+        scale = shard_ctx.enter(scale, axis).narrow(0, lo, h.shape[-1])
+    y = x * torch.rsqrt(ss / inner + eps)
+    return (y * scale.float()).to(dtype)
+
+
+def _mlstm_out(params, h, z, x, axis=None, whole=False):
+    """The block's output from the heads' ``h`` and the rank's channels
+    ``z``. Where every rank ran every head (``whole``), ``h`` is the whole
+    width: normalised whole, then the rank keeps its channels (a partial
+    gradient each, summed on the way back into the replicated part)."""
+    inner = params["out_norm"]["scale"].shape[0]
+    if whole:
+        h = _out_norm(params, h, inner)
+        _, lo = shard_ctx.split(SSM_INNER, z.shape[-1], inner)
+        h = shard_ctx.enter(h, axis).narrow(-1, lo, z.shape[-1])
+    else:
+        h = _out_norm(params, h, inner, axis)
     h = h * F.silu(z.float()).to(x.dtype)
-    return einsum("bsi,id->bsd", h, params["down_proj"])
+    y = einsum("bsi,id->bsd", h, params["down_proj"])
+    return y if axis is None else shard_ctx.psum(y, axis)
 
 
 # The chunk of ``mlstm_impl="chunkwise"`` (the JAX package's
@@ -99,13 +186,15 @@ def mlstm_apply(params, x, cfg, *, impl: str = "auto",
     JAX package rebuilds by scanning ``mlstm_step`` from m = -1e30, which
     ignores the C and n it is given."""
     b, s, _ = x.shape
-    xu, z = _mlstm_in(params, x)
-    q, k, v, ig, fg = (t.contiguous() for t in _mlstm_qkvif(params, xu))
+    axis, whole = _mlstm_axis(params, cfg)
+    xu, z = _mlstm_in(params, x, axis)
+    q, k, v, ig, fg = (t.contiguous()
+                       for t in _mlstm_qkvif(params, xu, axis, whole))
     if mlstm_impl == "chunkwise":
         h = mlstm_chunkwise_xla(q, k, v, ig, fg, chunk=CHUNK)
     else:
         h = mlstm(q, k, v, ig, fg, impl=impl)                 # [b,s,h,hd]
-    y = _mlstm_out(params, h.reshape(b, s, -1), z, x)
+    y = _mlstm_out(params, h.reshape(b, s, -1), z, x, axis, whole)
     if state is None:
         return y
     for key, val in zip(("C", "n", "m"), mlstm_final_state(k, v, ig, fg)):
@@ -116,11 +205,13 @@ def mlstm_apply(params, x, cfg, *, impl: str = "auto",
 def mlstm_decode(params, x, cfg, state):
     """Single-token step. x: [b, 1, d]; ``state`` is updated in place."""
     b = x.shape[0]
-    xu, z = _mlstm_in(params, x)
-    q, k, v, ig, fg = _mlstm_qkvif(params, xu)
+    axis, whole = _mlstm_axis(params, cfg)
+    xu, z = _mlstm_in(params, x, axis)
+    q, k, v, ig, fg = _mlstm_qkvif(params, xu, axis, whole)
     h, _ = mlstm_step(q[:, 0], k[:, 0], v[:, 0], ig[:, 0], fg[:, 0],
                       state["C"], state["n"], state["m"])
-    return _mlstm_out(params, h.reshape(b, 1, -1), z, x), state
+    return _mlstm_out(params, h.reshape(b, 1, -1), z, x, axis,
+                      whole), state
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +222,7 @@ def slstm_template(cfg):
     d = cfg.d_model
     h = cfg.n_heads
     hd = d // h
-    ff = max((4 * d) // 3 // 128 * 128, 128)
+    ff = _slstm_ff(cfg)
     return {
         # 4 gates (z, i, f, o) from input and recurrent h (block-diagonal).
         "w_x": P((d, 4, h, hd), (EMBED, None, HEADS, HEAD_DIM)),
@@ -177,11 +268,31 @@ def _slstm_cell(params, xt, state):
     return h_new, {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
 
 
-def _slstm_ffn(params, y, x):
+def _slstm_ff(cfg) -> int:
+    return max((4 * cfg.d_model) // 3 // 128 * 128, 128)
+
+
+def _slstm_axis(params, cfg):
+    """The mesh axis the sLSTM's heads are split over, or None."""
+    axis, _ = shard_ctx.split(HEADS, params["w_x"].shape[2], cfg.n_heads)
+    return axis
+
+
+def _slstm_ffn(params, y, x, cfg, axis=None):
+    """The block's FFN over ``y``, the heads' outputs of this rank: under
+    a mesh they are all-gathered to the model width first, and the GELU
+    MLP is split over its columns as ``layers.swiglu`` is."""
+    if axis is not None:
+        y = shard_ctx.all_gather(y, axis, dim=y.dim() - 1,
+                                 partial_grad=False)
+    mlp, _ = shard_ctx.split(MLP, params["ffn_up"].shape[1], _slstm_ff(cfg))
+    if mlp is not None:
+        y = shard_ctx.enter(y, mlp)
     y = einsum("bsd,df->bsf", y, params["ffn_up"])
     # jax.nn.gelu's default is the tanh approximation.
     y = F.gelu(y.float(), approximate="tanh").to(x.dtype)
-    return einsum("bsf,fd->bsd", y, params["ffn_down"])
+    y = einsum("bsf,fd->bsd", y, params["ffn_down"])
+    return y if mlp is None else shard_ctx.psum(y, mlp)
 
 
 def slstm_apply(params, x, cfg, *, state=None):
@@ -191,20 +302,21 @@ def slstm_apply(params, x, cfg, *, state=None):
     in the JAX package), then writes the last token's state into it and
     returns ``(y, state)``; from zeros otherwise, returning ``y``."""
     b, s, d = x.shape
-    h = cfg.n_heads
-    xg = einsum("bsd,dghe->bsghe", x, params["w_x"])          # [b,s,4,h,hd]
+    axis = _slstm_axis(params, cfg)
+    h, hd = params["w_x"].shape[2], d // cfg.n_heads
+    x_in = x if axis is None else shard_ctx.enter(x, axis)
+    xg = einsum("bsd,dghe->bsghe", x_in, params["w_x"])       # [b,s,4,h,hd]
     st = state
     if st is None:
-        zero = torch.zeros((b, h, d // h), dtype=torch.float32,
-                           device=x.device)
+        zero = torch.zeros((b, h, hd), dtype=torch.float32, device=x.device)
         st = {"c": zero, "n": zero, "h": zero,
               "m": torch.zeros((b, h), dtype=torch.float32, device=x.device)}
     hs = []
     for t in range(s):
         h_out, st = _slstm_cell(params, xg[:, t], st)
         hs.append(h_out)
-    y = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
-    y = _slstm_ffn(params, y, x)
+    y = torch.stack(hs, dim=1).reshape(b, s, h * hd).to(x.dtype)
+    y = _slstm_ffn(params, y, x, cfg, axis)
     if state is None:
         return y
     for key, val in st.items():
@@ -214,9 +326,12 @@ def slstm_apply(params, x, cfg, *, state=None):
 
 def slstm_decode(params, x, cfg, state):
     """Single-token step. x: [b, 1, d]; ``state`` is updated in place."""
-    b, _, d = x.shape
-    xg = einsum("bsd,dghe->bsghe", x, params["w_x"])[:, 0]
+    b = x.shape[0]
+    axis = _slstm_axis(params, cfg)
+    x_in = x if axis is None else shard_ctx.enter(x, axis)
+    xg = einsum("bsd,dghe->bsghe", x_in, params["w_x"])[:, 0]
     h_out, new = _slstm_cell(params, xg, state)
     for key, val in new.items():
         state[key].copy_(val)
-    return _slstm_ffn(params, h_out.reshape(b, 1, d).to(x.dtype), x), state
+    y = h_out.reshape(b, 1, -1).to(x.dtype)
+    return _slstm_ffn(params, y, x, cfg, axis), state

@@ -96,6 +96,16 @@ def axis_for(logical: str, size: int):
     return mesh_dims((size,), (logical,), _RULES.get())[0]
 
 
+def split_of(axis):
+    """(mesh axis, extent, this rank's index along it) of a split over
+    ``axis`` of the current mesh, or None where ``axis`` is None or no
+    mesh is current."""
+    m = mesh()
+    if m is None or axis is None:
+        return None
+    return axis, m.extent(axis), m.coord(axis)
+
+
 def split(logical: str, n_local: int, n_global: int | None = None):
     """(mesh axis, this rank's first global index) of a dim of
     ``n_local`` local entries along ``logical``, or (None, 0) when it is

@@ -9,8 +9,8 @@ Mesh axes: ("data", "model") single pod, ("pod", "data", "model") multi-pod.
   TP      : heads / mlp / expert_mlp / vocab / ssm_inner over model.
   EP      : experts over data (padded to the EP degree).
   SP      : the decode cache's sequence over model when kv_heads cannot be
-            split over it (the JAX package's split-KV decode; the port
-            refuses it on an axis of extent > 1).
+            split over it (the JAX package's split-KV decode; the port's
+            is ``models.attention``'s and ``models.mla``'s).
 
 Divisibility and duplicate-mesh-axis conflicts are resolved per leaf by
 ``spec.spec_dims`` (first dim wins); anything unresolvable is replicated.

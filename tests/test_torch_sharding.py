@@ -4,7 +4,8 @@ on shape-only meshes (16x16, 2x16x16, 2x2, 1x4) for all ten
 architectures: ``spec_dims``, ``make_rules``, ``pspec_tree`` and
 ``batch_shardings`` equal exactly. Then the single-process side of the
 multi-rank port: a mesh of one rank runs every collective (counted) and
-plans steps bitwise equal to the unsharded ones; the refusals.
+plans steps bitwise equal to the unsharded ones; the refusals; the
+placements of the families sharded last.
 """
 import dataclasses
 
@@ -310,9 +311,72 @@ def test_global_norm_reduces_over_placements(world_of_one):
     assert t_ctx.counts["all_reduce"]["calls"] == 2
 
 
+def _stub_embeds(cfg, n_rows, frames, gen) -> dict:
+    if cfg.family == "vlm":
+        return {"vision_embeds": torch.randn(
+            n_rows, cfg.n_vision_tokens, cfg.d_model, generator=gen)}
+    if cfg.family == "audio":
+        return {"audio_embeds": torch.randn(n_rows, frames, cfg.d_model,
+                                            generator=gen)}
+    return {}
+
+
+@pytest.mark.parametrize("arch,rules", [
+    ("xlstm-1.3b", None), ("minicpm3-4b", None),
+    ("minicpm3-4b", {"cache_seq": "model"}),
+    ("llama-3.2-vision-11b", None), ("seamless-m4t-large-v2", None)],
+    ids=["xlstm", "mla", "mla-split", "vlm", "encdec"])
+def test_other_families_plan_bitwise_at_world_one(world_of_one, arch,
+                                                  rules):
+    """The families sharded last, planned on a mesh of one rank (every
+    collective run over a group of one): a train step against
+    make_train_step, and prefill with 3 decode steps against the
+    unsharded model, all bitwise. Their order of sums is one card's:
+    ``layers.own_channels`` hands on contiguous halves, the mLSTM's norm
+    is one expression, a cross source sums each layer's gradient first
+    and MLA's decode merges its partials with and without a mesh."""
+    cfg = dataclasses.replace(t_configs.get(arch).reduced(), remat="full")
+    gen = torch.Generator().manual_seed(2)
+    ocfg = t_opt.AdamWConfig(lr=1e-3)
+    plan = t_specs.plan_cell(cfg, t_configs.InputShape("t", 16, 2, "train"),
+                             world_of_one, n_microbatches=1)
+    params = t_common.init_params(plan.model.template(), gen, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 17), generator=gen)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous(),
+             **_stub_embeds(cfg, 2, 16, gen)}
+    want = make_train_step(plan.model, ocfg)(
+        params, t_opt.init(params, ocfg), batch)
+    step = make_train_step(plan.model, ocfg, spmd=plan.spmd)
+    got = step(*plan.shard(params, t_opt.init(params, ocfg), batch))
+    _tree_equal(got[0], want[0])
+    _tree_equal(got[1], want[1])
+    assert torch.equal(got[2]["loss"], want[2]["loss"])
+
+    model = t_build(cfg, impl="torch")
+    batch = {"tokens": toks[:, :8], **_stub_embeds(cfg, 2, 16, gen)}
+    pre, dec = (t_specs.plan_cell(
+        cfg, t_configs.InputShape(kind, 16, 2, kind), world_of_one,
+        impl="torch", rule_overrides=rules)
+        for kind in ("prefill", "decode"))
+    cache = t_common.init_params(model.cache_template(2, 16), gen,
+                                 device="cpu")
+    got, got_cache = pre.step_fn(*pre.shard(params, batch, pre.cache()))
+    with torch.no_grad():
+        want, cache = model.prefill(params, batch, cache)
+    assert torch.equal(got, want)
+    for _ in range(3):
+        nxt = torch.argmax(want[:, -1] if want.dim() == 3 else want,
+                           dim=-1).to(torch.int32)
+        got, got_cache = dec.step_fn(params, nxt, got_cache)
+        with torch.no_grad():
+            want, cache = model.decode_step(params, nxt, cache)
+        assert torch.equal(got, want)
+
+
 def _fake_mesh(sizes):
-    """A mesh that claims groups but has none: enough for refusals that
-    come before any collective."""
+    """A mesh that claims groups but has none: enough for the rules and
+    placements, which move no data."""
     return t_mesh.Mesh(tuple(sizes), tuple(sizes.values()),
                        device_mesh=object(), device=torch.device("cpu"))
 
@@ -320,17 +384,38 @@ def _fake_mesh(sizes):
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "minicpm3-4b",
                                   "llama-3.2-vision-11b",
                                   "seamless-m4t-large-v2"])
-def test_other_families_refuse_a_mesh(arch):
-    cfg = t_configs.get(arch).reduced()
-    rules = t_rules.make_rules(cfg, _fake_mesh({"data": 1, "model": 2}))
-    model = t_build(cfg, impl="torch")
-    batch = {"tokens": torch.zeros(2, 4, dtype=torch.int64),
-             "vision_embeds": torch.zeros(2, cfg.n_vision_tokens,
-                                          cfg.d_model),
-             "audio_embeds": torch.zeros(2, 4, cfg.d_model)}
-    with t_ctx.activation_rules(rules), \
-            pytest.raises(NotImplementedError, match="entry 5"):
-        model.forward({}, batch)
+def test_other_families_place_their_leaves_as_the_reference(arch):
+    """The families a mesh refused until the xLSTM, MLA, the VLM and the
+    encoder-decoder were sharded: on a mesh with process groups, each
+    leaf of their parameters and caches (the VLM's vision rows and the
+    encoder's frames among them) is placed as ``repro``'s ``make_rules``
+    and ``spec_dims`` place it, and the rank's local shapes follow."""
+    sizes = {"data": 1, "model": 2}
+    cfg, j_cfg = t_configs.get(arch).reduced(), j_configs.get(arch).reduced()
+    mesh = _fake_mesh(sizes)
+    rules = t_rules.make_rules(cfg, mesh)
+    want_rules = j_rules.make_rules(j_cfg, FakeMesh(sizes))
+    assert rules["_mesh"] is mesh
+    assert {k: v for k, v in rules.items() if k != "_mesh"} == \
+        {k: v for k, v in want_rules.items() if k != "_mesh"}
+    tm, jm = t_build(cfg, impl="torch"), j_build(j_cfg)
+    split = 0
+    for t_tmpl, j_tmpl in ((tm.template(), jm.template()),
+                           (tm.cache_template(2, 8), jm.cache_template(2, 8))):
+        got = [_norm(s) for s in t_common.tree_leaves(
+            t_common.pspec_tree(t_tmpl, rules))]
+        j_leaves = jax.tree.leaves(j_tmpl,
+                                   is_leaf=lambda x: isinstance(x, JP))
+        want = [j_spec_dims(p.shape, p.axes, want_rules) for p in j_leaves]
+        assert got == want
+        local = t_common.local_template(t_tmpl, rules)
+        for p, q, dims in zip(t_common.tree_leaves(t_tmpl),
+                              t_common.tree_leaves(local), got):
+            assert tuple(q.shape) == tuple(
+                n // (2 if d == "model" else 1)
+                for n, d in zip(p.shape, dims))
+        split += sum("model" in dims for dims in got)
+    assert split > 0
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "llama-3.2-vision-11b",

@@ -119,6 +119,18 @@ def _gather(t, axes, shape, mesh, rules):
                        mesh)["x"]
 
 
+# The stub modalities' inputs a test may pass beside the tokens (rows
+# split over the data axes as the tokens are).
+EMBEDS = ("vision_embeds", "audio_embeds")
+
+
+def _embeds(inp, lo=0, n=None) -> dict:
+    """The stub modalities' inputs in ``inp``, rows [lo, lo + n)."""
+    import torch
+    return {k: torch.from_numpy(inp[k][lo:None if n is None else lo + n])
+            for k in EMBEDS if k in inp}
+
+
 def _device(args) -> str:
     return args.get("device", "cpu")
 
@@ -161,9 +173,21 @@ def task_forward(rank, inp, args):
                                   torch.full_like(out[0], -1)))
         return out
     moe._routing = record
+    if args.get("local_norm"):
+        # The mLSTM's out_norm taken over the rank's channels alone: what
+        # the planted test must tell apart from the whole-width norm.
+        from repro_torch.models import xlstm
+
+        def local_norm(params, h, inner, axis=None, eps=1e-6):
+            _, lo_c = ctx.split("ssm_inner", h.shape[-1], inner)
+            scale = params["out_norm"]["scale"].narrow(0, lo_c, h.shape[-1])
+            x = h.float()
+            var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+            return (x * torch.rsqrt(var + eps) * scale).to(h.dtype)
+        xlstm._out_norm = local_norm
+    batch = {"tokens": toks[lo:lo + b_loc], **_embeds(inp, lo, b_loc)}
     with torch.no_grad(), ctx.activation_rules(spmd.model_rules):
-        logits, aux = model.forward(spmd.gather(params),
-                                    {"tokens": toks[lo:lo + b_loc]})
+        logits, aux = model.forward(spmd.gather(params), batch)
         logits = _gather(logits, ("batch", None, "vocab"),
                          (toks.shape[0], toks.shape[1], cfg.padded_vocab),
                          mesh, spmd.model_rules)
@@ -192,8 +216,11 @@ def task_serve(rank, inp, args):
     dec = plan_cell(cfg, InputShape("d", max_len, gb, "decode"), mesh,
                     impl="torch", rule_overrides=over)
     full = _params(inp)
-    params, batch, _ = pre.shard(full, {"tokens": toks}, None)
-    cache = pre.cache()
+    params, batch, _ = pre.shard(full, {"tokens": toks, **_embeds(inp)},
+                                 None)
+    # The encoder-decoder's frames, where the test's differ from max_len.
+    enc = {"enc_len": args["enc_len"]} if args.get("enc_len") else {}
+    cache = pre.cache(**enc)
     logits, cache = pre.step_fn(params, batch, cache)
     rules = pre.spmd.model_rules
     shape = (gb, cfg.padded_vocab)
@@ -203,15 +230,18 @@ def task_serve(rank, inp, args):
         nxt = torch.argmax(steps[-1], dim=-1).to(torch.int32)
         chosen.append(nxt)
         _, tok_l, _ = dec.shard(None, nxt, None)
-        logits, cache = dec.step_fn(params, tok_l, cache)
+        logits, cache = dec.step_fn(params, tok_l, cache, **enc)
         steps.append(_gather(logits, ("batch", "vocab"), shape, mesh,
                              rules))
     from repro_torch.sharding import ctx
-    rows = {t.shape[-3] for k, t in _flat(cache, "").items()
-            if k.endswith("self/k")}
+    flat = _flat(cache, "")
+    rows = {t.shape[-3] for k, t in flat.items() if k.endswith("self/k")}
+    rows |= {t.shape[-2] for k, t in flat.items() if k.endswith("self/ckv")}
+    enc_rows = {t.shape[-3] for k, t in flat.items() if k.endswith("enc/k")}
     return {"logits": torch.stack(steps, 1).cpu().numpy(),
             "tokens": torch.stack(chosen, 1).cpu().numpy(),
             "cache_rows": np.asarray(sorted(rows)),
+            "enc_rows": np.asarray(sorted(enc_rows)),
             "all_to_all": np.asarray(ctx.counts["all_to_all"]["calls"])}
 
 
@@ -242,7 +272,7 @@ def task_train(rank, inp, args):
                            spmd=plan.spmd)
     full = _params(inp)
     batch = {"tokens": toks[:, :-1].contiguous(),
-             "labels": toks[:, 1:].contiguous()}
+             "labels": toks[:, 1:].contiguous(), **_embeds(inp)}
     params, opt_state, batch = plan.shard(full, opt_mod.init(full, ocfg),
                                           batch)
     seen = []

@@ -318,7 +318,23 @@ Phases, each of which raises on failure (exit code non-zero):
                 AdamW moments) under the production rules on the 16x16
                 mesh, each within the card's 80 GB. Each kernel's entry
                 on the JSON line gains ``mesh_launches`` (rank 0's
-                launches on the planned paths of (a)-(d)).
+                launches on the planned paths of (a)-(d));
+ 13. dry run  - launch.dryrun (one rank's step on fake tensors over a fake
+                process group, on the host) held against the card, on
+                phase 12 (b)'s plan (qwen2.5-3b at 8 layers, f32, mesh
+                (1, 1), 2 microbatches): (a) its argument + temp bytes
+                within 10% of torch.cuda.max_memory_allocated over one
+                step after a warm-up step; (b) its collective calls and
+                bytes per kind equal to those of the same step on the
+                card's tensors in an NCCL group of one, exactly: both are
+                sharding.ctx.counts, counted where the port issues a
+                collective and before any backend runs, so this holds
+                that fake and real tensors take the same code path, not
+                what NCCL moves; (c) one record, qwen2.5-3b decode_32k at
+                full depth on the 16x16 mesh with --fast, and its
+                roofline terms (roofline.terms_from_record); (d) the
+                scaled token loops against the whole per-token trace on
+                the card's tensors, exactly. No kernel launches here.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit``, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -331,6 +347,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -5119,6 +5136,208 @@ def mesh_phase(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the dry run against the card
+# ---------------------------------------------------------------------------
+
+# (c): a full-depth record on the production mesh (decode: seconds on the
+# host).
+DRYRUN_CELL = ("qwen2.5-3b", "decode_32k")
+DRYRUN_MEMORY_BAR = 0.10
+
+
+def token_loop_counts(dev):
+    """Phase 13 (d): the dry run's scaled token loops (tokens 0, 1 and 2,
+    token 1 counted s - 2 times) against the whole per-token trace, on the
+    card's tensors under this machine's torch: the sLSTM and the Mamba
+    scan over 32 tokens at reduced widths, serving, training and training
+    under each remat policy. FLOPs, bytes, the forward's live bytes and
+    peak, and the step's peak and live bytes, exactly."""
+    import torch
+    from repro_torch import configs, token_loop
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    from repro_torch.launch import dryrun
+    from repro_torch.models import xlstm
+    from repro_torch.models.common import init_params
+    from repro_torch.models.transformer import _remat
+    s = 32
+
+    def slstm(grad, remat):
+        cfg = dataclasses.replace(configs.get("xlstm-1.3b").reduced(),
+                                  remat=remat)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = init_params(xlstm.slstm_template(cfg), gen, device=dev)
+        x = torch.randn(2, s, cfg.d_model, generator=gen, device=dev)
+        for t in (*params.values(), x):
+            t.requires_grad_(grad)
+        fn = _remat(lambda x: xlstm.slstm_apply(params, x, cfg), cfg, params)
+        return lambda: fn(x)
+
+    def scan(grad, remat):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        b, inner, n = 2, 16, 4
+        ops = [torch.randn(shape, generator=gen, device=dev) for shape in
+               ((b, s, inner), (b, s, inner), (inner, n), (b, s, n),
+                (b, s, n), (inner,), (b, inner, n))]
+        ops[1], ops[2] = ops[1].sigmoid(), -ops[2].exp()    # dt > 0, A < 0
+        for t in ops:
+            t.requires_grad_(grad)
+        cfg = dataclasses.replace(
+            configs.get("jamba-1.5-large-398b").reduced(), remat=remat)
+        fn = _remat(lambda *o: selective_scan_ref(*o)[0], cfg,
+                    {"A": ops[2], "D": ops[5]})
+        return lambda: fn(*ops)
+
+    def count(fn, grad, scaled):
+        tally = dryrun.Tally()
+        hook = dryrun.scaled_loop(tally) if scaled else \
+            (lambda n, step: [step(t) for t in range(n)])
+        with tally, token_loop.hooked(hook), torch.set_grad_enabled(grad):
+            y = fn()
+            fwd = (tally.live, tally.peak)
+            if grad:
+                y.square().sum().backward()
+        return (tally.flops, tally.bytes, *fwd, tally.peak, tally.live)
+
+    got = {}
+    for loop, make in (("slstm", slstm), ("scan", scan)):
+        for mode in ("serve", "train", "train-remat-full",
+                     "train-remat-dots"):
+            grad = mode != "serve"
+            remat = mode.split("-")[-1] if "remat" in mode else "none"
+            whole = count(make(grad, remat), grad, False)
+            scaled = count(make(grad, remat), grad, True)
+            got[f"{loop}/{mode}"] = dict(whole=whole, scaled=scaled)
+            log(f"  (d) {loop} {mode} over {s} tokens on {dev}, torch "
+                f"{torch.__version__}: whole {whole}, scaled {scaled} "
+                "(flops, bytes, forward live, forward peak, peak, live); "
+                f"equal {whole == scaled}")
+            if whole != scaled:
+                raise AssertionError(f"phase 13 (d): {loop} {mode}: the "
+                                     "scaled token loop's counts differ "
+                                     "from the whole trace's")
+    return got
+
+
+def dryrun_phase(dev, smi):
+    """Phase 13 (module docstring): the dry run's memory and collectives
+    for phase 12 (b)'s train plan against the same step on the card in an
+    NCCL group of one, a production record's roofline terms, and the
+    scaled token loops against their whole traces."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.configs.base import SHAPES, InputShape
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import (Mesh, init_distributed,
+                                         make_host_mesh,
+                                         make_production_mesh)
+    from repro_torch.launch.specs import opt_config, plan_cell
+    from repro_torch.models.common import init_params
+    from repro_torch.sharding import ctx
+    from repro_torch.training import optimizer as opt_mod
+    t_phase = time.perf_counter()
+    reset, counts = _all_counters()
+    reset()
+    cfg = dataclasses.replace(configs.get("qwen2.5-3b"), **MESH_CUT)
+    shape = InputShape("mesh-train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    nm = 2 if TRAIN_BATCH % 2 == 0 else 1          # phase 12 (b) on one rank
+    t0 = time.perf_counter()
+    rec = dryrun.measure_cell(cfg, shape, Mesh(("data", "model"), (1, 1)),
+                              skip_extrapolation=True, n_microbatches=nm)
+    dry_s = time.perf_counter() - t0
+    mem = rec["memory"]
+    predicted = (mem["argument_gib"] + mem["temp_gib"]) * 2**30
+
+    init_distributed("cuda")
+    try:
+        mesh = make_host_mesh(device="cuda")
+        plan = plan_cell(cfg, shape, mesh, n_microbatches=nm)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        params = init_params(plan.model.template(),
+                             torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        pipe = TokenPipeline(PipelineConfig(cfg.vocab, TRAIN_SEQ,
+                                            TRAIN_BATCH, seed=0))
+        batch = train_mod.device_batch(pipe, cfg, 0, TRAIN_SEQ, dev)
+        args = plan.shard(params, opt_mod.init(params, opt_config(cfg)),
+                          batch)
+        del params, batch
+        warm = plan.step_fn(*args)          # writes args[0], args[1]
+        args = (warm[0], warm[1], args[2])
+        del warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ctx.reset_counts()
+        t0 = time.perf_counter()
+        out = plan.step_fn(*args)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        nccl = dryrun.collective_record(
+            {k: dict(v) for k, v in ctx.counts.items()})
+        loss = float(out[2]["loss"])
+        del out, args
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = (predicted - peak) / peak
+    log(f"  (a) memory, {cfg.n_layers} layers f32, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, {nm} microbatches: dry run argument "
+        f"{mem['argument_gib']:.4f} GiB + temp {mem['temp_gib']:.4f} GiB "
+        f"= {predicted / 2**30:.4f} GiB (output {mem['output_gib']:.4f}, "
+        f"alias {mem['alias_gib']:.4f}; traced in {dry_s:.1f} s on the "
+        f"host); the card's max_memory_allocated over one step after a "
+        f"warm-up {peak / 2**30:.4f} GiB ({step_s:.2f} s, loss {loss:.4f}):"
+        f" {100 * rel:+.2f}% (bar {100 * DRYRUN_MEMORY_BAR:.0f}%); {smi}")
+    if not math.isfinite(loss) or abs(rel) > DRYRUN_MEMORY_BAR:
+        raise AssertionError(f"phase 13 (a): predicted {predicted} bytes, "
+                             f"the card {peak}")
+    fake = rec["collectives_full_hlo"]
+    log(f"  (b) collectives as the port issues them (sharding.ctx.counts:"
+        f" the same code path on fake and real tensors), fake group of "
+        f"one: {fake['counts']} calls, {fake['bytes']} bytes; the card's "
+        f"step in an NCCL group of one: {nccl['counts']} calls, "
+        f"{nccl['bytes']} bytes; equal {fake == nccl}")
+    if fake != nccl:
+        raise AssertionError("phase 13 (b): the fake group's collectives "
+                             "differ from the card's step's")
+
+    name, shape_name = DRYRUN_CELL
+    t0 = time.perf_counter()
+    cell = dryrun.measure_cell(configs.get(name), SHAPES[shape_name],
+                               make_production_mesh(),
+                               skip_extrapolation=True)
+    cell["mesh_name"] = "single"
+    cell_s = time.perf_counter() - t0
+    terms = roofline.terms_from_record(json.loads(json.dumps(cell)))
+    log(f"  (c) {name} {shape_name} on 16x16 at full depth (--fast), "
+        f"traced in {cell_s:.1f} s on the host: flops/device "
+        f"{cell['cost_full_hlo']['flops']:.6e}, bytes/device "
+        f"{cell['cost_full_hlo']['bytes']:.6e}, collective bytes "
+        f"{cell['collectives_full_hlo']['total_bytes']} "
+        f"({cell['collectives_full_hlo']['counts']}), argument "
+        f"{cell['memory']['argument_gib']:.4f} GiB, temp "
+        f"{cell['memory']['temp_gib']:.4f} GiB; roofline terms "
+        + json.dumps({k: v for k, v in terms.items()
+                      if k not in ("arch", "shape")}) + f"; {smi}")
+    loops = token_loop_counts(dev)
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise AssertionError(f"phase 13 launched kernels: {launched}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 13 {phase_s:.1f} s")
+    return dict(predicted_bytes=predicted, card_bytes=peak, memory_rel=rel,
+                collectives=fake, nccl=nccl, record=cell, terms=terms,
+                token_loops=loops, dry_s=dry_s, cell_s=cell_s, step_s=step_s,
+                phase_s=phase_s)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5441,6 +5660,14 @@ def main() -> int:
         "roofline)")
     mesh = mesh_phase(dev)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== phase 13 (at {time.perf_counter() - t_start:.0f} s): the dry "
+        "run (launch.dryrun on the host) against the card: memory and "
+        "collectives of phase 12 (b)'s train plan, a production record's "
+        "roofline terms, the token loops' scaling")
+    dryrun_phase(dev, smi)
+
     for module in ("repro_torch.obs", "repro_torch.obs.report",
                    "repro_torch.training.failure",
                    "repro_torch.launch.serve",
@@ -5457,7 +5684,8 @@ def main() -> int:
                    "repro_torch.training.compression",
                    "repro_torch.sharding.spec", "repro_torch.sharding.rules",
                    "repro_torch.sharding.ctx", "repro_torch.launch.mesh",
-                   "repro_torch.launch.specs"):
+                   "repro_torch.launch.specs",
+                   "repro_torch.launch.dryrun", "repro_torch.token_loop"):
         if module not in sys.modules:
             raise AssertionError(f"{module} was not imported")
     if "jax" in sys.modules or any(m.split(".")[0] == "repro"

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ... import token_loop
+
 MAX_STATE = 16      # the most states of a channel the CUDA kernel takes
 
 
@@ -28,11 +30,14 @@ def _scan(x, dt, A, B, C, D, h0, readout):
     h = (torch.zeros((b, inner, A.shape[1]), dtype=torch.float32,
                      device=x.device) if h0 is None else h0.float())
     y = torch.empty((b, s, inner), dtype=torch.float32, device=x.device)
-    for t in range(s):
+
+    def step(t):
+        nonlocal h
         xt, dtt = x32[:, t], dt32[:, t]                          # [b, inner]
         da = torch.exp(dtt[..., None] * A32)                     # [b, i, n]
         h = da * h + (dtt * xt)[..., None] * B32[:, t, None, :]
         y[:, t] = readout(h * C32[:, t, None, :]) + D32 * xt
+    token_loop.run(s, step)
     return y.to(x.dtype), h
 
 

@@ -16,8 +16,11 @@ shape-only mesh: the bytes a device stores (``tree_device_bytes``), an
 analytic fused-kernel HBM traffic per step (``fused_memory_bytes``) and
 the score tensor a fused attention kernel never writes
 (``attention_score_bytes``). ``terms_from_record`` reads a dry-run
-record (FLOPs, bytes and collective bytes per device, memory); the port's
-dry run, which writes them, is not ported yet (ROADMAP queue 1).
+record (FLOPs, bytes and collective bytes per device, memory), which
+``launch.dryrun`` writes; ``build_table`` reads a directory of them:
+
+    PYTHONPATH=src python -m repro_torch.launch.roofline --dryrun \
+        results/dryrun
 """
 from __future__ import annotations
 

@@ -7,7 +7,9 @@ shapes: no allocation) and the step function with its in and out
 placements (``spec_dims`` lists, equal to the JAX package's
 ``PartitionSpec``s). There is no ``lower``/``compile``: the step runs
 eagerly on each rank's slices (``CellPlan.shard`` cuts them from full
-trees), issuing the collectives of ``sharding.ctx``.
+trees), issuing the collectives of ``sharding.ctx``. A plan is accounted
+(FLOPs, bytes, memory, collectives per device) by running one rank's
+step on fake tensors over a fake group: ``launch.dryrun``.
 """
 from __future__ import annotations
 
@@ -71,6 +73,7 @@ class CellPlan:
     donate: tuple
     kind: str
     spmd: Optional[MeshStep] = None
+    n_microbatches: Optional[int] = None     # a train plan's
 
     def shard(self, *trees) -> tuple:
         """This rank's slices of full trees given in ``args``' order (a
@@ -182,7 +185,7 @@ def plan_cell(cfg: ModelConfig, shape: InputShape, mesh, *,
             args=(params_abs, opt_abs, _batch_abstract(cfg, shape, kind)),
             in_shardings=(params_sh, opt_sh, batch_sh),
             out_shardings=(params_sh, opt_sh, metrics_sh),
-            donate=(0, 1), kind=kind, spmd=spmd)
+            donate=(0, 1), kind=kind, spmd=spmd, n_microbatches=nm)
 
     seq_axis = model.cache_rows_axis(rules)
     extent = math.prod(mesh.shape.get(a, 1) for a in axes_of(seq_axis))

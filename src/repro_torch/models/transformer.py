@@ -299,16 +299,18 @@ def _dots_policy(weights: frozenset, ctx, op, *args, **kwargs):
     a weight product (``bsd,df->bsf``) as for attention's scores
     (``bthd,bshd->btsh``). So an operand counts as a weight when its
     storage is the storage of a parameter leaf of the stack (``weights``:
-    the parameters' storage addresses): einsum hands a weight to the
-    product as a view or reshape of the parameter, never as a copy, where
-    the parameter already has the product's dtype. Products of two
+    the identities of the parameters' storage objects, which a view
+    shares and which live as long as the storage; a fake tensor has no
+    address to key by): einsum hands a weight to the product as a view or
+    reshape of the parameter, never as a copy, where the parameter already
+    has the product's dtype. Products of two
     activations (attention's scores and values, the mLSTM's) are
     recomputed. Unlike JAX's policy, a weight product with a batch dim
     (the MoE's per-expert and the mLSTM's per-head projections) is kept
     too."""
     if op in _PRODUCTS and any(
             isinstance(a, torch.Tensor)
-            and a.untyped_storage().data_ptr() in weights for a in args):
+            and id(a.untyped_storage()) in weights for a in args):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -338,7 +340,7 @@ def _remat(fn, cfg, stacked):
                 return body(*args)
     kw = {"use_reentrant": False, "preserve_rng_state": False}
     if cfg.remat == "dots":
-        weights = frozenset(t.untyped_storage().data_ptr()
+        weights = frozenset(id(t.untyped_storage())
                             for t in tree_leaves(stacked))
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts,

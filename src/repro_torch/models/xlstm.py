@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import token_loop
 from ..kernels.mlstm import (mlstm, mlstm_chunkwise_xla, mlstm_final_state,
                              mlstm_step)
 from ..sharding import ctx as shard_ctx
@@ -311,10 +312,12 @@ def slstm_apply(params, x, cfg, *, state=None):
         zero = torch.zeros((b, h, hd), dtype=torch.float32, device=x.device)
         st = {"c": zero, "n": zero, "h": zero,
               "m": torch.zeros((b, h), dtype=torch.float32, device=x.device)}
-    hs = []
-    for t in range(s):
+
+    def step(t):
+        nonlocal st
         h_out, st = _slstm_cell(params, xg[:, t], st)
-        hs.append(h_out)
+        return h_out
+    hs = token_loop.run(s, step)
     y = torch.stack(hs, dim=1).reshape(b, s, h * hd).to(x.dtype)
     y = _slstm_ffn(params, y, x, cfg, axis)
     if state is None:

@@ -377,6 +377,44 @@ def task_launch(rank, inp, args):
             "mesh": np.asarray(str(out["mesh"].shape))}
 
 
+def task_plan_counts(rank, inp, args):
+    """One step of ``plan_cell``'s plan (``args["kind"]``: "train" or
+    "decode", at ``args["seq"]`` x ``args["batch"]``) on parameters drawn
+    from seed 0: the calls and bytes per kind of ``sharding.ctx.counts``
+    over the step ("calls/KIND", "bytes/KIND")."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.specs import opt_config, plan_cell
+    from repro_torch.models.common import init_params
+    from repro_torch.sharding import ctx
+    from repro_torch.training import optimizer as opt_mod
+    cfg = _cfg(args)
+    mesh = _mesh(args)
+    kind = args["kind"]
+    plan = plan_cell(cfg, InputShape("c", args["seq"], args["batch"], kind),
+                     mesh, impl="torch",
+                     n_microbatches=args.get("microbatches"),
+                     rule_overrides=args.get("overrides"))
+    params = init_params(plan.model.template(),
+                         torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(inp["tokens"])
+    if kind == "train":
+        args_ = plan.shard(params, opt_mod.init(params, opt_config(cfg)),
+                           {"tokens": toks, "labels": toks})
+    else:
+        params_l, toks_l, _ = plan.shard(params, toks[:, 0].contiguous(),
+                                         None)
+        args_ = (params_l, toks_l, plan.cache())
+    ctx.reset_counts()
+    plan.step_fn(*args_)
+    out = {}
+    for k, v in ctx.counts.items():
+        out[f"calls/{k}"] = np.asarray(v["calls"])
+        out[f"bytes/{k}"] = np.asarray(v["bytes"])
+    return out
+
+
 def _rank_device(args, rank: int) -> str:
     return f"cuda:{rank}" if _device(args) == "cuda" else "cpu"
 

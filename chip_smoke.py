@@ -304,7 +304,10 @@ Phases, each of which raises on failure (exit code non-zero):
                 train step (phase 11 (b)'s cut and batch, 2 microbatches,
                 the FSDP gather hoisted) against make_train_step: bitwise
                 on one rank, else within 1e-5 (loss) and 2e-5
-                (parameters); (c) compressed_psum at 64, 1,000 and 2^20 + 3
+                (parameters); (b-sp) the same with the sequence-parallel
+                residual (SP_RULES) on a (1, world) mesh: at a world of
+                one the rule resolves to replication and the plan is
+                (b)'s, bitwise; (c) compressed_psum at 64, 1,000 and 2^20 + 3
                 elements, bitwise its formula computed on one card from
                 every rank's input and within one int8 step of each
                 block's scale of the exact mean; (d) the sweep's
@@ -4820,11 +4823,16 @@ def mesh_family_train(mesh, dev, name, cut):
                 step_s=step_s, collectives=coll)
 
 
-def mesh_train(mesh, dev):
+SP_RULES = {"act_seq": "model"}
+
+
+def mesh_train(mesh, dev, overrides=None):
     """(b) the planned train step (2 microbatches, the FSDP gather hoisted
     by plan_cell's rule) against make_train_step on phase 11 (b)'s cut and
     batch: bitwise on a mesh of one rank, else within 1e-5 (loss) and 2e-5
-    (parameters)."""
+    (parameters). ``overrides``: the plan's rule overrides ((b-sp): the
+    sequence-parallel residual, which an extent of 1 resolves to
+    replication, so on one rank the plan is (b)'s, bitwise)."""
     import torch
     from repro_torch import configs, models
     from repro_torch.configs.base import InputShape
@@ -4840,7 +4848,11 @@ def mesh_train(mesh, dev):
     dp = mesh.shape["data"]
     nm = 2 if (TRAIN_BATCH // min(dp, TRAIN_BATCH)) % 2 == 0 else 1
     plan = plan_cell(cfg, InputShape("mesh-train", TRAIN_SEQ, TRAIN_BATCH,
-                                     "train"), mesh, n_microbatches=nm)
+                                     "train"), mesh, n_microbatches=nm,
+                     rule_overrides=overrides)
+    from repro_torch.sharding import ctx as shard_ctx
+    with shard_ctx.activation_rules(plan.spmd.model_rules):
+        stream = shard_ctx.seq_axis(TRAIN_SEQ)
     # The plan's step with lr 1e-3 (opt_config's warm-up would move the
     # parameters by ~3e-6 in one step, below the bar of 2e-5).
     step = ts_mod.make_train_step(plan.model, ocfg, n_microbatches=nm,
@@ -4887,7 +4899,10 @@ def mesh_train(mesh, dev):
     # |g| is near eps its rounding shows; count those elements.
     n_over = sum(int((e > 1e-6).sum()) for e in errs)
     n_all = sum(e.numel() for e in errs)
-    log(f"  (b) train step, {cfg.n_layers} layers f32, {TRAIN_BATCH} x "
+    tag = "(b)" if overrides is None else (
+        f"(b-sp) {overrides}, the stream split over {stream!r}"
+        + (" (the rule resolved to replication)" if stream is None else ""))
+    log(f"  {tag}: train step, {cfg.n_layers} layers f32, {TRAIN_BATCH} x "
         f"{TRAIN_SEQ}, {nm} microbatch(es), FSDP gather hoisted "
         f"{plan.spmd.hoist}, mesh {mesh.shape}: {step_s:.2f} s; against "
         f"make_train_step: bitwise {same}, loss rel {rel:.3e}, grad norm "
@@ -4895,15 +4910,17 @@ def mesh_train(mesh, dev):
         f"({n_over} of {n_all} elements beyond 1e-6); kernel launches "
         f"{sum(launches.values())}; collectives {coll}")
     if mesh.size == 1 and not same:
-        raise AssertionError("(b) the planned step differs from "
+        raise AssertionError(f"{tag} the planned step differs from "
                              "make_train_step on one rank")
     if rel > 1e-5 or perr > 2e-5:
-        raise AssertionError(f"(b) loss rel {rel:.3e} / parameters "
+        raise AssertionError(f"{tag} loss rel {rel:.3e} / parameters "
                              f"{perr:.3e} outside 1e-5 / 2e-5")
+    if overrides is not None and mesh.size > 1 and stream is None:
+        raise AssertionError(f"{tag}: the stream did not split")
     return dict(bitwise=same, loss_rel=rel, param_max_abs=perr,
                 grad_norm_rel=abs(gg - gw) / gw, params_beyond_1e6=n_over,
                 step_s=step_s, hoisted=plan.spmd.hoist, collectives=coll,
-                launches=launches)
+                launches=launches, stream_axis=stream)
 
 
 def mesh_psum(mesh, dev):
@@ -5038,6 +5055,12 @@ def mesh_rank(rank: int, world: int, tmp: str) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     res["train"] = mesh_train(mesh, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The model axis over every rank, so that the rule splits the stream
+    # (the host mesh puts every rank on data).
+    res["train sp"] = mesh_train(make_host_mesh(model=world), dev,
+                                 SP_RULES)
     gc.collect()
     torch.cuda.empty_cache()
     for name, cut, prompt, n_steps, rules, train in FAMILY_RUNS:

@@ -3,7 +3,7 @@
 
     python3 scripts/mesh_cards.py [--only yi34b,train,dbrx,qwen_split,
                                           jamba_split,xlstm,xlstm_heads,
-                                          mla,vlm,encdec,launcher,
+                                          mla,vlm,encdec,sp,launcher,
                                           phase12]
 
 Spawns one rank per card (four; a FileStore rendezvous, no port), each
@@ -66,6 +66,20 @@ on its card, and runs:
             parameter slices, the ms of a decode step and the
             collectives' calls and bytes, beside the card's name and
             power limit;
+  sp        the sequence-parallel residual (``{"act_seq": "model"}``) on
+            phase 12 (b)'s plan, qwen2.5-3b cut to 8 layers in f32: one
+            train step of 4 x 2,048 tokens on (1, 4) and on (2, 2) with
+            the rule and without it, from the same parameters and batch
+            (loss within 1e-5 relative, parameters within 2e-5: phase 11
+            (b)'s bars), then two more steps of each timed; and a prefill
+            of 4 x 2,048 with 16 greedy decode steps on (1, 4) with the
+            rule against the unsharded model on one card
+            (``chip_smoke.mesh_family_serve``: 2e-3, >= 99% of the argmax
+            tokens). Each way prints its ms a step (the median of steps
+            2-3), ``max_memory_allocated`` a rank over step 1, and its
+            collectives by kind, beside the dry run's argument + temp GiB
+            of the same (1, 4) plan (``launch.dryrun.measure_cell``, run
+            on the host before the ranks start);
   launcher  ``torchrun --standalone --nproc-per-node 4 -m
             repro_torch.launch.train --arch qwen2.5-3b --steps 16 --batch
             8 --seq 512`` (full width, bf16, FSDP over data 4);
@@ -102,7 +116,8 @@ import chip_smoke as cs  # noqa: E402
 
 WORLD = 4
 PARTS = ("yi34b", "train", "dbrx", "qwen_split", "jamba_split", "xlstm",
-         "xlstm_heads", "mla", "vlm", "encdec", "launcher", "phase12")
+         "xlstm_heads", "mla", "vlm", "encdec", "sp", "launcher",
+         "phase12")
 # Parts run here, not on the ranks this script spawns.
 HERE = ("launcher", "phase12")
 YI_PROMPT = (2, 1024)
@@ -134,6 +149,14 @@ FAMILY_PARTS = {
                [("whole", {}, None)])}
 LAUNCHER = ["--arch", "qwen2.5-3b", "--steps", "16", "--batch", "8",
             "--seq", "512"]
+# The sequence-parallel part: phase 12 (b)'s cut, (batch, tokens) of its
+# train step and of its prefill, the train steps (the first compared, the
+# others timed), and its meshes.
+SP_CUT = dict(n_layers=8)
+SP_TRAIN = (4, 2048)
+SP_PROMPT = (4, 2048)
+SP_STEPS = 3
+SP_MESHES = ((1, WORLD), (2, 2))
 
 
 def log(msg: str) -> None:
@@ -569,6 +592,124 @@ def part_jamba_split(dev):
     return _split_serve(dev, "jamba_split")
 
 
+def _sp_train(mesh, dev, rules) -> dict:
+    """SP_STEPS planned train steps of qwen2.5-3b cut to SP_CUT (f32,
+    SP_TRAIN tokens, one microbatch, lr 1e-3) under rule overrides
+    ``rules``, from parameters and a batch drawn from seed 0: the first
+    step's loss, grad norm and parameter slices (cloned), its collectives
+    and peak memory, and the median ms of the other steps."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.specs import plan_cell
+    from repro_torch.models.common import init_params, tree_leaves
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.train_step import make_train_step
+    cfg = cs._family_cfg("qwen2.5-3b", SP_CUT)
+    b, s = SP_TRAIN
+    plan = plan_cell(cfg, InputShape("sp-train", s, b, "train"), mesh,
+                     n_microbatches=1, rule_overrides=rules)
+    ocfg = opt_mod.AdamWConfig(lr=1e-3)
+    step = make_train_step(plan.model, ocfg, n_microbatches=1, donate=True,
+                           spmd=plan.spmd)
+    params = init_params(plan.model.template(),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    pipe = TokenPipeline(PipelineConfig(cfg.vocab, s, b, seed=0))
+    batch = train_mod.device_batch(pipe, cfg, 0, s, dev)
+    args = plan.shard(params, opt_mod.init(params, ocfg), batch)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, times = {}, []
+    for i in range(SP_STEPS):
+        if i == 0:
+            cs._collectives()
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, metrics = step(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out.update(collectives=cs._collectives(), peak_gb=_peak_gb(),
+                       loss=float(metrics["loss"]),
+                       grad_norm=float(metrics["grad_norm"]),
+                       params=[t.detach().clone()
+                               for t in tree_leaves(p)])
+        args = (p, o, args[2])
+    out["ms_per_step"] = sorted(times[1:])[len(times[1:]) // 2]
+    out["first_ms"] = times[0]
+    return out
+
+
+def part_sp(dev):
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    res = {}
+    for shape in SP_MESHES:
+        mesh = make_mesh(shape, ("data", "model"), device=dev.type)
+        ways = {}
+        for way, rules in (("plain", None), ("sp", cs.SP_RULES)):
+            ways[way] = _sp_train(mesh, dev, rules)
+            gc.collect()
+            torch.cuda.empty_cache()
+        a, b = ways["plain"], ways["sp"]
+        perr = torch.tensor(max(float((x - y).abs().max()) for x, y in
+                                zip(a.pop("params"), b.pop("params"))),
+                            device=dev)
+        dist.all_reduce(perr, op=dist.ReduceOp.MAX)
+        loss_rel = abs(b["loss"] - a["loss"]) / abs(a["loss"])
+        gn_rel = abs(b["grad_norm"] - a["grad_norm"]) / a["grad_norm"]
+        key = f"train {shape[0]}x{shape[1]}"
+        res[key] = dict(ways, loss_rel=loss_rel, grad_norm_rel=gn_rel,
+                        param_max_abs=float(perr))
+        for way, r in ways.items():
+            log(f"  sp: train mesh {shape} {way}: {r['ms_per_step']:.1f} "
+                f"ms a step (first {r['first_ms']:.1f}), peak "
+                f"{r['peak_gb']:.2f} GB a rank, collectives "
+                f"{r['collectives']}")
+        log(f"  sp: train mesh {shape}: SP against plain: loss rel "
+            f"{loss_rel:.3e}, grad norm rel {gn_rel:.3e}, parameters max "
+            f"abs {float(perr):.3e} (bars 1e-5, 2e-5)")
+        if loss_rel > 1e-5 or float(perr) > 2e-5:
+            raise AssertionError(f"sp: train {shape} outside the bars")
+    mesh = make_mesh((1, WORLD), ("data", "model"), device=dev.type)
+    res["serve"] = cs.mesh_family_serve(mesh, dev, "qwen2.5-3b", SP_CUT,
+                                        SP_PROMPT, DECODE_STEPS,
+                                        rules=cs.SP_RULES, atol=LOGIT_ATOL)
+    return res
+
+
+def sp_predictions() -> dict:
+    """The dry run's argument + temp GiB a rank of the sp part's (1, 4)
+    train plans, with the rule and without it (host, fake tensors)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.dryrun import measure_cell
+    from repro_torch.launch.mesh import Mesh
+    cfg = cs._family_cfg("qwen2.5-3b", SP_CUT)
+    b, s = SP_TRAIN
+    out = {}
+    for way, rules in (("plain", None), ("sp", cs.SP_RULES)):
+        t0 = time.perf_counter()
+        rec = measure_cell(cfg, InputShape("sp-train", s, b, "train"),
+                           Mesh(("data", "model"), (1, WORLD)),
+                           skip_extrapolation=True, n_microbatches=1,
+                           rule_overrides=rules)
+        mem = rec["memory"]
+        out[way] = dict(argument_gib=mem["argument_gib"],
+                        temp_gib=mem["temp_gib"],
+                        predicted_gib=mem["argument_gib"] + mem["temp_gib"],
+                        collectives=rec["collectives_full_hlo"]["counts"])
+        log(f"  sp: dry run of the (1, {WORLD}) train plan, {way}: argument "
+            f"{mem['argument_gib']:.4f} + temp {mem['temp_gib']:.4f} = "
+            f"{out[way]['predicted_gib']:.4f} GiB a rank, collective calls "
+            f"{out[way]['collectives']} ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def rank_main(rank: int, world: int, tmp: str, parts) -> int:
     import torch
     import torch.distributed as dist
@@ -658,6 +799,7 @@ def main(argv=None) -> int:
             f.result()
     log(f"build {time.perf_counter() - t0:.1f} s")
     res = {}
+    predicted = sp_predictions() if "sp" in parts else None
     ranked = [p for p in parts if p not in HERE]
     if ranked:
         tmp = tempfile.mkdtemp(prefix="mesh-cards-")
@@ -668,6 +810,8 @@ def main(argv=None) -> int:
         if any(codes):
             raise SystemExit(f"ranks exited {codes}")
         res = json.loads((Path(tmp) / "result.json").read_text())
+    if predicted is not None and "sp" in res:
+        res["sp"]["predicted"] = predicted
     if "launcher" in parts:
         res["launcher"] = launcher()
     if "phase12" in parts:

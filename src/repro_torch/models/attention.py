@@ -12,7 +12,11 @@ divide it. Otherwise the kv projections are replicated and each rank keeps
 the kv heads its query heads read (whole groups, or one kv head shared
 with other ranks). The cache holds the rank's kv heads, the attention
 kernels run on the local heads, and the output product's partial sum is
-all-reduced over the axis.
+all-reduced over the axis. On the sequence-parallel path the input is
+the stream's block of tokens, gathered on entry, and the output is
+reduce-scattered onto it (``ctx.enter_stream``, ``ctx.exit_stream``):
+the positions, the kernels and a prefill's cache see the whole
+sequence.
 
 Where the rules split the cache's rows (``cache_seq`` on a mesh axis, of
 extent 1 too: ``_cache_split``), each rank holds rows [off, off + t_loc)
@@ -94,8 +98,8 @@ def _qkv(params, x, kv_x, cfg):
     """q, k, v of the rank's heads (all kv heads when they are
     replicated: the cache keeps them all)."""
     axis, kv_part = _heads(cfg)
+    x = shard_ctx.enter_stream(x, axis)
     if axis is not None:
-        x = shard_ctx.enter(x, axis)
         kv_x = x if kv_x is None else shard_ctx.enter(kv_x, axis)
     elif kv_x is not None:
         # A source every cross layer reads (the encoder's output) takes
@@ -166,7 +170,7 @@ def _kv_heads(cfg, k, v):
 def _out(params, ctx, cfg=None):
     y = einsum("bshk,hkd->bsd", ctx, params["wo"])
     axis = None if cfg is None else _heads(cfg)[0]
-    return y if axis is None else shard_ctx.psum(y, axis)
+    return shard_ctx.exit_stream(y, axis)
 
 
 def gqa_apply(params, x, cfg, *, causal: bool = True, kv_x=None,
@@ -181,9 +185,9 @@ def gqa_apply(params, x, cfg, *, causal: bool = True, kv_x=None,
     ``cache``: when given (prefill), the keys and values are written at
     offset 0 in place and ``(y, cache)`` is returned.
     """
-    s = x.shape[1]
     cross = kv_x is not None
     q, k, v = _qkv(params, x, kv_x, cfg)
+    s = q.shape[1]
     if not cross:
         positions = torch.arange(s, device=x.device)[None, :]
         q = apply_rope(q, positions, cfg.rope_theta)

@@ -15,7 +15,10 @@ reduces its max, sum of exponentials and label logit over ``model``; the
 MLPs' output products are partial sums all-reduced over ``model`` (a bias
 added once, after); ``own_channels`` moves a column-parallel block of
 two halves onto the rank's channels of each. A dim split over no mesh
-axis runs as on one card.
+axis runs as on one card. The embedding's output, the MLPs' input and
+output and the unembedding's input are the residual stream's: on the
+sequence-parallel path they pass through ``ctx.enter_stream`` and
+``ctx.exit_stream``, whose collectives split and gather its sequence.
 """
 from __future__ import annotations
 
@@ -94,13 +97,12 @@ def swiglu(params, x: torch.Tensor, width: int | None = None
     """``width``: the global MLP width, needed under a mesh whose model
     axis has extent > 1 (``ctx.split``)."""
     axis, _ = ctx.split(MLP, params["wi_gate"].shape[-1], width)
-    if axis:
-        x = ctx.enter(x, axis)
+    x = ctx.enter_stream(x, axis)
     gate = einsum("...d,df->...f", x, params["wi_gate"])
     up = einsum("...d,df->...f", x, params["wi_up"])
     h = F.silu(gate.float()).to(x.dtype) * up
     y = einsum("...f,fd->...d", h, params["wo"])
-    return ctx.psum(y, axis) if axis else y
+    return ctx.exit_stream(y, axis)
 
 
 def own_channels(xz: torch.Tensor, axis) -> torch.Tensor:
@@ -140,12 +142,11 @@ def gelu_mlp(params, x: torch.Tensor, width: int | None = None
     """The audio family's FFN: ``jax.nn.gelu``'s default, the tanh
     approximation, taken in f32 and cast back to the stream's dtype."""
     axis, _ = ctx.split(MLP, params["wi"].shape[-1], width)
-    if axis:
-        x = ctx.enter(x, axis)
+    x = ctx.enter_stream(x, axis)
     h = einsum("...d,df->...f", x, params["wi"]) + params["bi"]
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     y = einsum("...f,fd->...d", h, params["wo"])
-    return (ctx.psum(y, axis) if axis else y) + params["bo"]
+    return ctx.exit_stream(y, axis) + ctx.stream_param(params["bo"])
 
 
 def embedding_template(vocab: int, d: int):
@@ -161,12 +162,12 @@ def embed(params, tokens: torch.Tensor, vocab: int | None = None
     table = params["table"]
     axis, lo = ctx.split(VOCAB, table.shape[0], vocab)
     if axis is None:
-        return table[tokens.long()]
+        return ctx.exit_stream(table[tokens.long()], None)
     ids = tokens.long() - lo
     mine = (ids >= 0) & (ids < table.shape[0])
     rows = table[ids.clamp(0, table.shape[0] - 1)]
     out = torch.where(mine[..., None], rows, torch.zeros_like(rows))
-    return ctx.psum(out, axis)
+    return ctx.exit_stream(out, axis)
 
 
 def unembed_template(d: int, vocab: int):
@@ -177,8 +178,7 @@ def unembed(params, x: torch.Tensor, vocab: int | None = None
             ) -> torch.Tensor:
     """Logits over this rank's vocab columns (all of them on one card)."""
     axis, _ = ctx.split(VOCAB, params["w"].shape[-1], vocab)
-    if axis:
-        x = ctx.enter(x, axis)
+    x = ctx.enter_stream(x, axis)
     return einsum("...d,dv->...v", x, params["w"])
 
 

@@ -120,7 +120,7 @@ def _project(params, x, cfg, positions, axis=None):
 
 def _out(params, out, axis, eq):
     y = einsum(eq, out, params["wo"])
-    return y if axis is None else shard_ctx.psum(y, axis)
+    return shard_ctx.exit_stream(y, axis)
 
 
 def mla_apply(params, x, cfg, *, causal: bool = True, cache=None):
@@ -129,6 +129,10 @@ def mla_apply(params, x, cfg, *, causal: bool = True, cache=None):
     are written at offset 0 in place (the rows of this rank's block where
     the rules split them) and ``(y, cache)`` is returned."""
     m = cfg.mla
+    # The replicated latent projections read the whole sequence; their
+    # outputs enter the head-split products (``_project``), so the
+    # gradient of the input is whole on every rank.
+    x = shard_ctx.enter_stream(x, None)
     b, s, _ = x.shape
     axis = _heads_axis(cfg)
     positions = torch.arange(s, device=x.device)[None, :]

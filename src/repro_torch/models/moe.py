@@ -134,10 +134,20 @@ def moe_apply(params, x, cfg, *, capacity_factor: float | None = None):
     to the config's; decode passes ``n_experts / top_k`` (dropless).
     Under a mesh the model must have been built with the mesh's
     expert-parallel degree (``build(cfg, ep_degree=...)``)."""
-    b0, s0, d = x.shape
+    b0, d = x.shape[0], x.shape[2]
+    # The whole sequence: on the sequence-parallel path x is the stream's
+    # block of it, and each path gathers it on entry (``group``).
+    s0 = x.shape[1] * ctx.stream_extent()
+    b, s = b0, s0
     if s0 > MOE_GROUP and s0 % MOE_GROUP == 0:
-        x = x.reshape(b0 * s0 // MOE_GROUP, MOE_GROUP, d)
-    b, s, _ = x.shape
+        b, s = b0 * s0 // MOE_GROUP, MOE_GROUP
+
+    def group(t):
+        return t.reshape(b, s, d)
+
+    def ungroup(y):
+        return y.reshape(b0, s0, y.shape[-1])
+
     ep_axis, ff_axis, e = None, None, params["router"].shape[1]
     m = ctx.mesh()
     if m is not None:
@@ -152,43 +162,47 @@ def moe_apply(params, x, cfg, *, capacity_factor: float | None = None):
     cap_f = capacity_factor or cfg.capacity_factor
     capacity = min(max(int(cap_f * s * k / e), 1), s * k)
 
-    def ungroup(out):
-        y, aux = out
-        return (y.reshape(b0, s0, d), aux) if s != s0 else (y, aux)
-
     dp_axes = ctx.current().get("batch") if m is not None else None
     dp_axes = (dp_axes,) if isinstance(dp_axes, str) else tuple(dp_axes or ())
     if ep_axis is not None and m.extent(ep_axis) > 1:
         if ep_axis not in dp_axes:
-            return ungroup(_moe_apply_local_experts(
-                params, x, cfg, capacity, ep_axis, ff_axis, dp_axes))
-        return ungroup(_moe_apply_a2a(params, x, cfg, capacity, ep_axis,
-                                      ff_axis, dp_axes))
-
-    expert, slot, kept, gate, aux = _routing(params, x, cfg, capacity)
-    xe = x if ff_axis is None else ctx.enter(x, ff_axis)
-    yout = _experts(params, _dispatch(xe, expert, slot, kept, capacity, e),
-                    x.dtype)                                 # [e, b, c, d]
-    if ff_axis is not None:
-        # Each rank's outputs are partial sums over its expert-MLP
-        # columns, so the gates' gradients are too.
-        gate = ctx.enter(gate, ff_axis)
-    y = _combine(yout, expert, slot, kept, gate, x.dtype)
-    if ff_axis is not None:
-        y = ctx.psum(y, ff_axis)
-    if dp_axes:
-        aux = ctx.pmean(aux, dp_axes)
+            y, aux = _moe_apply_local_experts(
+                params, x, cfg, capacity, ep_axis, ff_axis, dp_axes, group,
+                ungroup)
+        else:
+            y, aux = _moe_apply_a2a(params, x, cfg, capacity, ep_axis,
+                                    ff_axis, dp_axes, group, ungroup)
+    else:
+        # The router reads the whole sequence and its gates enter the
+        # expert-MLP split below, so its input's gradient is whole on
+        # every rank; the experts' input is the split products' own.
+        xr = group(ctx.enter_stream(x, None))
+        expert, slot, kept, gate, aux = _routing(params, xr, cfg, capacity)
+        xe = xr if ff_axis is None else group(ctx.enter_stream(x, ff_axis))
+        yout = _experts(params, _dispatch(xe, expert, slot, kept, capacity,
+                                          e), x.dtype)       # [e, b, c, d]
+        if ff_axis is not None:
+            # Each rank's outputs are partial sums over its expert-MLP
+            # columns, so the gates' gradients are too.
+            gate = ctx.enter(gate, ff_axis)
+        y = _combine(yout, expert, slot, kept, gate, x.dtype)
+        y = ctx.exit_stream(ungroup(y), ff_axis)
+        if dp_axes:
+            aux = ctx.pmean(aux, dp_axes)
     if "shared" in params:
         y = y + _shared(params, x, cfg)
-    return ungroup((y, aux))
+    return y, aux
 
 
 def _moe_apply_a2a(params, x, cfg, capacity: int, ep_axis: str, ff_axis,
-                   dp_axes: tuple):
+                   dp_axes: tuple, group, ungroup):
     """Expert parallelism with explicit all-to-alls (the JAX package's
-    ``shard_map`` path): x is this rank's batch rows [b_loc, s, d]; the
-    router is gathered whole (its gradient reduce-scattered back), the
-    routing is per sequence and so the same decisions as on one card."""
+    ``shard_map`` path): x is this rank's batch rows [b_loc, s, d] (of
+    the stream: gathered whole, ``group`` taking it to the routing's
+    groups); the router is gathered whole (its gradient reduce-scattered
+    back), the routing is per sequence and so the same decisions as on
+    one card. Returns the output before the shared expert, and aux."""
+    x = group(ctx.enter_stream(x, None))
     dtype = x.dtype
     router = ctx.all_gather(params["router"], ep_axis, dim=1)
     e = router.shape[1]
@@ -210,26 +224,23 @@ def _moe_apply_a2a(params, x, cfg, capacity: int, ep_axis: str, ff_axis,
         # are partial sums over them.
         gate = ctx.enter(gate, ff_axis)
     y = _combine(yo, expert, slot, kept, gate, dtype)
-    if ff_axis is not None:
-        y = ctx.all_gather(y, ff_axis, dim=2, partial_grad=False)
-    aux = ctx.pmean(aux, dp_axes)
-    if "shared" in params:
-        y = y + _shared(params, x, cfg)
-    return y, aux
+    y = ctx.exit_columns(ungroup(y), ff_axis)
+    return y, ctx.pmean(aux, dp_axes)
 
 
 def _moe_apply_local_experts(params, x, cfg, capacity: int, ep_axis: str,
-                             ff_axis, dp_axes: tuple):
+                             ff_axis, dp_axes: tuple, group, ungroup):
     """Experts over ``ep_axis``, not a data axis (the JAX package's einsum
     path): each rank of the axis holds the same batch rows x [b, s, d],
     routes them with the router gathered whole (the same decisions as on
     one card), dispatches to its own experts only, and combines their
     outputs; the other experts' choices weigh 0 here, and the all-reduce
-    over the axis sums the ranks' combines. No all-to-all."""
+    over the axis sums the ranks' combines. No all-to-all. Returns the
+    output before the shared expert, and aux."""
     dtype = x.dtype
     m = ctx.mesh()
     n = m.extent(ep_axis)
-    xe = ctx.enter(x, ep_axis)
+    xe = group(ctx.enter_stream(x, ep_axis))
     router = ctx.all_gather(params["router"], ep_axis, dim=1)
     expert, slot, kept, gate, aux = _routing({"router": router}, xe, cfg,
                                              capacity)
@@ -246,13 +257,12 @@ def _moe_apply_local_experts(params, x, cfg, capacity: int, ep_axis: str,
         axes = (ep_axis, ff_axis)
     yout = _experts(params, _dispatch(xe, mine, slot, kept, capacity,
                                       e_loc), dtype)   # [e_loc, b, c, d]
-    y = ctx.psum(_combine(yout, mine, slot, kept, gate, dtype), axes)
+    y = ctx.exit_stream(ungroup(_combine(yout, mine, slot, kept, gate,
+                                         dtype)), axes)
     # Every rank of the axis computes the same aux loss from the whole
     # router, and the router's and x's gradients are summed over the axis:
     # count its gradient once (the forward value is unchanged).
     aux = aux.detach() + (aux - aux.detach()) / n
     if dp_axes:
         aux = ctx.pmean(aux, dp_axes)
-    if "shared" in params:
-        y = y + _shared(params, x, cfg)
     return y, aux

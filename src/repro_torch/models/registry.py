@@ -33,7 +33,13 @@ batch and cache, and returns its slice of the logits (the local vocab
 columns). Every family runs there: the decode cache's rows split over an
 axis where the rules put ``cache_seq`` (``models.attention``,
 ``models.mla``), a cross layer's source rows where that axis divides
-them. A division the rules cannot resolve raises.
+them. A division the rules cannot resolve raises. ``forward``,
+``prefill`` and ``encode`` run their stacks under
+``sharding.ctx.sequence_parallel``: with ``{"act_seq": AXIS}`` in the
+rules the residual stream between sublayers is the rank's block of the
+sequence (the embedding's output reduce-scattered onto it, the stream
+gathered again for the unembedding, the prefill's last token and the
+encoder's output); the outputs are the unsharded model's.
 """
 from __future__ import annotations
 
@@ -140,8 +146,7 @@ class TransformerLM(nn.Module):
             table = params["embed"]["table"]
             axis, _ = shard_ctx.split(VOCAB, table.shape[0],
                                       cfg.padded_vocab)
-            if axis:
-                x = shard_ctx.enter(x, axis)
+            x = shard_ctx.enter_stream(x, axis)
             return einsum("...d,vd->...v", x, table)
         return unembed(params["unembed"], x, vocab=cfg.padded_vocab)
 
@@ -154,11 +159,14 @@ class TransformerLM(nn.Module):
         return None if kv is None else kv.to(self.dtype)
 
     def forward(self, params, batch):
-        x = self._embed(params, batch["tokens"])
-        x, _, aux = stack_apply(params["blocks"], x, self.cfg, self.period,
-                                kv_embeds=self._vision(batch),
-                                impl=self.impl, mlstm_impl=self.mlstm_impl)
-        return self._logits(params, x), aux
+        with shard_ctx.sequence_parallel(batch["tokens"].shape[1]):
+            x = self._embed(params, batch["tokens"])
+            x, _, aux = stack_apply(params["blocks"], x, self.cfg,
+                                    self.period,
+                                    kv_embeds=self._vision(batch),
+                                    impl=self.impl,
+                                    mlstm_impl=self.mlstm_impl)
+            return self._logits(params, x), aux
 
     def loss(self, params, batch):
         """Cross-entropy over the real vocabulary (``batch["labels"]``)
@@ -173,13 +181,15 @@ class TransformerLM(nn.Module):
         embeddings' keys and values); returns the last position's
         logits."""
         tokens = batch["tokens"]
-        x = self._embed(params, tokens)
-        x, blocks, _ = stack_apply(params["blocks"], x, self.cfg,
-                                   self.period,
-                                   kv_embeds=self._vision(batch),
-                                   impl=self.impl,
-                                   mlstm_impl=self.mlstm_impl,
-                                   caches=cache["blocks"])
+        with shard_ctx.sequence_parallel(tokens.shape[1]):
+            x = self._embed(params, tokens)
+            x, blocks, _ = stack_apply(params["blocks"], x, self.cfg,
+                                       self.period,
+                                       kv_embeds=self._vision(batch),
+                                       impl=self.impl,
+                                       mlstm_impl=self.mlstm_impl,
+                                       caches=cache["blocks"])
+            x = shard_ctx.stream_gather(x)
         new_cache = {"blocks": blocks,
                      "len": torch.full_like(cache["len"], tokens.shape[1])}
         return self._logits(params, x[:, -1:]), new_cache
@@ -248,8 +258,12 @@ class EncDecLM(nn.Module):
         d]: self-attention over all frames (non-causal)."""
         x = einsum("bsd,de->bse", audio_embeds.to(self.dtype),
                    params["enc_in"]["w"])
-        x, _, _ = stack_apply(params["enc_blocks"], x, self.cfg,
-                              self.enc_period, causal=False, impl=self.impl)
+        with shard_ctx.sequence_parallel(x.shape[1]):
+            x = shard_ctx.stream_split(x)
+            x, _, _ = stack_apply(params["enc_blocks"], x, self.cfg,
+                                  self.enc_period, causal=False,
+                                  impl=self.impl)
+            x = shard_ctx.stream_gather(x)
         return norm(self.cfg, params["enc_norm"], x)
 
     def _logits(self, params, x):
@@ -262,11 +276,12 @@ class EncDecLM(nn.Module):
 
     def forward(self, params, batch):
         enc = self.encode(params, batch["audio_embeds"])
-        x = self._embed(params, batch["tokens"])
-        x, _, aux = stack_apply(params["dec_blocks"], x, self.cfg,
-                                self.dec_period, kv_embeds=enc,
-                                impl=self.impl)
-        return self._logits(params, x), aux
+        with shard_ctx.sequence_parallel(batch["tokens"].shape[1]):
+            x = self._embed(params, batch["tokens"])
+            x, _, aux = stack_apply(params["dec_blocks"], x, self.cfg,
+                                    self.dec_period, kv_embeds=enc,
+                                    impl=self.impl)
+            return self._logits(params, x), aux
 
     def loss(self, params, batch):
         """Cross-entropy over the real vocabulary (``batch["labels"]``)
@@ -283,10 +298,12 @@ class EncDecLM(nn.Module):
         position's logits."""
         enc = self.encode(params, batch["audio_embeds"])
         tokens = batch["tokens"]
-        x = self._embed(params, tokens)
-        x, blocks, _ = stack_apply(params["dec_blocks"], x, self.cfg,
-                                   self.dec_period, kv_embeds=enc,
-                                   impl=self.impl, caches=cache["blocks"])
+        with shard_ctx.sequence_parallel(tokens.shape[1]):
+            x = self._embed(params, tokens)
+            x, blocks, _ = stack_apply(params["dec_blocks"], x, self.cfg,
+                                       self.dec_period, kv_embeds=enc,
+                                       impl=self.impl, caches=cache["blocks"])
+            x = shard_ctx.stream_gather(x)
         new_cache = {"blocks": blocks,
                      "len": torch.full_like(cache["len"], tokens.shape[1])}
         return self._logits(params, x[:, -1:]), new_cache

@@ -84,8 +84,7 @@ def _inner_axis(params, cfg):
 
 def _in_proj(params, x, axis):
     """(x_in, z) of the rank's channels: [..., inner_loc] each."""
-    if axis is not None:
-        x = shard_ctx.enter(x, axis)
+    x = shard_ctx.enter_stream(x, axis)
     xz = einsum("bsd,di->bsi", x, params["in_proj"])
     if axis is not None:
         xz = own_channels(xz, axis)
@@ -110,7 +109,7 @@ def _dt_bc(params, xc, cfg, axis=None):
 def _gate_out(params, y, z, x, axis=None):
     y = y * F.silu(z.float()).to(x.dtype)
     out = einsum("...i,id->...d", y, params["out_proj"])
-    return out if axis is None else shard_ctx.psum(out, axis)
+    return shard_ctx.exit_stream(out, axis)
 
 
 def mamba_apply(params, x, cfg, *, impl: str = "auto", state=None):
@@ -131,7 +130,7 @@ def mamba_apply(params, x, cfg, *, impl: str = "auto", state=None):
     out = _gate_out(params, y, z, x, axis)
     if state is None:
         return out
-    keep = min(cfg.ssm_conv - 1, x.shape[1])
+    keep = min(cfg.ssm_conv - 1, x_in.shape[1])
     state["h"].copy_(h_last)
     state["conv"].zero_()
     if keep:

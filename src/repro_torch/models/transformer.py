@@ -12,6 +12,13 @@ which computes the same thing. Caches are written in place.
 Under autograd each period body is rematerialised as the config's
 ``remat`` says (``_remat``), as the JAX package wraps its scan body in
 ``jax.checkpoint``.
+
+On the sequence-parallel path (``sharding.ctx.sequence_parallel``, which
+the models' full-sequence calls open) the stream ``x`` that the blocks
+take and return is this rank's block of the sequence: the norms and the
+residual adds run on its tokens, and each sublayer gathers its input and
+scatters its output (``ctx.enter_stream``, ``ctx.exit_stream``). Decode
+never takes it.
 """
 from __future__ import annotations
 
@@ -94,7 +101,9 @@ def norm_template(cfg):
 
 
 def norm(cfg, params, x):
-    """The config's norm: LayerNorm (the audio family) or RMS norm."""
+    """The config's norm: LayerNorm (the audio family) or RMS norm. Its
+    parameters read the stream's tokens (``ctx.stream_param``)."""
+    params = {k: shard_ctx.stream_param(v) for k, v in params.items()}
     return (layernorm if cfg.norm == "layernorm" else rmsnorm)(params, x)
 
 
@@ -323,10 +332,11 @@ def _remat(fn, cfg, stacked):
     (``_dots_policy``). Gradients are the same under all three. Nothing
     in the forward pass draws random numbers, so no RNG state is kept.
 
-    The body runs under the sharding rules current when it is wrapped:
-    the backward pass recomputes it where they are not set (on the card,
-    in autograd's own thread), and without them a sharded body would
-    skip its collectives."""
+    The body runs under the sharding rules current when it is wrapped
+    (the stream's sequence-parallel axis among them): the backward pass
+    recomputes it where they are not set (on the card, in autograd's own
+    thread), and without them a sharded body would skip its
+    collectives."""
     if cfg.remat not in REMATS:
         raise ValueError(f"remat={cfg.remat!r} not in {REMATS}")
     if cfg.remat == "none":

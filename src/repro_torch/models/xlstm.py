@@ -26,7 +26,10 @@ every head, normalises the whole width and keeps its channels for the
 row-parallel ``down_proj``. The sLSTM's recurrence is
 head-local; its output is all-gathered to the model width before the
 column-parallel ``ffn_up``, and ``ffn_down``'s partial sum is
-all-reduced.
+all-reduced. On the sequence-parallel path each block's input is
+gathered over the sequence and its output reduce-scattered back
+(``ctx.enter_stream``, ``ctx.exit_stream``): the recurrences run over
+the whole sequence.
 """
 from __future__ import annotations
 
@@ -126,8 +129,7 @@ def _mlstm_qkvif(params, xu, axis=None, whole=False):
 def _mlstm_in(params, x, axis=None):
     """(xu, z): the two halves of the up projection, the rank's channels
     of each."""
-    if axis is not None:
-        x = shard_ctx.enter(x, axis)
+    x = shard_ctx.enter_stream(x, axis)
     xz = einsum("bsd,di->bsi", x, params["up_proj"])
     if axis is not None:
         xz = own_channels(xz, axis)
@@ -167,7 +169,7 @@ def _mlstm_out(params, h, z, x, axis=None, whole=False):
         h = _out_norm(params, h, inner, axis)
     h = h * F.silu(z.float()).to(x.dtype)
     y = einsum("bsi,id->bsd", h, params["down_proj"])
-    return y if axis is None else shard_ctx.psum(y, axis)
+    return shard_ctx.exit_stream(y, axis)
 
 
 # The chunk of ``mlstm_impl="chunkwise"`` (the JAX package's
@@ -186,9 +188,9 @@ def mlstm_apply(params, x, cfg, *, impl: str = "auto",
     same q/k/v and gates, and ``(y, state)`` is returned: the state the
     JAX package rebuilds by scanning ``mlstm_step`` from m = -1e30, which
     ignores the C and n it is given."""
-    b, s, _ = x.shape
     axis, whole = _mlstm_axis(params, cfg)
     xu, z = _mlstm_in(params, x, axis)
+    b, s = xu.shape[:2]
     q, k, v, ig, fg = (t.contiguous()
                        for t in _mlstm_qkvif(params, xu, axis, whole))
     if mlstm_impl == "chunkwise":
@@ -293,7 +295,7 @@ def _slstm_ffn(params, y, x, cfg, axis=None):
     # jax.nn.gelu's default is the tanh approximation.
     y = F.gelu(y.float(), approximate="tanh").to(x.dtype)
     y = einsum("bsf,fd->bsd", y, params["ffn_down"])
-    return y if mlp is None else shard_ctx.psum(y, mlp)
+    return shard_ctx.exit_stream(y, mlp)
 
 
 def slstm_apply(params, x, cfg, *, state=None):
@@ -302,10 +304,10 @@ def slstm_apply(params, x, cfg, *, state=None):
     Starts from ``state`` when given (the prefill: the cache's state, as
     in the JAX package), then writes the last token's state into it and
     returns ``(y, state)``; from zeros otherwise, returning ``y``."""
-    b, s, d = x.shape
     axis = _slstm_axis(params, cfg)
+    x_in = shard_ctx.enter_stream(x, axis)
+    b, s, d = x_in.shape
     h, hd = params["w_x"].shape[2], d // cfg.n_heads
-    x_in = x if axis is None else shard_ctx.enter(x, axis)
     xg = einsum("bsd,dghe->bsghe", x_in, params["w_x"])       # [b,s,4,h,hd]
     st = state
     if st is None:
@@ -331,7 +333,7 @@ def slstm_decode(params, x, cfg, state):
     """Single-token step. x: [b, 1, d]; ``state`` is updated in place."""
     b = x.shape[0]
     axis = _slstm_axis(params, cfg)
-    x_in = x if axis is None else shard_ctx.enter(x, axis)
+    x_in = shard_ctx.enter_stream(x, axis)
     xg = einsum("bsd,dghe->bsghe", x_in, params["w_x"])[:, 0]
     h_out, new = _slstm_cell(params, xg, state)
     for key, val in new.items():

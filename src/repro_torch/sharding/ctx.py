@@ -38,11 +38,43 @@ conjugate:
 train step's reductions. Every call counts, per kind, one call and the
 bytes of its result (``counts``), also over a group of one rank: nothing
 is skipped at world 1.
+
+The sequence-parallel residual (``{"act_seq": AXIS}``, Korthikanti et
+al.'s sequence parallelism; the JAX package constrains the stream to
+``("batch", "act_seq", None)`` after every full-sequence block and GSPMD
+places the collectives). Inside ``sequence_parallel(s)`` on a mesh where
+the rule resolves (``seq_axis``), the residual stream [b, s / n, d]
+between sublayers holds this rank's block of the sequence, so its norms
+and adds run on its tokens. The model code marks each sublayer's entry
+and exit of the stream, and the choice of collective is made here:
+
+  enter_stream  the normed stream into a sublayer: ``enter`` off the
+                path; on it the sequence's all-gather, whose backward
+                reduce-scatters the gradient where the sublayer's
+                products split over the stream's axis (Megatron's
+                replacement of ``enter``'s all-reduce) and keeps the
+                rank's block where the sublayer runs whole on every rank.
+  exit_stream   the sublayer's output back onto the stream: ``psum`` off
+                the path; on it a reduce-scatter over the sequence, or
+                the rank's block of an output that is whole on every rank
+                (backward: the gradient's all-gather).
+  exit_columns  an output held as the rank's block of the model width
+                (the MoE's all-to-all path): its all-gather off the path,
+                an all-to-all onto the rank's tokens on it.
+  stream_param  a parameter read on the rank's tokens (a norm's scale, a
+                bias added after the exit): its gradient summed over the
+                axis on the path.
+
+``stream_split`` and ``stream_gather`` take a whole sequence onto the
+stream and back (the encoder's input and output). Off the path, at an
+extent of 1 as the JAX package's placement resolves it, every one of
+them is today's collective or the identity.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 
 import torch
 import torch.distributed as dist
@@ -362,3 +394,130 @@ def all_to_all_v(x, axis: str, dim: int, send, recv):
     what arrives along ``dim`` in rank order (``recv[i]`` entries from
     rank i). Backward: the reverse exchange."""
     return _AllToAllV.apply(x, axis, dim, tuple(send), tuple(recv), mesh())
+
+
+class _Slice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, m):
+        ctx.axis, ctx.dim, ctx.m = axis, dim, m
+        return slice_dim(x, axis, dim, m)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (gather_dim(g, ctx.axis, ctx.dim, ctx.m).contiguous(), None,
+                None, None)
+
+
+# The rules' key of the stream's mesh axis inside ``sequence_parallel``
+# (kept in the rules so that ``_remat``'s recompute, which re-enters
+# them, takes the same path).
+_SEQ = "_act_seq"
+
+
+def seq_axis(s: int):
+    """The mesh axis the residual stream of a sequence of ``s`` tokens is
+    split over under the current rules: the ``act_seq`` rule's, or None
+    where the JAX package's placement of ``("batch", "act_seq", None)``
+    resolves it to replication (no mesh, no rule, an extent of 1, ``s``
+    not a multiple of the extent, or an axis the batch takes first)."""
+    m = mesh()
+    rule = None if m is None else _RULES.get().get("act_seq")
+    if rule is None:
+        return None
+    sizes = _RULES.get()["_mesh_sizes"]
+    axes = axes_of(rule)
+    extent = math.prod(sizes.get(a, 1) for a in axes)
+    batch = [a for a in axes_of(_RULES.get().get("batch"))
+             if sizes.get(a, 1) > 1]
+    if extent <= 1 or s % extent or any(a in batch for a in axes):
+        return None
+    if len(axes) != 1:
+        raise NotImplementedError(
+            f"act_seq over {rule!r}: the sequence-parallel residual splits "
+            "over one mesh axis")
+    return axes[0]
+
+
+@contextlib.contextmanager
+def sequence_parallel(s: int):
+    """The full-sequence path of ``s`` tokens (training, prefill, the
+    encoder): inside it the stream is split as ``seq_axis(s)`` says.
+    Yields that axis, or None."""
+    axis = seq_axis(s)
+    if axis is None:
+        yield None
+        return
+    with activation_rules({**_RULES.get(), _SEQ: axis}):
+        yield axis
+
+
+def stream_axis():
+    """The mesh axis the residual stream is split over here, or None."""
+    rules = _RULES.get()
+    return None if rules is None else rules.get(_SEQ)
+
+
+def stream_extent() -> int:
+    """The number of blocks of the stream's sequence (1 off the path)."""
+    axis = stream_axis()
+    return 1 if axis is None else mesh().extent(axis)
+
+
+def enter_stream(x: torch.Tensor, axis) -> torch.Tensor:
+    """The normed stream ``x`` [b, s_loc, d] into a sublayer whose
+    products are split over ``axis`` (None: whole on every rank); returns
+    the sublayer's input over the whole sequence (module docstring)."""
+    sp = stream_axis()
+    if sp is None:
+        return enter(x, axis) if axis else x
+    rest = tuple(a for a in axes_of(axis) if a != sp)
+    x = all_gather(x, sp, 1, partial_grad=len(rest) < len(axes_of(axis)))
+    return enter(x, rest) if rest else x
+
+
+def exit_stream(y: torch.Tensor, axis) -> torch.Tensor:
+    """A sublayer's output ``y`` [b, s, d], a partial sum over ``axis``
+    (None: whole on every rank), back onto the stream."""
+    sp = stream_axis()
+    if sp is None:
+        return psum(y, axis) if axis else y
+    rest = tuple(a for a in axes_of(axis) if a != sp)
+    if rest:
+        y = psum(y, rest)
+    if sp in axes_of(axis):
+        return reduce_scatter(y, sp, 1)
+    return stream_split(y)
+
+
+def exit_columns(y: torch.Tensor, axis) -> torch.Tensor:
+    """A sublayer's output held as this rank's block of columns
+    ``y`` [b, s, d / n] over ``axis`` (None: all of them), whole, back
+    onto the stream: the columns' all-gather, or on the path over the
+    same axis one all-to-all from the columns onto the rank's tokens."""
+    if axis is None:
+        return stream_split(y)
+    if stream_axis() == axis:
+        return all_to_all(y, axis, 1, 2)
+    return stream_split(all_gather(y, axis, dim=2, partial_grad=False))
+
+
+def stream_param(p: torch.Tensor) -> torch.Tensor:
+    """A parameter read on the stream's own tokens: identity; on the
+    path its gradient, a partial sum over the ranks' tokens, is summed
+    over the stream's axis."""
+    sp = stream_axis()
+    return p if sp is None else enter(p, sp)
+
+
+def stream_split(x: torch.Tensor) -> torch.Tensor:
+    """A sequence [b, s, d] whole on every rank onto the stream: the
+    rank's block (backward: the gradient's all-gather)."""
+    sp = stream_axis()
+    return x if sp is None else _Slice.apply(x, sp, 1, mesh())
+
+
+def stream_gather(x: torch.Tensor) -> torch.Tensor:
+    """The stream whole on every rank, for consumers that run whole
+    (backward: the rank's block of the gradient)."""
+    sp = stream_axis()
+    return x if sp is None else all_gather(x, sp, 1, partial_grad=False)

@@ -191,6 +191,54 @@ def test_memory_equals_the_reference_record():
     assert mine["alias_gib"] + 4 == theirs["alias_gib"]
 
 
+# The bytes of the inputs each reduced serving cell's step never reads
+# (batch 2, 32 rows, mesh (1, 1)), which ``jax.jit`` drops from the
+# executable's arguments (``keep_unused=False``, its default): the cache's
+# ``len`` at prefill (it writes a new one); jamba's three Mamba layers'
+# conv states (6,144 B each: the prefill writes them from its tokens);
+# the mLSTM's ``m`` (the JAX package's prefill rebuilds the state from
+# m = -1e30); the VLM's cross layers' ``wk`` and ``wv`` at decode (16,384
+# B each: the vision keys and values are in the cache).
+UNREAD = {("qwen2.5-3b", "prefill"): 8, ("qwen2.5-3b", "decode"): 0,
+          ("jamba-1.5-large-398b", "prefill"): 3 * 6144 + 8,
+          ("xlstm-1.3b", "prefill"): 64 + 8,
+          ("llama-3.2-vision-11b", "decode"): 2 * 16384}
+
+
+@pytest.mark.parametrize("arch,kind", sorted(UNREAD),
+                         ids=[f"{a}-{k}" for a, k in sorted(UNREAD)])
+def test_serving_arguments_equal_the_reference_record(arch, kind):
+    """A reduced one-device prefill or decode cell: the port's argument
+    bytes equal XLA's ``memory_analysis`` of the JAX package's same step
+    compiled with every input kept, byte for byte. The JAX package's own
+    record (its ``plan.lower()``, ``jax.jit``'s default) leaves out the
+    inputs its step never reads (``UNREAD``); the port counts every
+    argument it is handed, which the caller holds whether or not the step
+    reads it. Both sides pinned."""
+    from repro import configs as j_configs
+    from repro.configs.base import InputShape as JShape
+    from repro.launch.mesh import make_mesh
+    from repro.launch.specs import plan_cell as j_plan_cell
+    b, s = 2, 32
+    j_mesh = make_mesh((1, 1), ("data", "model"), devices=jax.devices()[:1])
+    plan = j_plan_cell(j_configs.get(arch).reduced(),
+                       JShape("c", s, b, kind), j_mesh)
+
+    def args_bytes(keep_unused):
+        jitted = jax.jit(plan.step_fn, in_shardings=plan.in_shardings,
+                         out_shardings=plan.out_shardings,
+                         donate_argnums=plan.donate, keep_unused=keep_unused)
+        with plan.mesh:
+            compiled = jitted.lower(*plan.args).compile()
+        return compiled.memory_analysis().argument_size_in_bytes
+    mine = dryrun.measure_cell(configs.get(arch).reduced(),
+                               InputShape("c", s, b, kind), _mesh((1, 1)),
+                               skip_extrapolation=True)["memory"]
+    mine = round(mine["argument_gib"] * 2**30)
+    assert mine == args_bytes(True)
+    assert mine - args_bytes(False) == UNREAD[(arch, kind)]
+
+
 # ---------------------------------------------------------------------------
 # Collectives against real gloo ranks
 # ---------------------------------------------------------------------------
@@ -201,6 +249,9 @@ COUNT_CASES = {
     "decode-1x4-split-cache": dict(
         arch="qwen2.5-3b", mesh=[1, 4], kind="decode", seq=32, batch=2,
         overrides={"cache_seq": "model", "kv_heads": None}),
+    "train-1x4-sp": dict(arch="qwen2.5-3b", mesh=[1, 4], kind="train",
+                         seq=16, batch=4, microbatches=1,
+                         overrides={"act_seq": "model"}),
 }
 
 
@@ -226,6 +277,67 @@ def test_collectives_equal_gloo_ranks(case, tmp_path):
     if args["kind"] == "decode":
         # The split cache's partials are exchanged.
         assert got["all_to_all"]["calls"] > 0
+    if "act_seq" in args.get("overrides", {}):
+        # The stream's sequence is scattered and gathered.
+        assert got["reduce_scatter"]["calls"] > 0
+        assert got["all_gather"]["calls"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The sequence-parallel residual (act_seq)
+# ---------------------------------------------------------------------------
+
+SP = {"act_seq": "model"}
+
+
+def _sp_trace(seq: int, overrides=None):
+    """The reduced dense train cell (4 x ``seq`` tokens) on a fake (1, 4)
+    mesh under ``overrides``: (its record, the shape of every all-reduced
+    tensor)."""
+    from repro_torch.sharding import ctx
+    cfg = configs.get("qwen2.5-3b").reduced()
+    shapes = []
+    count = ctx.count
+
+    def record(kind, t):
+        if kind == "all_reduce":
+            shapes.append(tuple(t.shape))
+        count(kind, t)
+    ctx.count = record
+    try:
+        rec = dryrun.measure_cell(cfg, InputShape("t", seq, 4, "train"),
+                                  _mesh((1, 4)), skip_extrapolation=True,
+                                  n_microbatches=1, rule_overrides=overrides)
+    finally:
+        ctx.count = count
+    return rec, shapes
+
+
+def test_sp_record_splits_the_stream():
+    """With ``{"act_seq": "model"}`` the arguments are the same, the temp
+    bytes lower (the stream's activations a rank's block of the
+    sequence), reduce-scatters and all-gathers stand where the stream's
+    all-reduces were, and no [b, s, d] stream is all-reduced."""
+    plain, plain_shapes = _sp_trace(16)
+    sp, sp_shapes = _sp_trace(16, SP)
+    stream = (4, 16, configs.get("qwen2.5-3b").reduced().d_model)
+    assert stream in plain_shapes
+    assert stream not in sp_shapes
+    assert sp["memory"]["argument_gib"] == plain["memory"]["argument_gib"]
+    assert sp["memory"]["temp_gib"] < plain["memory"]["temp_gib"]
+    pc, sc = (r["collectives_full_hlo"]["counts"] for r in (plain, sp))
+    assert sc["all-reduce"] < pc["all-reduce"]
+    assert sc["reduce-scatter"] > pc["reduce-scatter"]
+    assert sc["all-gather"] > pc["all-gather"]
+
+
+def test_sp_off_where_the_axis_does_not_divide_the_sequence():
+    """15 tokens on a model axis of 4: the rule resolves to replication,
+    and the step's collectives are the plain plan's."""
+    plain, _ = _sp_trace(15)
+    sp, _ = _sp_trace(15, SP)
+    for key in ("collectives_full_hlo", "memory", "cost_full_hlo"):
+        assert sp[key] == plain[key]
 
 
 # ---------------------------------------------------------------------------

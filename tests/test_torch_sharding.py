@@ -477,3 +477,66 @@ def test_plan_cell_placements_equal_the_references(monkeypatch):
         shapes = [tuple(t.shape) for t in t_common.tree_leaves(got.args[0])]
         assert shapes == [tuple(t.shape) for t in jax.tree.leaves(
             want.args[0])]
+
+
+# ---------------------------------------------------------------------------
+# Every logical axis the JAX package's models name is read by the port
+# ---------------------------------------------------------------------------
+
+def _reference_model_axes() -> set:
+    """The logical axis names that ``src/repro/models/*.py`` passes to
+    ``constrain`` or puts in a parameter template (``P(shape, axes)``),
+    read by AST: string constants, and names bound to one at module level
+    in the file or in ``models/common.py``."""
+    import ast
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parent.parent / "src/repro/models"
+
+    def constants(tree) -> dict:
+        out = {}
+        for node in tree.body:
+            if isinstance(node, ast.Assign) and isinstance(
+                    node.value, ast.Constant) and isinstance(
+                    node.value.value, str):
+                for t in node.targets:
+                    if isinstance(t, ast.Name):
+                        out[t.id] = node.value.value
+        return out
+    common = constants(ast.parse((root / "common.py").read_text()))
+    axes = set()
+    for path in sorted(root.glob("*.py")):
+        tree = ast.parse(path.read_text())
+        names = {**common, **constants(tree)}
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call) or len(node.args) < 2:
+                continue
+            f = node.func
+            fname = f.id if isinstance(f, ast.Name) else getattr(f, "attr",
+                                                                  None)
+            if fname not in ("constrain", "P"):
+                continue
+            spec = node.args[1]
+            if not isinstance(spec, (ast.Tuple, ast.List)):
+                continue
+            for el in spec.elts:
+                if isinstance(el, ast.Constant) and isinstance(el.value, str):
+                    axes.add(el.value)
+                elif isinstance(el, ast.Name) and el.id in names:
+                    axes.add(names[el.id])
+    return axes
+
+
+def test_every_reference_axis_is_read_by_the_port():
+    """A rule the port stores but never reads is accepted and silently
+    ignored (as ``act_seq`` was): every logical axis the JAX package's
+    models lay a tensor along must be named in ``src/repro_torch`` outside
+    ``sharding/rules.py``, which only stores the rules."""
+    import pathlib
+    src = pathlib.Path(__file__).resolve().parent.parent / "src/repro_torch"
+    text = "\n".join(p.read_text() for p in sorted(src.rglob("*.py"))
+                     if p.relative_to(src).as_posix() != "sharding/rules.py")
+    axes = _reference_model_axes()
+    assert {"act_seq", "batch", "heads", "embed"} <= axes
+    missing = sorted(a for a in axes
+                     if f'"{a}"' not in text and f"'{a}'" not in text)
+    assert not missing, f"logical axes the port never reads: {missing}"

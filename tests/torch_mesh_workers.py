@@ -415,6 +415,41 @@ def task_plan_counts(rank, inp, args):
     return out
 
 
+def task_sp(rank, inp, args):
+    """On each mesh of ``args["meshes"]`` in turn, in one group: the
+    forward, one planned train step (``args["microbatches"]`` a
+    mesh), and the planned prefill with greedy decode (``task_forward``,
+    ``task_train`` and ``task_serve`` under ``args["overrides"]``):
+    their outputs under the keys "MESH/fwd/", "MESH/train/" and
+    "MESH/serve/" (MESH as "1x4"), and the forward's collective counts
+    ("MESH/fwd/calls/KIND"). The train step reads ``train_tokens`` and
+    the stub modalities' ``train_*`` inputs in place of the others."""
+    from repro_torch.models import moe
+    from repro_torch.sharding import ctx
+    train_inp = {k: v for k, v in inp.items()
+                 if k.startswith("p/")}
+    train_inp.update({k[len("train_"):]: v for k, v in inp.items()
+                      if k.startswith("train_")})
+    out = {}
+    for mesh, nm in zip(args["meshes"], args["microbatches"]):
+        tag = f"{mesh[0]}x{mesh[1]}/"
+        margs = dict(args, mesh=mesh, microbatches=nm)
+        routing = moe._routing
+        ctx.reset_counts()
+        try:
+            fwd = task_forward(rank, inp, margs)
+        finally:
+            moe._routing = routing
+        out.update({f"{tag}fwd/calls/{k}": np.asarray(v["calls"])
+                    for k, v in ctx.counts.items()})
+        out.update({f"{tag}fwd/{k}": v for k, v in fwd.items()})
+        out.update({f"{tag}serve/{k}": v
+                    for k, v in task_serve(rank, inp, margs).items()})
+        out.update({f"{tag}train/{k}": v for k, v in
+                    task_train(rank, train_inp, margs).items()})
+    return out
+
+
 def _rank_device(args, rank: int) -> str:
     return f"cuda:{rank}" if _device(args) == "cuda" else "cpu"
 

@@ -71,7 +71,14 @@ Phases, each of which raises on failure (exit code non-zero):
                 bf16 rounding of the kernel's own f32 run on the same
                 inputs, y within one bf16 rounding plus the f32 atol, 2^-8
                 * |want| + 1e-4, of the f32 plain version), timed beside
-                its plain version (library_ms null); the two data-plane
+                its plain version (library_ms null); beside it
+                selective_scan_chunked (no kernel in either package: the
+                trainer's Mamba scan) at b=1, s=2048, inner 16384, n 16,
+                f32, with h0: y and h_last within atol 1e-4 of the
+                per-token loop and of the kernel, the forward ms of all
+                three, forward + backward of the chunked form and of the
+                loop (ms, peak memory, autograd nodes) with every
+                gradient within 3.2e-4 x its leaf's max |g|; the two data-plane
                 kernels: gi_g1_window (every delay family at 640 frames,
                 f32, and 1,280, f64; bitwise but lognormal, within 1e-12)
                 and at a sweep cell's window (16 epochs x 16 streams,
@@ -259,11 +266,15 @@ Phases, each of which raises on failure (exit code non-zero):
                 under grad refused (RuntimeError naming impl="torch");
                 (e) one make_train_step step of reduced qwen2.5-3b, jamba
                 and xlstm-1.3b on the card against the CPU (loss within
-                1e-5 relative, parameters within atol 2e-5); (f) reduced
-                qwen2.5-3b: run(steps=6) against a run stopped after its
-                checkpoint at step 3 and resumed (losses of steps 3-5 and
-                the final parameters within 1e-6 relative), a corrupted
-                leaf refused on restore, the temporary directory removed.
+                1e-5 relative, parameters within atol 2e-5), built as
+                launch.train builds them (jamba's Mamba scan chunked),
+                and jamba's step with ssm_impl="ref" (the per-token loop)
+                on the card against the chunked one at the same bars; (f)
+                reduced qwen2.5-3b: run(steps=6) against a run stopped
+                after its checkpoint at step 3 and resumed (losses of
+                steps 3-5 and the final parameters within 1e-6 relative),
+                a corrupted leaf refused on restore, the temporary
+                directory removed.
  12. the multi-device half - one rank per visible card (up to 4; one on
                 a machine of one card: a real NCCL group of one), each
                 started as ``chip_smoke.py --mesh-rank RANK WORLD DIR``
@@ -336,8 +347,9 @@ Phases, each of which raises on failure (exit code non-zero):
                 what NCCL moves; (c) one record, qwen2.5-3b decode_32k at
                 full depth on the 16x16 mesh with --fast, and its
                 roofline terms (roofline.terms_from_record); (d) the
-                scaled token loops against the whole per-token trace on
-                the card's tensors, exactly. No kernel launches here.
+                scaled token loops (the chunked scan's chunks too)
+                against the whole per-token trace on the card's tensors,
+                exactly. No kernel launches here.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit``, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -1801,6 +1813,120 @@ def check_scan(dev):
                                                  worst["float32", "h"][0]),
                                  lanes=plan["lanes"])
     return out
+
+
+# selective_scan_chunked (no kernel in either package: the trainer's and
+# the dry run's Mamba scan) at row 8's width, b=1, s=2048, inner 16384, n
+# 16, f32, with h0: y and h_last against the per-token plain loop and the
+# kernel within tests/test_kernels.py's atol 1e-4; forward ms of the three;
+# forward + backward of the chunked form and of the loop (ms, peak memory,
+# autograd nodes a graph), their gradients of x, dt, A, B, C, D and h0
+# apart by at most SCAN_GRAD_BAR x each leaf's max |g|: the CPU tests' bar
+# against jax.grad (1e-5 at inner 16) grown as the square root of the
+# channels that B's and C's gradients sum over (16,384 / 16), 3.2e-4.
+SCAN_CHUNKED_ATOL = 1e-4
+SCAN_GRAD_BAR = 1e-5 * (16384 / 16) ** 0.5
+
+
+def check_scan_chunked(dev, smi):
+    """The chunked scan against the loop and the kernel, forward and
+    backward, at jamba's width. Returns its numbers."""
+    import torch
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan import ref as ss_ref
+    t_step = time.perf_counter()
+    b, s, inner, n = SCAN_FULL[1]
+    args = scan_inputs(b, s, inner, n, "float32", dev, 91, h0=True)
+    with torch.no_grad():
+        yc, hc = ss_ref.selective_scan_chunked(*args)
+        forms = {"loop": ss_ref.selective_scan_ref(*args),
+                 "kernel": ss_ops.selective_scan(*args)}
+    res = {}
+    for name, (y, h) in forms.items():
+        ey = float((yc - y).abs().max())
+        eh = float((hc - h).abs().max())
+        res[f"err_{name}"] = (ey, eh)
+        if not (ey <= SCAN_CHUNKED_ATOL and eh <= SCAN_CHUNKED_ATOL
+                and torch.isfinite(yc).all()):
+            raise AssertionError(f"selective_scan_chunked against the "
+                                 f"{name}: y {ey:.3e}, h_last {eh:.3e} "
+                                 f"(atol {SCAN_CHUNKED_ATOL})")
+    del forms, yc, hc
+    with torch.no_grad():
+        res["ms"] = dict(
+            chunked=cuda_ms(lambda: ss_ref.selective_scan_chunked(*args),
+                            reps=5, warmup=2),
+            loop=cuda_ms(lambda: ss_ref.selective_scan_ref(*args), reps=2,
+                         warmup=2),
+            kernel=cuda_ms(lambda: ss_ops.selective_scan(*args), reps=10))
+    gen = torch.Generator(device=dev).manual_seed(92)
+    wy = torch.randn(b, s, inner, device=dev, generator=gen)
+    wh = torch.randn(b, inner, n, device=dev, generator=gen)
+
+    def nodes(t):
+        seen, todo = set(), [t.grad_fn]
+        while todo:
+            f = todo.pop()
+            if f is not None and f not in seen:
+                seen.add(f)
+                todo.extend(g for g, _ in f.next_functions)
+        return len(seen)
+
+    def fwd_bwd(fn, count=False):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        y, h = fn(*leaves)
+        loss = (y * wy).sum() + (h * wh).sum()
+        k = nodes(loss) if count else None
+        loss.backward()
+        return [t.grad for t in leaves], k
+    grads, back = {}, {}
+    for name, fn in (("chunked", ss_ref.selective_scan_chunked),
+                     ("loop", ss_ref.selective_scan_ref)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grads[name], k = fwd_bwd(fn, count=True)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        reps = 3 if name == "chunked" else 1
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fwd_bwd(fn)
+        torch.cuda.synchronize()
+        back[name] = dict(ms=1e3 * (time.perf_counter() - t0) / reps,
+                          peak_gb=peak, nodes=k)
+    res["fwd_bwd"] = back
+    gap = {}
+    for key, gc_, gl in zip(("x", "dt", "A", "B", "C", "D", "h0"),
+                            grads["chunked"], grads["loop"]):
+        gap[key] = float((gc_ - gl).abs().max() / gl.abs().max())
+        if not gap[key] <= SCAN_GRAD_BAR:
+            raise AssertionError(f"selective_scan_chunked: gradient of {key}"
+                                 f" {gap[key]:.3e} of its max |g| from the "
+                                 f"loop's (bar {SCAN_GRAD_BAR:.3e})")
+    res["grad_gap"] = gap
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    (ly, lh), (ky, kh) = res["err_loop"], res["err_kernel"]
+    ms = res["ms"]
+    log(f"  selective_scan_chunked b={b} s={s} inner={inner} n={n} f32, h0, "
+        f"chunks of 256: max abs err against the loop y {ly:.3e} h_last "
+        f"{lh:.3e}, against the kernel y {ky:.3e} h_last {kh:.3e} (atol "
+        f"{SCAN_CHUNKED_ATOL}); forward {ms['chunked']:.4f} ms, loop "
+        f"{ms['loop']:.4f} ms, kernel {ms['kernel']:.4f} ms; {smi}")
+    for name, r in back.items():
+        log(f"  selective_scan_chunked forward + backward, {name}: "
+            f"{r['ms']:.2f} ms, peak {r['peak_gb']:.3f} GB above the inputs "
+            f"(max_memory_allocated), {r['nodes']} autograd nodes; {smi}")
+    log("  selective_scan_chunked gradients against the loop's, of each "
+        "leaf's max |g|: " + ", ".join(f"{k} {v:.3e}"
+                                       for k, v in gap.items())
+        + f" (bar {SCAN_GRAD_BAR:.3e}); the step "
+        f"{time.perf_counter() - t_step:.1f} s")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4168,7 +4294,10 @@ def train_cut(dev):
 def train_parity(dev):
     """(e) one make_train_step step of each TRAIN_PARITY architecture at
     reduced() on the card against the same step on the CPU: loss within
-    1e-5 relative, parameters within atol 2e-5."""
+    1e-5 relative, parameters within atol 2e-5. The model is built as
+    launch.train builds it (the Mamba scan chunked); jamba's step is also
+    taken on the card with ssm_impl="ref" (the per-token loop), held to
+    the chunked card step at the same bars."""
     import torch
     from repro_torch import configs, models
     from repro_torch.data import PipelineConfig, TokenPipeline
@@ -4179,18 +4308,34 @@ def train_parity(dev):
     res = {}
     for name in TRAIN_PARITY:
         cfg = configs.get(name).reduced()
-        model = models.build(cfg, impl="torch")
+        model = models.build(cfg, impl="torch", ssm_impl="chunked")
         p_cpu = models.common.init_params(
             model.template(), torch.Generator().manual_seed(0), device="cpu")
         pipe = TokenPipeline(PipelineConfig(cfg.vocab, 32, 2, seed=0))
         ocfg = opt_mod.AdamWConfig(lr=1e-3)
         out = {}
-        for d in ("cpu", dev):
+        runs = [("cpu", model), (str(dev), model)]
+        if any(sp.mixer == "mamba" for sp in model.period):
+            runs.append(("ref", models.build(cfg, impl="torch")))
+        for key, m in runs:
+            d = "cpu" if key == "cpu" else dev
             p = tree_map(lambda t: t.to(d), p_cpu)
-            out[str(d)] = ts_mod.make_train_step(model, ocfg)(
+            out[key] = ts_mod.make_train_step(m, ocfg)(
                 p, opt_mod.init(p, ocfg),
                 train_mod.device_batch(pipe, cfg, 0, 32, d))
         card = out[str(dev)]
+        if "ref" in out:
+            lr_ = float(out["ref"][2]["loss"])
+            rel_ref = abs(lr_ - float(card[2]["loss"])) / abs(lr_)
+            perr_ref = _tree_close(f"{name} ssm_impl ref against chunked: "
+                                   "parameters", out["ref"][0], card[0],
+                                   rtol=0.0, atol=2e-5)
+            log(f"  (e) {name} reduced on the card, ssm_impl ref (the "
+                f"per-token loop) against chunked: loss rel {rel_ref:.3e} "
+                f"(bar 1e-5), parameters max abs {perr_ref:.3e} (bar 2e-5)")
+            if rel_ref > 1e-5:
+                raise AssertionError(f"{name}: ssm_impl ref loss outside "
+                                     "1e-5 of chunked")
         lc, lg = float(out["cpu"][2]["loss"]), float(card[2]["loss"])
         rel = abs(lg - lc) / abs(lc)
         perr = _tree_close(f"{name} card against CPU: parameters",
@@ -5173,12 +5318,14 @@ def token_loop_counts(dev):
     """Phase 13 (d): the dry run's scaled token loops (tokens 0, 1 and 2,
     token 1 counted s - 2 times) against the whole per-token trace, on the
     card's tensors under this machine's torch: the sLSTM and the Mamba
-    scan over 32 tokens at reduced widths, serving, training and training
-    under each remat policy. FLOPs, bytes, the forward's live bytes and
-    peak, and the step's peak and live bytes, exactly."""
+    scan over 32 tokens at reduced widths, and the chunked scan over 4
+    chunks of 8 tokens, serving, training and training under each remat
+    policy. FLOPs, bytes, the forward's live bytes and peak, and the
+    step's peak and live bytes, exactly."""
     import torch
     from repro_torch import configs, token_loop
-    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan.ref import (
+        selective_scan_chunked, selective_scan_ref)
     from repro_torch.launch import dryrun
     from repro_torch.models import xlstm
     from repro_torch.models.common import init_params
@@ -5196,7 +5343,7 @@ def token_loop_counts(dev):
         fn = _remat(lambda x: xlstm.slstm_apply(params, x, cfg), cfg, params)
         return lambda: fn(x)
 
-    def scan(grad, remat):
+    def scan(grad, remat, form=selective_scan_ref):
         gen = torch.Generator(device=dev).manual_seed(0)
         b, inner, n = 2, 16, 4
         ops = [torch.randn(shape, generator=gen, device=dev) for shape in
@@ -5207,9 +5354,12 @@ def token_loop_counts(dev):
             t.requires_grad_(grad)
         cfg = dataclasses.replace(
             configs.get("jamba-1.5-large-398b").reduced(), remat=remat)
-        fn = _remat(lambda *o: selective_scan_ref(*o)[0], cfg,
-                    {"A": ops[2], "D": ops[5]})
+        fn = _remat(lambda *o: form(*o)[0], cfg, {"A": ops[2], "D": ops[5]})
         return lambda: fn(*ops)
+
+    def chunked(grad, remat):
+        return scan(grad, remat, lambda *o: selective_scan_chunked(
+            *o, chunk=s // 4))
 
     def count(fn, grad, scaled):
         tally = dryrun.Tally()
@@ -5223,7 +5373,8 @@ def token_loop_counts(dev):
         return (tally.flops, tally.bytes, *fwd, tally.peak, tally.live)
 
     got = {}
-    for loop, make in (("slstm", slstm), ("scan", scan)):
+    for loop, make in (("slstm", slstm), ("scan", scan),
+                       ("chunked", chunked)):
         for mode in ("serve", "train", "train-remat-full",
                      "train-remat-dots"):
             grad = mode != "serve"
@@ -5479,8 +5630,9 @@ def main() -> int:
         "kernels checked)")
     mlstm = check_mlstm(dev)
     scan = check_scan(dev)
+    check_scan_chunked(dev, smi)
     log(f"  (phase 2 at {time.perf_counter() - t_start:.0f} s: mlstm_chunkwise "
-        "and selective_scan checked)")
+        "and selective_scan checked, selective_scan_chunked beside them)")
     dp_timed = dataplane_kernels(dev)
 
     log(f"== phase 3 (at {time.perf_counter() - t_start:.0f} s): end to end")

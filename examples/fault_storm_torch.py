@@ -20,6 +20,16 @@ kind at once, graceful degradation on.
 
     PYTHONPATH=src python examples/fault_storm_torch.py [--smoke] \
         [--policies lbcd,min] [--device cuda|cpu]
+
+Against ``examples/fault_storm.py`` (``tests/test_torch_examples_storm.py``
+at 4 cameras, 2 servers, 20 s epochs) every counter agrees and every
+slot's measured AoPI within 1e-3 but one: slot 10 of ``camera_churn``,
+where the two place a live camera on different servers. Neither is wrong:
+on the same plan window both place every camera alike. Their windows
+differ by the telemetry scales' ulp-level drift (link efficiencies 1.3e-6
+relative), and four BCD iterations of that slot's virtual-server solve
+turn it into a 2% shift of one camera's bandwidth, which reorders
+first-fit.
 """
 import argparse
 

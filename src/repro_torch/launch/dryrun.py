@@ -44,28 +44,31 @@ Where these records differ from the JAX package's, by design:
   * Prefill and decode plans keep the weights gathered
     (``specs.plan_cell``): their collective bytes leave out the all-gather
     of the FSDP weights that the JAX package's plan makes on every call.
-  * The token recurrences (the sLSTM, the Mamba scan) are counted at
-    every token. XLA's ``cost_analysis`` counts a ``lax.scan`` body once;
-    the JAX package's depth extrapolation repairs that for the scan over
-    layers, not for the scans over tokens, so its records count each
-    token recurrence once.
+  * The token recurrences (the sLSTM, the Mamba scan's chunks) are
+    counted at every token and every chunk. XLA's ``cost_analysis``
+    counts a ``lax.scan`` body once; the JAX package's depth
+    extrapolation repairs that for the scan over layers, not for the
+    scans over tokens or chunks, so its records count each token
+    recurrence, and the chunked scan's chunk, once.
   * FLOPs are the products that ``FlopCounterMode`` counts (matmuls,
     convolutions, attention); XLA counts elementwise work too.
   * n_microbatches is the train plan's count (None for serving); the JAX
     package's record always holds None.
 
-The per-token loops run through ``token_loop.run``, hooked while a step
-is counted (``scaled_loop``): a loop of n >= 3 tokens runs tokens 0, 1
-and 2, and token 1 counts n - 2 times (its FLOPs, bytes and collectives,
-its autograd nodes' backward work, and the storages it leaves alive,
-which the backward pass frees one token's worth at a time), so the first
-and last tokens keep their own work. This equals the whole per-token
-trace, remat's recompute of the loop in the backward pass included. The
-backward pass's share reads private autograd internals
-(``torch._C._current_autograd_node``, ``_sequence_nr``,
-``_top_saved_tensors_default_hooks``), so its exactness is known only
-for the torch versions it has been held on: 2.13 (the CPU tests) and
-2.11 (``chip_smoke.py`` phase 13 (d), on the card's tensors).
+The per-token loops, and the chunked Mamba scan's loop over chunks (a
+"token" of the hook below is then a chunk), run through
+``token_loop.run``, hooked while a step is counted (``scaled_loop``): a
+loop of n >= 3 tokens runs tokens 0, 1 and 2, and token 1 counts n - 2
+times (its FLOPs, bytes and collectives, its autograd nodes' backward
+work, and the storages it leaves alive, which the backward pass frees
+one token's worth at a time), so the first and last tokens keep their
+own work. This equals the whole per-token trace, remat's recompute of
+the loop in the backward pass included. The backward pass's share reads
+private autograd internals (``torch._C._current_autograd_node``,
+``_sequence_nr``, ``_top_saved_tensors_default_hooks``), so its
+exactness is known only for the torch versions it has been held on: 2.13
+(the CPU tests) and 2.11 (``chip_smoke.py`` phase 13 (d), on the card's
+tensors).
 
 Only the plain versions run (``impl="torch"``, the counterpart of the JAX
 package's ``--impl ref``): the hand-written kernels launch through
@@ -429,10 +432,13 @@ def _reduced_depth(cfg, n_periods: int):
 def measure_cell(cfg, shape, mesh, *, skip_extrapolation=False,
                  **plan_kwargs) -> dict:
     """Count a cell and return its record. ``plan_kwargs`` (impl,
-    mlstm_impl, rule_overrides, n_microbatches, ...) forward to
+    ssm_impl, mlstm_impl, rule_overrides, n_microbatches, ...) forward to
     ``plan_cell``. ``mesh`` gives the axes (a shape-only mesh,
     ``make_production_mesh``): a fake group of its ranks is joined for
-    the cell."""
+    the cell. ``ssm_impl`` defaults to "chunked" for every kind: the dry
+    run runs the plain versions, and the JAX package's records count its
+    Mamba layers through the chunked scan."""
+    plan_kwargs.setdefault("ssm_impl", "chunked")
     impl = plan_kwargs.setdefault("impl", "torch")
     if impl != "torch":
         raise ValueError(

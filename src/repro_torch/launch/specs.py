@@ -129,13 +129,17 @@ def input_specs(cfg: ModelConfig, shape: InputShape, model=None,
 
 
 def plan_cell(cfg: ModelConfig, shape: InputShape, mesh, *,
-              impl: Optional[str] = None, mlstm_impl: str = "ref",
+              impl: Optional[str] = None, ssm_impl: Optional[str] = None,
+              mlstm_impl: str = "ref",
               rule_overrides: Optional[dict] = None,
               n_microbatches: Optional[int] = None,
               hoist_fsdp_gather: Optional[bool] = None) -> CellPlan:
     """Plan ``cfg`` at ``shape`` on ``mesh``. ``impl`` defaults to the
     kernels for prefill and decode (``"auto"``) and to the plain versions
-    for training (``"torch"``: the kernels have no backward pass). The
+    for training (``"torch"``: the kernels have no backward pass), and
+    ``ssm_impl`` (``models.registry.SSM_IMPLS``) to the chunked Mamba scan
+    for training (``"chunked"``, the JAX package's default) and to
+    ``"ref"`` for prefill and decode (the ``selective_scan`` kernel). The
     hoist rule is the JAX package's: with FSDP and more than one
     microbatch, gather the weights once per step when their gathered
     layout fits ``HOIST_GIB`` a device. Prefill and decode plans keep
@@ -154,7 +158,8 @@ def plan_cell(cfg: ModelConfig, shape: InputShape, mesh, *,
     if kind == "prefill":
         batch_sh.pop("labels")
     impl = impl or ("torch" if kind == "train" else "auto")
-    model = build(cfg, impl=impl, mlstm_impl=mlstm_impl,
+    ssm_impl = ssm_impl or ("chunked" if kind == "train" else "ref")
+    model = build(cfg, impl=impl, ssm_impl=ssm_impl, mlstm_impl=mlstm_impl,
                   ep_degree=rules_mod.ep_degree(mesh))
     dt = DTYPES[cfg.dtype]
     tmpl = model.template()

@@ -8,7 +8,9 @@
 
 The JAX package's ``launch/train.py`` on one device: the model is built
 with the plain versions (``impl="torch"``, as the JAX launcher builds
-with ``impl="ref"``; the CUDA kernels have no backward pass), parameters
+with ``impl="ref"``; the CUDA kernels have no backward pass) and its
+Mamba layers' scan in the chunked form (``ssm_impl="chunked"``, the JAX
+package's default, not the per-token loop), parameters
 are initialised in ``cfg.dtype`` from a seeded ``torch.Generator`` (bf16
 parameters with f32 AdamW state for the full configs), the data are the
 deterministic Zipf pipeline (with the vision and audio stubs), step times
@@ -114,7 +116,8 @@ def run(cfg, *, steps: int, batch: int, seq: int, ckpt_dir=None,
     sh = _Sharded(cfg, device) if _distributed() else None
     if sh is not None:
         device = sh.mesh.device
-    model = build(cfg, impl="torch", ep_degree=1 if sh is None else sh.ep)
+    model = build(cfg, impl="torch", ssm_impl="chunked",
+                  ep_degree=1 if sh is None else sh.ep)
     tmpl = model.template()
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_params(tmpl, gen, DTYPES[cfg.dtype], device)

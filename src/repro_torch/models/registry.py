@@ -53,6 +53,7 @@ from .attention import cache_rows_axis
 from .common import VOCAB, P, count_params, stack_template
 from .layers import (einsum, embed, embedding_template, softmax_xent,
                      unembed, unembed_template)
+from . import ssm
 from .mla import cache_rows_axis as mla_cache_rows_axis
 from .transformer import (block_cache_template, block_template, layout,
                           norm, norm_template, stack_apply, stack_decode)
@@ -63,6 +64,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # impl="auto" on the card, the kernel of the same function), and
 # "chunkwise", ``mlstm_chunkwise_xla``.
 MLSTM_IMPLS = ("ref", "chunkwise")
+# The Mamba layers' full-sequence scan (the JAX package's ``ssm_impl``
+# values that run no kernel): "ref", the ``selective_scan`` wrapper, and
+# "chunked", ``selective_scan_chunked`` (``models.ssm``).
+SSM_IMPLS = ssm.SSM_IMPLS
 
 
 def _check_mlstm_impl(mlstm_impl: str) -> None:
@@ -97,11 +102,14 @@ class TransformerLM(nn.Module):
     expert-parallel degree ``ep_degree``, as the reference pads them."""
 
     def __init__(self, cfg: ModelConfig, impl: str = "auto",
-                 mlstm_impl: str = "ref", ep_degree: int = 1):
+                 ssm_impl: str = "ref", mlstm_impl: str = "ref",
+                 ep_degree: int = 1):
         super().__init__()
         _check_mlstm_impl(mlstm_impl)
+        ssm.check_ssm_impl(ssm_impl)
         self.cfg = cfg
         self.impl = impl
+        self.ssm_impl = ssm_impl
         self.mlstm_impl = mlstm_impl
         self.period, self.n_periods = layout(cfg)
         self.dtype = DTYPES[cfg.dtype]
@@ -165,7 +173,8 @@ class TransformerLM(nn.Module):
                                     self.period,
                                     kv_embeds=self._vision(batch),
                                     impl=self.impl,
-                                    mlstm_impl=self.mlstm_impl)
+                                    mlstm_impl=self.mlstm_impl,
+                                    ssm_impl=self.ssm_impl)
             return self._logits(params, x), aux
 
     def loss(self, params, batch):
@@ -188,6 +197,7 @@ class TransformerLM(nn.Module):
                                        kv_embeds=self._vision(batch),
                                        impl=self.impl,
                                        mlstm_impl=self.mlstm_impl,
+                                       ssm_impl=self.ssm_impl,
                                        caches=cache["blocks"])
             x = shard_ctx.stream_gather(x)
         new_cache = {"blocks": blocks,
@@ -323,22 +333,31 @@ class EncDecLM(nn.Module):
         return self._logits(params, x)[:, 0], new_cache
 
 
-def build(cfg: ModelConfig, impl: str = "auto", mlstm_impl: str = "ref",
-          ep_degree: int = 1):
+def build(cfg: ModelConfig, impl: str = "auto", ssm_impl: str = "ref",
+          mlstm_impl: str = "ref", ep_degree: int = 1):
     """The model of ``cfg``: an ``EncDecLM`` when it has encoder layers,
     else a ``TransformerLM``. ``impl`` picks the path of the kernels
-    (attention, the mLSTM's prefill and the Mamba layers' selective scan):
-    ``auto`` (the CUDA kernels on CUDA tensors, the plain versions on CPU
-    ones) or ``torch`` (the plain versions on any device). The kernels
-    have no backward pass: train with ``impl="torch"``. ``mlstm_impl``
-    (``MLSTM_IMPLS``) is the JAX package's argument of that name:
-    ``"chunkwise"`` runs the mLSTM prefill as ``mlstm_chunkwise_xla``
-    whatever ``impl`` is. ``ep_degree``: the expert-parallel degree the
-    experts are padded for (``cfg.padded_experts``; the mesh's data extent
-    under a plan)."""
+    (attention, the mLSTM's prefill and, under ``ssm_impl="ref"``, the
+    Mamba layers' selective scan): ``auto`` (the CUDA kernels on CUDA
+    tensors, the plain versions on CPU ones) or ``torch`` (the plain
+    versions on any device). The kernels have no backward pass: train with
+    ``impl="torch"``. ``ssm_impl`` (``SSM_IMPLS``) is the JAX package's
+    argument of that name: ``"ref"`` runs the Mamba scan through
+    ``selective_scan`` (the kernel, or the per-token plain loop, as
+    ``impl`` picks), ``"chunked"`` as ``selective_scan_chunked`` whatever
+    ``impl`` is. Its default is "ref", where the JAX package's is
+    "chunked": a default of "chunked" would take the kernel off every
+    Mamba prefill on the card. The trainer, ``plan_cell``'s train plans
+    and the dry run pass "chunked", as the JAX package's do by default.
+    ``mlstm_impl`` (``MLSTM_IMPLS``) is the JAX package's argument of that
+    name: ``"chunkwise"`` runs the mLSTM prefill as
+    ``mlstm_chunkwise_xla`` whatever ``impl`` is. ``ep_degree``: the
+    expert-parallel degree the experts are padded for
+    (``cfg.padded_experts``; the mesh's data extent under a plan)."""
     check_impl(impl)
+    ssm.check_ssm_impl(ssm_impl)
     _check_mlstm_impl(mlstm_impl)
     if cfg.enc_layers:
         return EncDecLM(cfg, impl=impl)
-    return TransformerLM(cfg, impl=impl, mlstm_impl=mlstm_impl,
-                         ep_degree=ep_degree)
+    return TransformerLM(cfg, impl=impl, ssm_impl=ssm_impl,
+                         mlstm_impl=mlstm_impl, ep_degree=ep_degree)

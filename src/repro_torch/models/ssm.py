@@ -1,5 +1,6 @@
 """Mamba (S6) block: template, full-sequence apply (its scan is the
-``selective_scan`` kernel) and the decode step.
+``selective_scan`` kernel, or ``selective_scan_chunked`` under
+``ssm_impl="chunked"``) and the decode step.
 
 Templates, key names and einsum layouts are the JAX package's
 (``models/ssm.py``). The state of a cache is written in place: a prefill
@@ -22,10 +23,24 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.selective_scan import selective_scan, selective_step
+from ..kernels.selective_scan import (selective_scan,
+                                      selective_scan_chunked, selective_step)
 from ..sharding import ctx as shard_ctx
 from .common import CONV, EMBED, LORA, SSM_INNER, SSM_STATE, P
 from .layers import einsum, own_channels
+
+# The full-sequence scan's forms (the JAX package's ``ssm_impl`` values
+# that run no Pallas kernel): "ref", the ``selective_scan`` wrapper (the
+# CUDA kernel under impl="auto" on CUDA tensors, else the per-token plain
+# loop), and "chunked", ``selective_scan_chunked`` whatever ``impl`` is.
+SSM_IMPLS = ("ref", "chunked")
+
+
+def check_ssm_impl(ssm_impl: str) -> None:
+    if ssm_impl not in SSM_IMPLS:
+        raise ValueError(
+            f"ssm_impl={ssm_impl!r} not in {SSM_IMPLS} (the CUDA kernel runs "
+            "under ssm_impl='ref' with impl='auto')")
 
 
 def mamba_template(cfg):
@@ -112,21 +127,28 @@ def _gate_out(params, y, z, x, axis=None):
     return shard_ctx.exit_stream(out, axis)
 
 
-def mamba_apply(params, x, cfg, *, impl: str = "auto", state=None):
+def mamba_apply(params, x, cfg, *, impl: str = "auto", ssm_impl: str = "ref",
+                state=None):
     """Full-sequence apply. x: [b, s, d]. Returns y, or (y, state) when
     ``state`` is given (prefill): the scan starts from ``state["h"]`` and
     the state after the last token is written into it. A prompt shorter
     than ``conv - 1`` leaves zeros (the convolution's padding) in the
-    first rows of ``state["conv"]``."""
+    first rows of ``state["conv"]``. ``ssm_impl``: the scan's form
+    (``SSM_IMPLS``)."""
+    check_ssm_impl(ssm_impl)
     axis = _inner_axis(params, cfg)
     x_in, z = _in_proj(params, x, axis)
     xc = F.silu(_causal_conv(x_in, params["conv_w"], params["conv_b"])
                 .float()).to(x.dtype)
     dt, B, C = _dt_bc(params, xc, cfg, axis)
     A = -torch.exp(params["A_log"].float())
-    y, h_last = selective_scan(
-        xc, dt.contiguous(), A, B.contiguous(), C.contiguous(), params["D"],
-        None if state is None else state["h"], impl=impl)
+    h0 = None if state is None else state["h"]
+    if ssm_impl == "chunked":
+        y, h_last = selective_scan_chunked(xc, dt, A, B, C, params["D"], h0)
+    else:
+        y, h_last = selective_scan(
+            xc, dt.contiguous(), A, B.contiguous(), C.contiguous(),
+            params["D"], h0, impl=impl)
     out = _gate_out(params, y, z, x, axis)
     if state is None:
         return out

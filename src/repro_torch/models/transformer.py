@@ -184,7 +184,7 @@ def _ffn(params, x, cfg, spec: LayerSpec, *, decode: bool = False):
 
 def block_apply(params, x, cfg, spec: LayerSpec, *, causal: bool = True,
                 kv_embeds=None, impl: str = "auto", mlstm_impl: str = "ref",
-                cache=None):
+                ssm_impl: str = "ref", cache=None):
     """Full-sequence block (training, or prefill when ``cache`` is given;
     the prefill writes the cache in place). ``causal=False`` is the
     encoder's self-attention; ``kv_embeds`` [b, t, d] is the source of the
@@ -192,7 +192,9 @@ def block_apply(params, x, cfg, spec: LayerSpec, *, causal: bool = True,
 
     Residual adds promote as ``jnp`` does (a bf16 stream plus an f32
     sublayer output is f32). Returns (x, cache, aux): aux is the MoE's
-    load-balancing loss (0 for other FFNs)."""
+    load-balancing loss (0 for other FFNs). ``ssm_impl`` is the Mamba
+    scan's form (``ssm.SSM_IMPLS``)."""
+    ssm_mod.check_ssm_impl(ssm_impl)
     h = norm(cfg, params["norm1"], x)
     if spec.mixer == "attn":
         out = attn_mod.gqa_apply(
@@ -209,7 +211,7 @@ def block_apply(params, x, cfg, spec: LayerSpec, *, causal: bool = True,
             _write_enc(cache, params["mixer"], cfg, kv_embeds)
     elif spec.mixer == "mamba":
         out = ssm_mod.mamba_apply(
-            params["mixer"], h, cfg, impl=impl,
+            params["mixer"], h, cfg, impl=impl, ssm_impl=ssm_impl,
             state=None if cache is None else cache["state"])
     elif spec.mixer == "mlstm":
         out = xlstm_mod.mlstm_apply(
@@ -360,7 +362,7 @@ def _remat(fn, cfg, stacked):
 
 def stack_apply(stacked, x, cfg, period, *, causal: bool = True,
                 kv_embeds=None, impl: str = "auto", mlstm_impl: str = "ref",
-                caches=None):
+                ssm_impl: str = "ref", caches=None):
     """Run the period stack. ``stacked``/``caches``: {"p{i}": tree} with a
     leading n_periods dim on every leaf; caches are written in place.
     Returns (x, caches, aux), aux the sum of the periods' MoE losses.
@@ -376,6 +378,7 @@ def stack_apply(stacked, x, cfg, period, *, causal: bool = True,
             x, _, a = block_apply(
                 layer[f"p{i}"], x, cfg, spec, causal=causal,
                 kv_embeds=kv_embeds, impl=impl, mlstm_impl=mlstm_impl,
+                ssm_impl=ssm_impl,
                 cache=None if layer_cache is None else layer_cache[f"p{i}"])
             aux = aux + a
         return x, aux

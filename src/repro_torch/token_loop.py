@@ -1,6 +1,8 @@
 """The per-token loops of the plain versions: the sLSTM's recurrence
 (``models.xlstm.slstm_apply``) and the Mamba scan
-(``kernels.selective_scan.ref``).
+(``kernels.selective_scan.ref.selective_scan_ref``), and the chunked
+Mamba scan's loop over its chunks (``selective_scan_chunked``: a step is
+then a chunk).
 
 Each runs its tokens through ``run``, which is the plain loop. The dry
 run (``launch.dryrun``) alone sets a hook here for the time it counts a

@@ -33,8 +33,8 @@ import torch.distributed as dist  # noqa: E402
 
 from repro_torch import configs, token_loop  # noqa: E402
 from repro_torch.configs.base import SHAPES, InputShape  # noqa: E402
-from repro_torch.kernels.selective_scan.ref import \
-    selective_scan_ref  # noqa: E402
+from repro_torch.kernels.selective_scan.ref import (  # noqa: E402
+    selective_scan_chunked, selective_scan_ref)
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch.mesh import Mesh, make_production_mesh  # noqa: E402
@@ -380,6 +380,28 @@ def _scan(grad, remat="none"):
     return lambda: fn(*ops)
 
 
+def _chunked(grad, remat="none"):
+    """The chunked Mamba scan over S tokens in chunks of S / 4 (the hook
+    runs chunks 0, 1 and 2, chunk 1 counted twice), with h0, under
+    ``remat``."""
+    gen = torch.Generator().manual_seed(1)
+    b, inner, n = 2, 16, 4
+    ops = [torch.randn(b, S, inner, generator=gen),
+           torch.rand(b, S, inner, generator=gen),
+           -torch.rand(inner, n, generator=gen),
+           torch.randn(b, S, n, generator=gen),
+           torch.randn(b, S, n, generator=gen),
+           torch.randn(inner, generator=gen),
+           torch.randn(b, inner, n, generator=gen)]
+    for t in ops:
+        t.requires_grad_(grad)
+    cfg = dataclasses.replace(configs.get("jamba-1.5-large-398b").reduced(),
+                              remat=remat)
+    fn = _remat(lambda *o: selective_scan_chunked(*o, chunk=S // 4)[0],
+                cfg, {"A": ops[2], "D": ops[5]})
+    return lambda: fn(*ops)
+
+
 def _count(fn, scaled: bool, grad: bool) -> dict:
     tally = dryrun.Tally()
     hook = dryrun.scaled_loop(tally) if scaled else \
@@ -395,20 +417,21 @@ def _count(fn, scaled: bool, grad: bool) -> dict:
 
 @pytest.mark.parametrize("mode", ["serve", "train", "train-remat-full",
                                   "train-remat-dots"])
-@pytest.mark.parametrize("loop", ["slstm", "scan"])
+@pytest.mark.parametrize("loop", ["slstm", "scan", "chunked"])
 def test_token_scaling_equals_whole_trace(loop, mode):
     """Tokens 0, 1, 2 with token 1 counted s - 2 times against all s
-    tokens traced: FLOPs, bytes, the bytes kept for the backward pass,
-    the forward's and the whole step's peak, exactly; under remat the
-    backward pass runs the loop again (the recompute)."""
+    tokens traced (chunks, for the chunked scan): FLOPs, bytes, the bytes
+    kept for the backward pass, the forward's and the whole step's peak,
+    exactly; under remat the backward pass runs the loop again (the
+    recompute)."""
     grad = mode != "serve"
     remat = mode.split("-")[-1] if "remat" in mode else "none"
-    make = {"slstm": _slstm, "scan": _scan}[loop]
+    make = {"slstm": _slstm, "scan": _scan, "chunked": _chunked}[loop]
     whole = _count(make(grad, remat), False, grad)
     scaled = _count(make(grad, remat), True, grad)
     assert scaled == whole
     assert whole["bytes"] > 0
-    if loop == "slstm":
+    if loop != "scan":
         assert whole["flops"] > 0
 
 
@@ -423,6 +446,30 @@ def test_token_scaling_equals_whole_trace_in_a_train_step():
                          impl="torch", n_microbatches=1)
         whole = dryrun.trace_step(plan, scale_tokens=False)
         scaled = dryrun.trace_step(plan)
+    assert scaled == whole
+
+
+def test_chunk_scaling_equals_whole_trace_in_a_jamba_train_step(
+        monkeypatch):
+    """A planned train step of reduced jamba (its Mamba layers through the
+    chunked scan, plan_cell's train default) on (1, 2) at 1,024 tokens,
+    four chunks of 256 a layer: every count, the collectives and the temp
+    peak equal the whole trace's, chunk by chunk."""
+    seen = []
+    real = dryrun.scaled_loop
+
+    def spy(tally):
+        hook = real(tally)
+        return lambda n, step: seen.append(n) or hook(n, step)
+    monkeypatch.setattr(dryrun, "scaled_loop", spy)
+    cfg = configs.get("jamba-1.5-large-398b").reduced()
+    with dryrun.fake_mesh((1, 2), ("data", "model")) as mesh:
+        plan = plan_cell(cfg, InputShape("t", 1024, 1, "train"), mesh,
+                         n_microbatches=1)
+        assert plan.model.ssm_impl == "chunked"
+        whole = dryrun.trace_step(plan, scale_tokens=False)
+        scaled = dryrun.trace_step(plan)
+    assert seen and set(seen) == {4}
     assert scaled == whole
 
 
@@ -567,3 +614,38 @@ def test_reference_slstm_scan_counted_once():
         got = _count(lambda: xlstm.slstm_apply(
             tparams, torch.zeros(b, s, d), tcfg), True, False)["flops"]
         assert got == s * per_token
+
+
+def test_reference_chunked_scan_counted_once():
+    """The JAX package's ``selective_scan_chunked`` (its models' default
+    Mamba scan) under cost_analysis: the chunk body, one
+    ``selective_scan_ref`` of ``chunk`` tokens from h0, counted once and
+    2 FLOPs of loop counter beside it, at every length (a slope of 0 in
+    s). The port counts every chunk's products: 2 x b x s x inner x n
+    FLOPs (the einsum with C), linear in s."""
+    from repro.kernels.selective_scan import ref as j_scan
+    from repro.launch.dryrun import cost_analysis
+    b, inner, n, chunk = 2, 16, 4, 32
+
+    def zeros(s, h0):
+        return ([jnp.zeros((b, s, inner))] * 2 + [jnp.zeros((inner, n))]
+                + [jnp.zeros((b, s, n))] * 2 + [jnp.zeros((inner,))]
+                + ([jnp.zeros((b, inner, n))] if h0 else []))
+
+    def flops(fn, s, h0=False):
+        return cost_analysis(jax.jit(fn).lower(*zeros(s, h0)).compile())[
+            "flops"]
+
+    body = flops(j_scan.selective_scan_ref, chunk, h0=True)
+    ref = {s: flops(lambda *a: j_scan.selective_scan_chunked(
+        *a, chunk=chunk), s) for s in (2 * chunk, 4 * chunk, 8 * chunk)}
+    assert body > 0 and set(ref.values()) == {body + 2}
+    # The whole-sequence associative form grows with s.
+    assert flops(j_scan.selective_scan_ref, 8 * chunk) > 8 * flops(
+        j_scan.selective_scan_ref, chunk)
+
+    for s in (2 * chunk, 8 * chunk):
+        ops = [torch.zeros(t.shape) for t in zeros(s, False)]
+        got = _count(lambda: selective_scan_chunked(*ops, chunk=chunk),
+                     True, False)["flops"]
+        assert got == 2 * b * s * inner * n
